@@ -1,0 +1,330 @@
+"""Exact top-k with per-user exclusion by value peeling (port of
+``sibrar_tpu/ops/pallas_peel.py``).
+
+Pipeline over a [B, C] score matrix and its 128-wide window maxima (both from
+kernel K2, ``ops/window.py``):
+
+1. on the corrected-wmax path, recompute the maxima of the windows that hold
+   a user's excluded items; otherwise select ``k + E`` windows (margin path);
+2. select the top-``m`` windows per user by maximum (covering theorem);
+3. gather them with the excluded and padded lanes set to -inf (K3);
+4. peel the top-``t`` distinct values of every window (K4);
+5. merge the ``m * t`` peeled values with one top-k, and recover each
+   winner's catalog index from its window row (K3 again);
+6. flag each row ``ok = complete & unique & all_live``. The serving entry
+   point redoes the rows that are not ok with the dense path
+   (``ops/topk.py``); only those rows, not the whole batch as in JAX.
+
+Both top-k selections are stable sorts, so ties go to the lower index as in
+``lax.top_k`` and the ok flags match the JAX package on identical scores.
+Window selection is always exact: JAX's ``approx_max_k`` branch is TPU-only,
+and at the serving catalog (784 windows) JAX takes the exact branch as well.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from sibrar_tpu_torch.ops import _cuda
+from sibrar_tpu_torch.ops.topk import topk_excluding
+from sibrar_tpu_torch.ops.window import WINDOW, pad_excl, score_wmax
+
+NEG = -1e30
+PEELED = float("-inf")  # below any live score, the -1e30 mask included
+
+# JAX's gates for the corrected-wmax path: at most this many excluded items
+# per user, and score rows of at most this many bytes.
+_CORR_MAX_E = 512
+_CORR_MAX_ROW_BYTES = 1 << 20
+PEEL_T = 8  # peel depth before the adaptive deepening (JAX default t)
+BC = 1024  # catalog padding multiple of the dot path (JAX bc)
+
+
+def _use_corrected_wmax(c_real: int, e: int) -> bool:
+    """The JAX package's cost gate, kept identical so both packages select
+    the same windows: correct the maxima when E > C / 1024."""
+    return (0 < e <= _CORR_MAX_E and c_real * 4 <= _CORR_MAX_ROW_BYTES
+            and e > c_real // 1024)
+
+
+def _round_m(m: int, nw: int) -> int:
+    """Selected-window count rounded up to a multiple of 8 while 2m <= nw
+    (JAX ``_round_m``); the extra windows are the next-best ones."""
+    r = -(-m // 8) * 8
+    return r if 2 * r <= nw else min(m, nw)
+
+
+def peel_viable(c: int, k: int, e: int) -> bool:
+    """Peeling is used when the selected windows are a small share of the
+    catalog. The JAX predicate also bounds Mosaic's VMEM blocks; those gates
+    have no counterpart here."""
+    nw = -(-c // WINDOW)
+    corrected = e > 0 and _use_corrected_wmax(c, e)
+    margin = 1 if (e == 0 or corrected) else e + 1
+    m = _round_m(k + margin, nw)
+    return m * PEEL_T >= k and 2 * m <= nw
+
+
+def _topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along dim 1, ties to the lower index (``lax.top_k``'s rule)."""
+    v, i = torch.sort(x, dim=1, descending=True, stable=True)
+    return v[:, :k], i[:, :k]
+
+
+# ------------------------------------------------------------------ kernel K3
+def gather_windows_plain(src: torch.Tensor, idx: torch.Tensor,
+                         dead: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K3: ``out[b, j] = src[b, 128 idx[b, j] : +128]``,
+    -inf where ``dead``."""
+    b = src.shape[0]
+    out = src.reshape(b, -1, WINDOW).gather(
+        1, idx.long()[:, :, None].expand(-1, -1, WINDOW))
+    return out if dead is None else out.masked_fill(dead, PEELED)
+
+
+def gather_windows(src: torch.Tensor, idx: torch.Tensor,
+                   dead: torch.Tensor | None = None) -> torch.Tensor:
+    """K3: windows ``idx [B, m]`` of the rows of ``src [B, n * 128]`` as
+    ``[B, m, 128]``, with ``dead [B, m, 128]`` lanes set to -inf on copy
+    (see ``csrc/gather_windows.cu``)."""
+    tensors = (src, idx) if dead is None else (src, idx, dead)
+    if src.ndim != 2 or src.shape[1] % WINDOW or idx.ndim != 2:
+        raise ValueError(f"gather_windows: src {tuple(src.shape)} must be "
+                         f"[B, n*128] and idx {tuple(idx.shape)} [B, m]")
+    if not _cuda.use_kernel(*tensors):
+        return gather_windows_plain(src, idx, dead)
+    b, m = idx.shape
+    if (src.dtype != torch.float32 or idx.dtype != torch.int32
+            or not src.is_contiguous() or not idx.is_contiguous()):
+        raise ValueError("gather_windows: contiguous f32 src, int32 idx")
+    if dead is not None and (dead.dtype != torch.bool
+                             or not dead.is_contiguous()
+                             or tuple(dead.shape) != (b, m, WINDOW)):
+        raise ValueError("gather_windows: dead must be contiguous bool "
+                         f"[{b}, {m}, {WINDOW}]")
+    out = torch.empty((b, m, WINDOW), dtype=torch.float32, device=src.device)
+    _cuda.launch("sibrar_gather_windows", src.data_ptr(), src.stride(0),
+                 idx.data_ptr(), b, m,
+                 None if dead is None else dead.data_ptr(), out.data_ptr())
+    gather_windows.launches += 1
+    return out
+
+
+gather_windows.launches = 0
+
+
+def gather_score_windows(scores: torch.Tensor, widx: torch.Tensor,
+                         dead: torch.Tensor | None = None) -> torch.Tensor:
+    """Windows ``widx [B, m]`` straight off the [B, C] score matrix (JAX
+    ``gather_score_windows``, whose chunked spellings are VMEM workarounds):
+    K3 on the scores."""
+    return gather_windows(scores, widx, dead)
+
+
+def gather_subwindows(g: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """``out[b, s] = g[b, slots[b, s]]`` from the gathered ``g [B, m, 128]``
+    (JAX ``gather_subwindows``): K3 on g viewed as [B, m * 128]."""
+    b, m, w = g.shape
+    return gather_windows(g.reshape(b, m * w), slots)
+
+
+# ------------------------------------------------------------------ kernel K4
+def peel_values_plain(x: torch.Tensor, t: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4: ``(vals [R, t], last [R])``, the top-t distinct
+    values of each row of ``x [R, 128]``, descending, -inf padded."""
+    cur, cols = x, []
+    for r in range(t):
+        v = cur.amax(dim=1, keepdim=True)
+        cols.append(v)
+        if r + 1 < t:
+            cur = torch.where(cur == v, PEELED, cur)  # clear ALL tied lanes
+    vals = torch.cat(cols, dim=1)
+    return vals, vals[:, t - 1]
+
+
+def peel_values(x: torch.Tensor, t: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 over ``x [R, 128]`` (see ``csrc/peel_values.cu``); JAX
+    ``peel_values``, which returns only ``vals``."""
+    if x.ndim != 2 or x.shape[1] != WINDOW:
+        raise ValueError(f"peel_values: x must be [R, {WINDOW}], "
+                         f"got {tuple(x.shape)}")
+    t = min(t, WINDOW)
+    if not _cuda.use_kernel(x):
+        return peel_values_plain(x, t)
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("peel_values: contiguous f32 only")
+    r = x.shape[0]
+    vals = torch.empty((r, t), dtype=torch.float32, device=x.device)
+    last = torch.empty((r,), dtype=torch.float32, device=x.device)
+    _cuda.launch("sibrar_peel_values", x.data_ptr(), r, t, vals.data_ptr(),
+                 last.data_ptr())
+    peel_values.launches += 1
+    return vals, last
+
+
+peel_values.launches = 0
+
+
+def peel_values_grouped(g: torch.Tensor, t: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 over ``g [B, m, 128]``: ``(vals [B, m * t], last [B, m])`` where
+    ``vals[b, s * t + r]`` is window s's round-r value (JAX
+    ``peel_values_grouped``)."""
+    b, m, w = g.shape
+    vals, last = peel_values(g.reshape(b * m, w), t)
+    return vals.reshape(b, m * vals.shape[1]), last.reshape(b, m)
+
+
+# ------------------------------------------------------------ orchestration
+def _flat_mask(b: int, width: int, pos: torch.Tensor, hit: torch.Tensor,
+               device) -> torch.Tensor:
+    """Bool [b, width] with True at ``pos[i, j]`` of row i where
+    ``hit[i, j]``; misses land in one spare trailing slot that is cut off."""
+    base = torch.arange(b, device=device)[:, None] * width
+    flat = torch.where(hit, base + pos, b * width).reshape(-1)
+    out = torch.zeros(b * width + 1, dtype=torch.bool, device=device)
+    out[flat] = True
+    return out[:-1].view(b, width)
+
+
+def _corrected_wmax(scores: torch.Tensor, wmax: torch.Tensor,
+                    excl_cols: torch.Tensor, excl_mask: torch.Tensor
+                    ) -> torch.Tensor:
+    """Exact post-exclusion maxima of the windows holding excluded items
+    (JAX ``_peel_select`` corrected branch, without its [B, E, NW]
+    one-hot broadcasts): gather each window once, with every excluded lane of
+    that window dead, re-max, and splice the result into ``wmax``."""
+    b, e = excl_cols.shape
+    nw = wmax.shape[1]
+    excl_w = torch.where(excl_mask, excl_cols // WINDOW, nw).to(torch.int32)
+    key = excl_w.sort(dim=1).values.contiguous()  # ascending, pads (nw) last
+    first = torch.searchsorted(key, excl_w.contiguous())  # window's 1st slot
+    dead = _flat_mask(b, e * WINDOW, first * WINDOW + excl_cols % WINDOW,
+                      excl_mask, scores.device).view(b, e, WINDOW)
+    ge = gather_score_windows(scores, key.clamp(max=nw - 1), dead)
+    corr = ge.amax(dim=-1)  # [B, E]
+    key_first = torch.searchsorted(key, key)
+    n_same = torch.searchsorted(key, key, right=True) - key_first
+    # JAX takes the max over every slot with -1e30 for slots of other
+    # windows, so a fully excluded window reads -1e30 unless it fills all E
+    corr = torch.where(n_same < e, corr.clamp(min=NEG), corr)
+    is_first = (key < nw) & (key_first == torch.arange(e, device=key.device))
+    target = torch.where(is_first, key, nw).long()
+    spliced = torch.cat([wmax, wmax.new_zeros(b, 1)], dim=1)
+    spliced.scatter_(1, target, corr)  # misses write the spare column
+    return spliced[:, :nw]
+
+
+def _dead_lanes(widx: torch.Tensor, excl_cols: torch.Tensor,
+                excl_mask: torch.Tensor, c_real: int, padded: bool
+                ) -> torch.Tensor | None:
+    """[B, m, 128] lanes of the selected (ascending) windows that must not
+    peel: the user's excluded items and, if the catalog is padded, the pad
+    items (zero scores) of the partial window."""
+    b, m = widx.shape
+    dead = None
+    if excl_cols.shape[1]:
+        excl_w = (excl_cols // WINDOW).to(torch.int32).contiguous()
+        slot = torch.searchsorted(widx, excl_w).clamp(max=m - 1)
+        hit = excl_mask & (widx.gather(1, slot) == excl_w)
+        dead = _flat_mask(b, m * WINDOW, slot * WINDOW + excl_cols % WINDOW,
+                          hit, widx.device).view(b, m, WINDOW)
+    if padded:
+        gid = (widx.long()[:, :, None] * WINDOW
+               + torch.arange(WINDOW, device=widx.device))
+        pad_dead = gid >= c_real
+        dead = pad_dead if dead is None else dead | pad_dead
+    return dead
+
+
+def peel_topk_from_scores(scores: torch.Tensor, wmax: torch.Tensor,
+                          excl_cols: torch.Tensor, excl_mask: torch.Tensor,
+                          k: int, c_real: int
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact top-k with exclusion off a [B, C] score matrix (C a multiple of
+    128, columns >= ``c_real`` padding) and its window maxima ``wmax``.
+
+    Returns ``(v [B, k'], idx [B, k'] int64, ok [B] bool)`` with
+    ``k' = min(k, c_real)``; rows with ``ok`` False need the dense redo
+    (JAX ``_peel_select`` with ``with_fallback=False``)."""
+    b, c = scores.shape
+    nw = c // WINDOW
+    e = excl_cols.shape[1]
+    dev = scores.device
+    padded = nw * WINDOW > c_real
+    if padded:  # fully padded tail windows can't win
+        win_ok = torch.arange(nw, device=dev) * WINDOW < c_real
+        wmax = torch.where(win_ok, wmax, NEG)
+    if _use_corrected_wmax(c_real, e):
+        wmax = _corrected_wmax(scores, wmax, excl_cols, excl_mask)
+        m = _round_m(k + int(padded), nw)  # exact maxima: no margin
+    else:
+        m = _round_m(k + e + int(padded), nw)
+    # adaptive depth toward t >= k where few live windows hold the top-k
+    kk = min(k, c_real)
+    nw_real = -(-c_real // WINDOW)
+    t = min(max(PEEL_T, min(-(-3 * kk) // nw_real, kk)), WINDOW)
+
+    # ascending window order: every later stage is invariant to it
+    widx = _topk_stable(wmax, m)[1].sort(dim=1).values.to(torch.int32)
+    dead = _dead_lanes(widx, excl_cols, excl_mask, c_real, padded)
+    g = gather_score_windows(scores, widx, dead)  # [B, m, 128]
+    vals_flat, last = peel_values_grouped(g, t)
+    v, p = _topk_stable(vals_flat, kk)  # merge over m*t << m*128 values
+
+    # winner-only index recovery from the dead-masked windows
+    wslot = (p // t).to(torch.int32)
+    widx_sel = widx.gather(1, wslot.long()).long()
+    rows = gather_subwindows(g, wslot)  # [B, kk, 128]
+    hit = rows == v[:, :, None]
+    lane_iota = torch.arange(WINDOW, device=dev)
+    lane = torch.where(hit, lane_iota, WINDOW).amin(dim=-1)
+    n_hit = hit.sum(dim=-1)  # in-window duplicates of a winner
+    idx = widx_sel * WINDOW + lane.clamp(max=WINDOW - 1)
+
+    # exactness: no window's t-th value beats the k-th winner (complete),
+    # every winner matched one lane (unique), no -inf winner (all_live)
+    complete = (last <= v[:, kk - 1:kk]).all(dim=1)
+    unique = (n_hit == 1).all(dim=1)
+    all_live = (v > PEELED).all(dim=1)
+    return v, idx, complete & unique & all_live
+
+
+def peel_masked_topk_dot(u: torch.Tensor, items: torch.Tensor,
+                         excl_cols: torch.Tensor | None,
+                         excl_mask: torch.Tensor | None, k: int, *,
+                         c_real: int | None = None,
+                         with_fallback: bool = True
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dot-product scores + exclusion + exact top-k: K2 writes the scores and
+    their window maxima, then the peel selects (JAX
+    ``peel_masked_topk_dot``).
+
+    ``items`` is either the live catalog (padded here to a `BC` multiple
+    with zero rows) or already padded once by the caller, with ``c_real``
+    the live count. Returns ``(v, idx, ok)``. With ``with_fallback`` the
+    rows whose ``ok`` is False are redone densely (``ops/topk.py``) before
+    returning, so ``v``/``idx`` are exact for every row and ``ok`` tells
+    which rows took the redo."""
+    b = u.shape[0]
+    c = items.shape[0]
+    if c_real is None:
+        c_real = c
+    elif not (c % BC == 0 and c_real <= c < c_real + BC):
+        raise ValueError(f"c_real={c_real}: items must be pre-padded to the "
+                         f"next {BC} multiple (got {c} rows)")
+    cp = -(-c // BC) * BC
+    if cp != c:
+        items = F.pad(items, (0, 0, 0, cp - c))
+    excl_cols, excl_mask = pad_excl(excl_cols, excl_mask, b, u.device)
+    scores, wmax = score_wmax(u, items)
+    v, idx, ok = peel_topk_from_scores(scores, wmax, excl_cols, excl_mask, k,
+                                       c_real)
+    if with_fallback and not bool(ok.all()):
+        redo = (~ok).nonzero().squeeze(1)
+        fv, fi = topk_excluding(scores[redo], excl_cols[redo],
+                                excl_mask[redo], v.shape[1], c_real=c_real)
+        v[redo] = fv
+        idx[redo] = fi
+    return v, idx, ok

@@ -1,0 +1,165 @@
+"""Parity of the port's scoring and peel selection (``sibrar_tpu_torch/ops/
+window.py``, ``ops/peel.py``) with the JAX package, on the CPU.
+
+The JAX Pallas kernels run in interpret mode; the port's kernels K2-K4 take
+their plain versions (CPU tensors). Tolerances: scores within rtol = atol =
+1e-5 (the two GEMMs sum in different orders); gathers, peeled values and
+window maxima bit-equal; top-k values within 1e-5 and index sets equal up to
+ties."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sibrar_tpu.ops import pallas_peel as jpeel
+from sibrar_tpu.ops.pallas_window import score_native_wmax
+from sibrar_tpu_torch.ops import peel as tpeel
+from sibrar_tpu_torch.ops.window import score_wmax
+
+NEG = -1e30
+
+
+def test_plain_score_wmax_matches_pallas():
+    rng = np.random.default_rng(0)
+    u = rng.normal(size=(8, 128)).astype(np.float32)
+    items = rng.normal(size=(2048, 128)).astype(np.float32)
+    js, jw = score_native_wmax(jnp.asarray(u), jnp.asarray(items),
+                               interpret=True)
+    ts, tw = score_wmax(torch.as_tensor(u), torch.as_tensor(items))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5,
+                               atol=1e-5)
+    own = ts.numpy().reshape(8, 16, 128).max(-1)
+    assert (tw.numpy() == own).all()  # wmax is the max of its own scores
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("with_dead", [False, True])
+def test_plain_gather_windows_matches_pallas(with_dead):
+    rng = np.random.default_rng(1)
+    scores = rng.normal(size=(8, 2048)).astype(np.float32)
+    widx = np.sort(np.stack([rng.choice(16, 6, replace=False)
+                             for _ in range(8)]), axis=1).astype(np.int32)
+    dead = rng.random((8, 6, 128)) < 0.3 if with_dead else None
+    jg = jpeel.gather_score_windows(
+        jnp.asarray(scores), jnp.asarray(widx),
+        dead=None if dead is None else jnp.asarray(dead), interpret=True)
+    tg = tpeel.gather_score_windows(
+        torch.as_tensor(scores), torch.as_tensor(widx),
+        None if dead is None else torch.as_tensor(dead))
+    np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
+    slots = rng.integers(0, 6, (8, 5)).astype(np.int32)
+    jsub = jpeel.gather_subwindows(jg, jnp.asarray(slots), interpret=True)
+    tsub = tpeel.gather_subwindows(tg, torch.as_tensor(slots))
+    np.testing.assert_array_equal(tsub.numpy(), np.asarray(jsub))
+
+
+def _tied_rows(rng, shape):
+    """Rows with many repeated values and a few -inf lanes."""
+    x = rng.integers(-6, 6, size=shape).astype(np.float32)
+    x[rng.random(shape) < 0.05] = -np.inf
+    return x
+
+
+def test_plain_peel_values_matches_pallas():
+    rng = np.random.default_rng(2)
+    x = _tied_rows(rng, (37, 128))
+    x[3] = 1.0  # one distinct value: the later rounds run dry
+    tv, tlast = tpeel.peel_values(torch.as_tensor(x), 8)
+    jv = jpeel.peel_values(jnp.asarray(x), 8, rows_per_block=16,
+                           interpret=True)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tlast.numpy(), np.asarray(jv)[:, -1])
+
+
+def test_plain_peel_values_grouped_matches_pallas():
+    rng = np.random.default_rng(3)
+    g = np.concatenate([_tied_rows(rng, (16, 4, 128)),
+                        rng.normal(size=(16, 4, 128)).astype(np.float32)],
+                       axis=1)  # [16, 8, 128]
+    jv, jlast = jpeel.peel_values_grouped(jnp.asarray(g), 8, interpret=True)
+    tv, tlast = tpeel.peel_values_grouped(torch.as_tensor(g), 8)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tlast.numpy(), np.asarray(jlast))
+
+
+def _dense_oracle(scores, cols, mask, k, c_real):
+    s = scores.astype(np.float64).copy()
+    for b in range(s.shape[0]):
+        s[b, cols[b][mask[b]]] = NEG
+    s[:, c_real:] = NEG
+    order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(s, order, 1), order
+
+
+def _assert_topk(v, idx, scores, ov, cols, mask, tol=1e-5):
+    """Values match the oracle; every index is distinct, holds its value
+    and is not excluded (index sets may differ only on ties)."""
+    np.testing.assert_allclose(v, ov, rtol=tol, atol=tol)
+    np.testing.assert_allclose(np.take_along_axis(scores, idx, 1), ov,
+                               rtol=tol, atol=tol)
+    for b in range(idx.shape[0]):
+        assert len(set(idx[b].tolist())) == idx.shape[1]
+        live = ov[b] > NEG / 2
+        assert not set(idx[b][live].tolist()) & set(cols[b][mask[b]].tolist())
+
+
+# (B, live catalog rows, D, k, E, JAX tb, integer-valued inputs)
+PEEL_CASES = {
+    "margin": (16, 4096, 32, 10, 3, 8, False),
+    "corrected": (16, 4096, 32, 10, 12, 8, False),
+    "padded_tail": (16, 4000, 32, 10, 12, 8, False),
+    "batch_not_16": (12, 4096, 32, 10, 3, 4, False),
+    "ties_redo": (16, 4096, 8, 10, 3, 8, True),
+}
+
+
+@pytest.mark.parametrize("case", list(PEEL_CASES))
+def test_peel_masked_topk_dot_matches_jax_and_oracle(case):
+    b, c, d, k, e, tb, ints = PEEL_CASES[case]
+    rng = np.random.default_rng(4)
+    if ints:  # exact integer scores: heavy ties, bit-equal in both GEMMs
+        u = rng.integers(0, 2, size=(b, d)).astype(np.float32)
+        items = rng.integers(0, 2, size=(c, d)).astype(np.float32)
+    else:
+        u = rng.normal(size=(b, d)).astype(np.float32)
+        items = rng.normal(size=(c, d)).astype(np.float32)
+    cols = np.sort(np.stack([rng.choice(c, e, replace=False)
+                             for _ in range(b)]), axis=1).astype(np.int32)
+    mask = rng.random((b, e)) < 0.9
+    cols[~mask] = 0
+
+    jv, ji, jok = jpeel.peel_masked_topk_dot(
+        jnp.asarray(u), jnp.asarray(items), jnp.asarray(cols),
+        jnp.asarray(mask), k, tb=tb, interpret=True, with_fallback=False)
+    args = (torch.as_tensor(u), torch.as_tensor(items),
+            torch.as_tensor(cols), torch.as_tensor(mask), k)
+    tv, ti, tok = tpeel.peel_masked_topk_dot(*args, with_fallback=False)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    ok = tok.numpy()
+    np.testing.assert_allclose(tv.numpy()[ok], np.asarray(jv)[ok],
+                               rtol=1e-5, atol=1e-5)
+    # index sets equal up to ties: JAX's winners hold the port's values
+    scores = u @ items.T
+    np.testing.assert_allclose(
+        np.take_along_axis(scores, np.asarray(ji), 1)[ok], tv.numpy()[ok],
+        rtol=1e-5, atol=1e-5)
+
+    # with the redo, every row equals the dense oracle up to ties
+    ov, _ = _dense_oracle(scores, cols, mask, k, c)
+    rv, ri, rok = tpeel.peel_masked_topk_dot(*args)
+    np.testing.assert_array_equal(rok.numpy(), ok)
+    _assert_topk(rv.numpy(), ri.numpy(), scores, ov, cols, mask)
+    if case == "ties_redo":
+        assert not ok.all(), "tie-heavy scores must trip the redo"
+    else:
+        assert ok.all()
+
+
+@pytest.mark.parametrize("c,k,e", [(100_352, 100, 55), (100_352, 100, 250),
+                                   (4096, 10, 3), (400, 10, 40)])
+def test_peel_gates_match_jax(c, k, e):
+    assert tpeel._use_corrected_wmax(c, e) == jpeel._use_corrected_wmax(c, e)
+    assert tpeel.peel_viable(c, k, e) == jpeel.peel_viable(c, k, e)
+    nw = -(-c // 128)
+    assert tpeel._round_m(k + e + 1, nw) == jpeel._round_m(k + e + 1, nw)

@@ -6,15 +6,31 @@ CUDA toolkit and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels from ``sibrar_tpu_torch/csrc/``, checks
-each kernel against its plain PyTorch version at the serving path's shapes,
-then serves SBNet (``conf/single/sbnet_onion18_huge_no-user.yml`` widths,
-random weights from a seed) over onion-scale synthetic data (50,000 users x
-100,352 items x 2M interactions): catalog encode, then request batches at
-B = 256 and B = 1024 with k = 100. The lists are checked against the users'
-train + val history (scipy, on the host) and against the plain path on the
-same card (``torch.matmul`` + scatter + ``torch.topk``), and the kernels'
-launch counts during that run must all be positive.
+It builds the hand-written kernels from ``sibrar_tpu_torch/csrc/`` (one
+nvcc per source, in parallel) and, over onion-scale synthetic data (50,000
+users x 100,352 items x 2M interactions) with SBNet at the widths of
+``conf/single/sbnet_onion18_huge_no-user.yml`` (random weights from a seed):
+
+1. checks each kernel against its plain PyTorch version on the card: K1-K4
+   at the serving path's shapes, K5-K7 at the train step's (one real batch:
+   512 pairs, 10 uniform negatives each, the 2,256 item rows that balanced
+   routing sends to the interaction tower), with times, bounds and library
+   yardsticks;
+2. trains with ``Trainer.train_epoch`` (the config's learn / dataset /
+   loader settings): a warm-up, then a few hundred timed steps on the
+   default first layer (densify + matmul, K5 backward), whose losses must be
+   finite and fall; a profiled window; then a few dozen steps with
+   ``INTERACTION_SPMM`` on (K6 / K7);
+3. times the item tower's first layer and the catalog encode both ways;
+4. serves from the weights the default training left: catalog encode, then
+   request batches at B = 256 and B = 1024 with k = 100. The lists are
+   checked against the users' train + val history (scipy, on the host) and
+   against the plain path on the same card (``torch.matmul`` + scatter +
+   ``torch.topk``).
+
+Each path (default training, spmm training, serving) runs with every launch
+count set to 0 just before it and read just after; each of its kernels must
+have launched.
 
 Output: progress lines, then one JSON line with a row per kernel, the card's
 name and power limit, and as the last line
@@ -65,11 +81,36 @@ MODEL_CONF = {
     },
 }
 
+# The resolved ``learn:`` and ``loader:`` blocks of the same file, and the
+# sampling fields of its ``dataset:`` block; a test holds them to the YAML.
+LEARN_CONF = {
+    "n_epochs": 50, "lr": 5e-05, "wd": 0.001, "optimizer": "adamw",
+    "rec_loss": "bpr", "loss_aggregator": "mean", "max_patience": 5,
+    "optimizing_metric": "ndcg@10", "max_batches_per_epoch": None,
+    "moment_dtype": None, "sparse_tables": False,
+    "sparse_table_min_rows": 16384, "epoch_scan_chunk": 512,
+}
+DATASET_CONF = {"n_negative_samples": 10,
+                "negative_sampling_strategy": "uniform",
+                "popularity_squashing_factor": 1.0}
+LOADER_CONF = {"batch_size": 512, "eval_batch_size": 1024, "num_workers": 0,
+               "shuffle": True, "prefetch_factor": 2}
+
 DEVICE = "cuda"
 SEED = 0
 K = 100
 BATCHES = {256: 8, 1024: 4}  # batch size -> timed request batches
+TRAIN_WARMUP = 20  # steps before the timed window
+TRAIN_STEPS = 400  # timed steps on the default first layer
+LOSS_WINDOW = 50  # steps in the first and last loss windows
+PROFILE_STEPS = 10  # train steps under torch.profiler
+PROFILE_BATCHES = 5  # request batches of each size under torch.profiler
+SPMM_WARMUP, SPMM_STEPS = 5, 40  # steps with INTERACTION_SPMM on
 F32_EPS = 2.0 ** -24
+# H100 SXM peaks (NVIDIA data sheet; at 700 W): HBM bytes/s, f32 FLOP/s
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def log(*parts) -> None:
@@ -98,6 +139,15 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, n_ops: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    over the HBM rate and the operations over the f32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def max_abs_err(a, b) -> float:
@@ -143,8 +193,13 @@ def check_kernels(data, dev) -> dict:
         times.append((ms, pms))
         log(f"K1 segment_gather B={b} L={length}: bit-equal; "
             f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    csr = data.item_inter_csr  # the timed shape: 8192 rows of the item CSR
+    rows = torch.arange(8192, device=dev)
+    live = int((csr.indptr[rows + 1] - csr.indptr[rows]).sum())
+    n_bytes = 8192 * 4 * 3 + live * 4 + 8192 * csr.max_row_len * 5
     rows_out["segment_gather"] = dict(max_abs_err=max(errs),
-                                      ms=times[0][0], plain_ms=times[0][1])
+                                      ms=times[0][0], plain_ms=times[0][1],
+                                      library_ms=None, **bound(n_bytes))
 
     # K2 at B = 1024, C = 100,352, D = 256; scores of unit scale
     b, c, d = 1024, data.catalog.shape[0], 256
@@ -163,7 +218,9 @@ def check_kernels(data, dev) -> dict:
     log(f"K2 score_wmax B={b} C={c} D={d}: max abs err {err:.3e} "
         f"(tol {tol:.3e}), wmax bit-equal to its scores; kernel {ms:.4f} ms, "
         f"plain {pms:.4f} ms ({2 * b * c * d / ms / 1e9:.2f} TFLOP/s)")
-    rows_out["score_wmax"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    rows_out["score_wmax"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+        **bound(4 * (b * d + c * d + b * c + b * c // 128), 2 * b * c * d))
 
     # K3 at B = 1024 and the path's window count (margin path: m = 160 at
     # E = 55), on the K2 scores with dead lanes masked, and its second use,
@@ -186,7 +243,9 @@ def check_kernels(data, dev) -> dict:
     pms = cuda_ms(lambda: peel.gather_windows_plain(scores, widx, dead), 50)
     log(f"K3 gather_windows B={b} m={m}: bit-equal (also the k={K} winner "
         f"rows); kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    rows_out["gather_windows"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    rows_out["gather_windows"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+        **bound(b * m * (128 * 4 + 4 + 128 + 128 * 4)))
 
     # K4 at B = 1024, m = 160, t = 8
     x = g.reshape(b * m, 128)
@@ -201,7 +260,9 @@ def check_kernels(data, dev) -> dict:
     pms = cuda_ms(lambda: peel.peel_values_plain(x, t), 50)
     log(f"K4 peel_values B={b} m={m} t={t}: bit-equal; kernel {ms:.4f} ms, "
         f"plain {pms:.4f} ms")
-    rows_out["peel_values"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    rows_out["peel_values"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+        **bound(b * m * (128 + t + 1) * 4))
     return rows_out
 
 
@@ -254,6 +315,261 @@ def check_lists(split, data, score_fn, users, ids, vals) -> int:
     return differ
 
 
+def first_layer_rows(data, model, gen, n_catalog: int):
+    """One train batch: its users, and the item ids it sends to the item
+    interaction tower: 512 train pairs, 10 uniform negatives each (the
+    trainer's sampler), then balanced routing with a random shift, as
+    ``SingleBranchNetEntity._routed_projections`` cuts it."""
+    import torch
+
+    from sibrar_tpu_torch.data.sampling import (
+        balanced_routing,
+        sample_negatives,
+    )
+
+    bs, n_neg = LOADER_CONF["batch_size"], DATASET_CONF["n_negative_samples"]
+    pick = torch.randperm(data.train_users.shape[0], generator=gen,
+                          device=gen.device)[:bs]
+    users = data.train_users[pick]
+    negs = sample_negatives(gen, users, data.pos_csr, data.popularity,
+                            strategy="uniform", n_catalog=n_catalog,
+                            n_neg=n_neg)
+    cat = torch.cat([data.train_items_cat[pick].unsqueeze(1), negs], 1)
+    flat = data.catalog[cat.long()].reshape(-1)
+    item = model.item_module
+    slots = balanced_routing(len(item.modalities), item.k, item.central)
+    inter = item.modality_names.index("interactions")
+    residues = [rho for rho, row in enumerate(slots) if inter in row]
+    p = len(slots)
+    g = -(-flat.shape[0] // p)
+    flat = torch.cat([flat, flat.new_zeros(g * p - flat.shape[0])])
+    delta = int(torch.randint(0, p, (), generator=gen, device=gen.device))
+    rows = torch.roll(flat, -delta).reshape(g, p)[:, residues].reshape(-1)
+    return users, rows
+
+
+def check_train_kernels(tower, rows, users, data, dev) -> dict:
+    """K1 and K5-K7 against their plain versions at the train step's shapes
+    (one batch: its users' rows of the user CSR and of the sampler's
+    ``pos_csr``; the item interaction tower's rows, its kernel, a random
+    output gradient); returns name -> {max_abs_err, ms, plain_ms,
+    library_ms, bound_ms, bound_by} for K5-K7."""
+    import torch
+    import torch.nn.functional as F
+
+    from sibrar_tpu_torch.ops import dw, sparse, spmm
+    from sibrar_tpu_torch.ops.sparse import csr_row_gather, csr_rows_to_dense
+
+    # K1: the user tower's bag rows, the sampler's row fetch, the item
+    # tower's densify rows
+    for label, c, idx in (("user CSR, batch users", data.user_inter_csr,
+                           users),
+                          ("pos_csr, batch users", data.pos_csr, users),
+                          ("item CSR, routed rows", tower.csr, rows)):
+        idx = idx.to(torch.int32).contiguous()
+        length = c.max_row_len
+        got = sparse.segment_gather(c.indptr, c.indices, idx, length)
+        want = sparse.segment_gather_plain(c.indptr, c.indices, idx, length)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K1 segment_gather differs on the {label} "
+                                 f"(B={idx.shape[0]}, L={length})")
+        ms = cuda_ms(lambda: sparse.segment_gather(
+            c.indptr, c.indices, idx, length), 50)
+        log(f"K1 segment_gather, {label}, B={idx.shape[0]} L={length}: "
+            f"bit-equal; kernel {ms:.4f} ms")
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    csr = tower.csr
+    kernel = tower.kernel.detach()
+    n_cols, h = kernel.shape
+    r = rows.shape[0]
+    cols, mask = csr_row_gather(csr, rows)
+    vec = csr_rows_to_dense(csr, rows)
+    g = torch.randn(r, h, device=dev, generator=gen)
+    live = int(mask.sum())
+    distinct = int(torch.unique(cols[mask]).numel())
+    log(f"train batch: {r} item rows x {cols.shape[1]} slots, {live} live "
+        f"({distinct} distinct columns), dense {r} x {n_cols}, h = {h}")
+
+    # K5: per element, two f32 sums of R products differ by at most
+    # 2 R eps sum_r |vec| |g|
+    got = dw.dw_matmul(vec, g)
+    want = dw.dw_matmul_plain(vec, g)
+    tol = 2 * r * F32_EPS * (vec.abs().T @ g.abs())
+    err = max_abs_err(got, want)
+    if not bool(((got - want).abs() <= tol).all()):
+        raise AssertionError(f"K5 dw_matmul beyond the f32 GEMM bound: max "
+                             f"abs err {err}")
+    out["dw_matmul"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: dw.dw_matmul(vec, g), 10),
+        plain_ms=cuda_ms(lambda: dw.dw_matmul_plain(vec, g), 10),
+        library_ms=cuda_ms(lambda: torch.matmul(vec.T, g), 10),
+        **bound(4 * (r * n_cols + r * h + n_cols * h), 2 * r * n_cols * h))
+    log(f"K5 dw_matmul R={r} C={n_cols} H={h}: max abs err {err:.3e} (within "
+        f"2 R eps |vec|.|g| per element); {out['dw_matmul']}")
+
+    # K6 / K7 bounds: the function reads the mask everywhere and the column
+    # ids at the live slots only
+    index_bytes = mask.numel() + 4 * live
+
+    # K6: slot-order sums against index_add_; per row, two sums of its n
+    # live rows differ by at most 2 n eps sum |kernel rows|
+    got = spmm.spmm_fwd(cols, mask, kernel)
+    want = spmm.spmm_fwd_plain(cols, mask, kernel)
+    n_live = mask.sum(1, keepdim=True)
+    tol = 2 * n_live * F32_EPS * spmm.spmm_fwd_plain(cols, mask, kernel.abs())
+    err = max_abs_err(got, want)
+    if not bool(((got - want).abs() <= tol).all()):
+        raise AssertionError(f"K6 spmm_fwd beyond the f32 sum bound: max abs "
+                             f"err {err}")
+    weights, cols64 = mask.float(), cols.long()
+    out["spmm_fwd"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: spmm.spmm_fwd(cols, mask, kernel), 20),
+        plain_ms=cuda_ms(lambda: spmm.spmm_fwd_plain(cols, mask, kernel), 20),
+        library_ms=cuda_ms(lambda: F.embedding_bag(
+            cols64, kernel, mode="sum", per_sample_weights=weights), 20),
+        **bound(index_bytes + distinct * h * 4 + r * h * 4, live * h))
+    log(f"K6 spmm_fwd: max abs err {err:.3e}; {out['spmm_fwd']}")
+
+    # K7: atomics add in any order; per element of dk, two sums of its n
+    # contributions differ by at most 2 n eps sum |g|
+    got = spmm.spmm_bwd(cols, mask, g, n_cols)
+    want = spmm.spmm_bwd_plain(cols, mask, g, n_cols)
+    count = torch.bincount(cols[mask].long(), minlength=n_cols).unsqueeze(1)
+    tol = 2 * count * F32_EPS * spmm.spmm_bwd_plain(cols, mask, g.abs(),
+                                                    n_cols)
+    err = max_abs_err(got, want)
+    if not bool(((got - want).abs() <= tol).all()):
+        raise AssertionError(f"K7 spmm_bwd beyond the f32 sum bound: max abs "
+                             f"err {err}")
+    src_rows, _ = torch.nonzero(mask, as_tuple=True)
+    dst = cols[mask].long()
+    out["spmm_bwd"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: spmm.spmm_bwd(cols, mask, g, n_cols), 20),
+        plain_ms=cuda_ms(lambda: spmm.spmm_bwd_plain(cols, mask, g, n_cols),
+                         20),
+        library_ms=cuda_ms(lambda: torch.zeros_like(kernel).index_add_(
+            0, dst, g.index_select(0, src_rows)), 20),
+        **bound(index_bytes + r * h * 4 + n_cols * h * 4, live * h))
+    log(f"K7 spmm_bwd: max abs err {err:.3e} (atomic order); "
+        f"{out['spmm_bwd']}")
+    return out
+
+
+def reset_counts(kernels) -> None:
+    for _, fn, _, _ in kernels:
+        fn.launches = 0
+
+
+def read_counts(kernels) -> dict:
+    return {name: fn.launches for name, fn, _, _ in kernels}
+
+
+def train_window(trainer, n_steps: int) -> dict:
+    """``n_steps`` steps through ``Trainer.train_epoch``: host ms per step
+    (synchronized), stream ms per step (CUDA events around the epoch),
+    steps/s and the step losses."""
+    import torch
+
+    trainer.learn.max_batches_per_epoch = n_steps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    summary = trainer.train_epoch()
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = trainer.epoch_losses[:, 0].cpu().numpy()
+    return dict(host_ms=wall * 1e3 / n_steps,
+                event_ms=start.elapsed_time(end) / n_steps,
+                steps_per_s=n_steps / wall, losses=losses, summary=summary)
+
+
+def profile_window(fn, n: int, unit: str) -> None:
+    """torch.profiler over ``fn()``, which runs ``n`` units (train steps,
+    request batches): device busy time per unit, idle share of the wall
+    time, and the kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us())
+    busy = sum(by_name.values())
+    if busy == 0:
+        log(f"profile, {n} {unit}: no device time recorded")
+        return
+    log(f"profile, {n} {unit}: wall {wall_us / 1e3 / n:.3f} ms per unit, "
+        f"device busy {busy / 1e3 / n:.3f} ms per unit, idle share "
+        f"{1 - busy / wall_us:.3f} (wall under the profiler)")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        log(f"  {us / 1e3 / n:8.4f} ms/unit {100 * us / busy:5.1f} %  "
+            f"{name[:110]}")
+
+
+def first_layer_chains(tower, rows, catalog, model, dev) -> None:
+    """The item tower's first layer at the train shape, forward + backward,
+    densify + matmul (K5) against the spmm path (K6 / K7), each with its
+    K1 row gather; then the catalog encode both ways."""
+    import torch
+
+    from sibrar_tpu_torch.models import layers
+    from sibrar_tpu_torch.ops.dw import dense_first_matmul
+    from sibrar_tpu_torch.ops.sparse import csr_row_gather, csr_rows_to_dense
+    from sibrar_tpu_torch.ops.spmm import spmm_onehot
+    from sibrar_tpu_torch.train.scoring import make_score_fn
+
+    csr = tower.csr
+    kernel = tower.kernel.detach().clone().requires_grad_()
+    g = torch.randn(rows.shape[0], kernel.shape[1], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+
+    def dense(backward: bool):
+        out = dense_first_matmul(csr_rows_to_dense(csr, rows), kernel)
+        if backward:
+            out.backward(g)
+
+    def sparse(backward: bool):
+        cols, mask = csr_row_gather(csr, rows)
+        out = spmm_onehot(cols, mask, kernel)
+        if backward:
+            out.backward(g)
+
+    for name, fn in (("dense (K1, densify, matmul; K5)", dense),
+                     ("spmm (K1, K6; K7)", sparse)):
+        fwd = cuda_ms(lambda: fn(False), 10)
+        both = cuda_ms(lambda: fn(True), 10)
+        log(f"first layer {name}, {rows.shape[0]} rows: forward {fwd:.4f} "
+            f"ms, forward + backward {both:.4f} ms")
+    flag = layers.INTERACTION_SPMM
+    try:
+        for spmm_on in (False, True, False, True):
+            layers.INTERACTION_SPMM = spmm_on
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            make_score_fn(model, catalog)
+            torch.cuda.synchronize()
+            log(f"catalog encode, {'spmm' if spmm_on else 'dense'} first "
+                f"layer: {time.perf_counter() - t0:.4f} s")
+    finally:
+        layers.INTERACTION_SPMM = flag
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -272,13 +588,19 @@ def main() -> int:
     log("importable: " + ", ".join(f"{k}={v}" for k, v in found.items()))
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from sibrar_tpu_torch import full_f32
+    from sibrar_tpu_torch import config_from_dict, full_f32
     from sibrar_tpu_torch.data.dataset import make_splits
     from sibrar_tpu_torch.data.synthetic import make_onion_scale_splits
+    from sibrar_tpu_torch.models import layers
     from sibrar_tpu_torch.models.sbnet import SingleBranchNet
-    from sibrar_tpu_torch.ops import _cuda, peel, sparse, window
+    from sibrar_tpu_torch.ops import _cuda, dw, peel, sparse, spmm, window
     from sibrar_tpu_torch.serve import Recommender
     from sibrar_tpu_torch.train.scoring import make_score_fn
+    from sibrar_tpu_torch.train.trainer import (
+        DatasetConfig,
+        LearningConfig,
+        Trainer,
+    )
 
     dev = torch.device(DEVICE)
     full_f32()
@@ -293,7 +615,17 @@ def main() -> int:
                 "sibrar_tpu/ops/pallas_peel.py:490"),
                ("peel_values", peel.peel_values,
                 "sibrar_tpu_torch/csrc/peel_values.cu",
-                "sibrar_tpu/ops/pallas_peel.py:240")]
+                "sibrar_tpu/ops/pallas_peel.py:240"),
+               ("dw_matmul", dw.dw_matmul,
+                "sibrar_tpu_torch/csrc/dw_matmul.cu",
+                "sibrar_tpu/ops/pallas_dw.py:90"),
+               ("spmm_fwd", spmm.spmm_fwd,
+                "sibrar_tpu_torch/csrc/spmm_onehot.cu",
+                "sibrar_tpu/ops/pallas_spmm.py:67"),
+               ("spmm_bwd", spmm.spmm_bwd,
+                "sibrar_tpu_torch/csrc/spmm_onehot.cu",
+                "sibrar_tpu/ops/pallas_spmm.py:127")]
+    t_start = time.perf_counter()
 
     # ---------------------------------------------------------------- build
     _cuda.build()
@@ -307,7 +639,8 @@ def main() -> int:
     t0 = time.perf_counter()
     arrays = make_onion_scale_splits(seed=7)
     splits = make_splits(arrays)
-    test = splits["test"]
+    train, test = splits["train"], splits["test"]
+    tdata = train.to_device(dev)
     data = test.to_device(dev)
     log(f"data: {time.perf_counter() - t0:.2f} s; {arrays['n_users']} users "
         f"x {arrays['n_items']} items; train {len(arrays['train'])}, val "
@@ -317,25 +650,102 @@ def main() -> int:
         f"{data.item_inter_csr.max_row_len}; user CSR longest row "
         f"{data.user_inter_csr.max_row_len}")
 
+    # ------------------------------------------------------------ the model
+    model = SingleBranchNet.build_from_conf(MODEL_CONF, train, tdata,
+                                            seed=SEED)
+    learn = config_from_dict(LearningConfig, LEARN_CONF)
+    trainer = Trainer(model, train, learn,
+                      config_from_dict(DatasetConfig, DATASET_CONF),
+                      batch_size=LOADER_CONF["batch_size"], seed=SEED,
+                      device_data=tdata)
+    item = model.item_module
+    tower = item.modalities[item.modality_names.index("interactions")]
+    if tower.use_bag(1) or not model.user_module.net.use_bag(1):
+        raise AssertionError("expected the item tower's dense first layer "
+                             "and the user tower's bag path")
+
     # -------------------------------------------- kernels vs plain versions
     measured = check_kernels(data, dev)
+    users, rows = first_layer_rows(tdata, model, torch.Generator(
+        device=dev).manual_seed(SEED + 2), train.n_items_in_split)
+    measured.update(check_train_kernels(tower, rows, users, tdata, dev))
+    launches = {name: 0 for name, _, _, _ in kernels}
 
-    # ------------------------------------------------ the serving slice
-    model = SingleBranchNet.build_from_conf(MODEL_CONF, test, data,
-                                            seed=SEED)
-    for _, fn, _, _ in kernels:
-        fn.launches = 0
+    def count_path(path: str, needed: list, absent: tuple = ()) -> dict:
+        counts = read_counts(kernels)
+        log(f"launches, {path}: {counts}")
+        missing = [n for n in needed if counts[n] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by the {path}: "
+                                 f"{missing}")
+        stray = [n for n in absent if counts[n]]
+        if stray:
+            raise AssertionError(f"{path} launched {stray}")
+        for name, n in counts.items():
+            launches[name] += n
+        return counts
+
+    # -------------------------------------- training, default first layer
+    warm = train_window(trainer, TRAIN_WARMUP)
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    run = train_window(trainer, TRAIN_STEPS)
+    count_path("default train path", ["segment_gather", "dw_matmul"],
+               ("spmm_fwd", "spmm_bwd"))
+    losses = np.concatenate([warm["losses"], run["losses"]])
+    first = float(run["losses"][:LOSS_WINDOW].mean())
+    last = float(run["losses"][-LOSS_WINDOW:].mean())
+    log(f"train (dense first layer), {TRAIN_STEPS} steps after "
+        f"{TRAIN_WARMUP} warm-up: host {run['host_ms']:.3f} ms/step "
+        f"(synchronized), CUDA events {run['event_ms']:.3f} ms/step, "
+        f"{run['steps_per_s']:.2f} steps/s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; loss (BPR + "
+        f"InfoNCE) first {LOSS_WINDOW} steps {first:.5f}, last "
+        f"{LOSS_WINDOW} {last:.5f}; epoch means {run['summary']}")
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"training losses not finite or not falling: "
+                             f"first window {first}, last {last}")
+    snapshot = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    trainer.learn.max_batches_per_epoch = PROFILE_STEPS
+    profile_window(trainer.train_epoch, PROFILE_STEPS, "train steps")
+
+    # ------------------------------------- training, INTERACTION_SPMM on
+    flag = layers.INTERACTION_SPMM
+    try:
+        layers.INTERACTION_SPMM = True
+        train_window(trainer, SPMM_WARMUP)
+        reset_counts(kernels)
+        run = train_window(trainer, SPMM_STEPS)
+        count_path("spmm train path",
+                   ["segment_gather", "spmm_fwd", "spmm_bwd"],
+                   ("dw_matmul",))
+    finally:
+        layers.INTERACTION_SPMM = flag
+    if not np.isfinite(run["losses"]).all():
+        raise AssertionError("spmm training losses not finite")
+    log(f"train (spmm first layer), {SPMM_STEPS} steps after {SPMM_WARMUP} "
+        f"warm-up: host {run['host_ms']:.3f} ms/step, CUDA events "
+        f"{run['event_ms']:.3f} ms/step, {run['steps_per_s']:.2f} steps/s; "
+        f"loss {run['summary']}")
+
+    # --------------------------------------- the first layer, both ways
+    first_layer_chains(tower, rows, data.catalog, model, dev)
+
+    # -------------------- serving, from the default training's weights
+    model.load_state_dict(snapshot)
+    reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     score_fn = make_score_fn(model, data.catalog)
     torch.cuda.synchronize()
     log(f"catalog encode: {time.perf_counter() - t0:.3f} s for "
-        f"{data.catalog.shape[0]} items (chunks of 8192)")
+        f"{data.catalog.shape[0]} items (chunks of 8192, trained weights)")
     users_all = np.random.default_rng(SEED).permutation(arrays["n_users"])
-    served, start = [], 0
+    served, start, redone, recs = [], 0, [], {}
     for bs, n_batches in BATCHES.items():
-        rec = Recommender(score_fn, test, data, k=K, batch_size=bs)
+        rec = recs[bs] = Recommender(score_fn, test, data, k=K,
+                                     batch_size=bs)
         if not rec.use_dot:
             raise AssertionError("the fused dot path was not taken")
         lat = []
@@ -347,26 +757,31 @@ def main() -> int:
             lat.append(time.perf_counter() - t1)
             served.append((users, ids, vals))
         p50 = float(np.median(lat[1:])) * 1e3
+        redone += rec.redo_rows
         log(f"B={bs}: p50 {p50:.3f} ms per request batch over {n_batches} "
             f"batches (host clock, after one warm-up) on {card}; redone rows "
             f"per batch {rec.redo_rows}")
-    launches = {name: fn.launches for name, fn, _, _ in kernels}
-    log(f"launches in the serving run: {launches}")
-    log(f"max_memory_allocated: "
+    count_path("serving path", ["segment_gather", "score_wmax",
+                                "gather_windows", "peel_values"])
+    for bs, rec in recs.items():
+        users = users_all[start:start + PROFILE_BATCHES * bs]
+        start += len(users)
+        profile_window(lambda: rec.recommend(users), PROFILE_BATCHES,
+                       f"request batches of {bs}")
+    log(f"max_memory_allocated (serving): "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by the serving path: "
-                             f"{missing}")
     differ = sum(check_lists(test, data, score_fn, *batch)
                  for batch in served)
-    log(f"{sum(len(b[0]) for b in served)} lists checked: no seen item, "
-        f"sorted, equal to the plain path ({differ} differ only on ties)")
+    n_lists = sum(len(b[0]) for b in served)
+    log(f"{n_lists} lists checked: no seen item, sorted, equal to the plain "
+        f"path ({differ} differ only on ties); redo on trained weights: "
+        f"{sum(redone)} of {n_lists} rows in {len(redone)} batches")
 
-    rows = [dict(name=name, route="cuda", source=src, replaces=rep,
-                 launches=launches[name], **measured[name])
-            for name, _, src, rep in kernels]
-    log(json.dumps({"kernels": rows}))
+    rows_json = [dict(name=name, route="cuda", source=src, replaces=rep,
+                      launches=launches[name], **measured[name])
+                 for name, _, src, rep in kernels]
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": rows_json}))
     log(card)  # name, power limit: as nvidia-smi prints them
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

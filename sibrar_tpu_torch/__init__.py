@@ -3,7 +3,16 @@
 The JAX package ``sibrar_tpu`` stays the reference; every module here names
 its counterpart there. This package imports torch, numpy and scipy only.
 """
+import dataclasses
+
 import torch
+
+
+def config_from_dict(cls, data):
+    """Dataclass ``cls`` from a config dict (``None`` reads as empty); keys
+    it has no field for are ignored, as the JAX package's loader does."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in (data or {}).items() if k in names})
 
 
 def full_f32() -> None:

@@ -3,9 +3,11 @@
 ``to_device``, ``DeviceData``).
 
 A `RecDataset` holds one split on the host (numpy / scipy); `to_device`
-packs what serving touches into a `DeviceData` of torch tensors: the catalog,
-the exclusion CSR, the train-interaction CSRs of both entities and the
-feature tables. Artifact loading (pandas, yaml) is not part of this slice.
+packs what serving and training touch into a `DeviceData` of torch tensors:
+the catalog, the exclusion CSR, the train-interaction CSRs of both entities,
+the split's (user, catalog item) pairs with their positives CSR and the
+item popularity, and the feature tables. Artifact loading (pandas, yaml) is
+not part of the port yet.
 """
 from __future__ import annotations
 
@@ -41,6 +43,10 @@ class DeviceData(NamedTuple):
     exclude_csr: DeviceCSR  # user -> catalog positions to exclude
     user_inter_csr: DeviceCSR  # user -> global item ids (train split)
     item_inter_csr: DeviceCSR  # item -> global user ids (train split)
+    train_users: torch.Tensor  # [n] int32, users of the split's pairs
+    train_items_cat: torch.Tensor  # [n] int32, their items' catalog positions
+    pos_csr: DeviceCSR  # user -> catalog positions of the split's pairs
+    popularity: torch.Tensor  # [n_catalog] f32 train popularity, sums to 1
     user_features: Dict[str, torch.Tensor]
     item_features: Dict[str, torch.Tensor]
 
@@ -92,9 +98,19 @@ class RecDataset:
             mask = mask + self._matrix(self.val_interactions)
         return mask.tocsr()
 
-    def to_device(self, device="cpu") -> DeviceData:
+    def to_device(self, device="cuda") -> DeviceData:
         cat = self.items_in_split
         train_t = self.interaction_matrix_train.T.tocsr()
+        item_to_catalog = np.full(self.n_items, -1, dtype=np.int64)
+        item_to_catalog[cat] = np.arange(len(cat))
+        users = self.interactions[:, 0]
+        items_cat = item_to_catalog[self.interactions[:, 1]]
+        pos_sp = sp.csr_matrix(
+            (np.ones(len(users), np.int8), (users, items_cat)),
+            shape=(self.n_users, len(cat)))
+        pop = np.asarray(self.interaction_matrix_train.sum(axis=0)).ravel()
+        pop = pop[cat].astype(np.float32)
+        pop = pop / max(pop.sum(), 1.0)
         return DeviceData(
             n_users=self.n_users, n_items=self.n_items,
             catalog=torch.as_tensor(cat.astype(np.int32), device=device),
@@ -103,6 +119,12 @@ class RecDataset:
             user_inter_csr=DeviceCSR.from_scipy(
                 self.interaction_matrix_train, device),
             item_inter_csr=DeviceCSR.from_scipy(train_t, device),
+            train_users=torch.as_tensor(users.astype(np.int32),
+                                        device=device),
+            train_items_cat=torch.as_tensor(items_cat.astype(np.int32),
+                                            device=device),
+            pos_csr=DeviceCSR.from_scipy(pos_sp, device),
+            popularity=torch.as_tensor(pop, device=device),
             user_features={k: torch.as_tensor(f.table, device=device)
                            for k, f in self.user_features.items()},
             item_features={k: torch.as_tensor(f.table, device=device)

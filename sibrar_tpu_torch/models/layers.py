@@ -1,9 +1,11 @@
 """Neural building blocks (port of ``sibrar_tpu/models/layers.py``).
 
-Inference-only slice: every module has the JAX package's eval forward and
-its random initialization, drawn on the CPU from an explicit
-``torch.Generator`` (move the built model with ``.to(device)``).
-Weights trained by the JAX package come in through ``models/transplant.py``.
+Every module has the JAX package's eval and train forwards (``module.train()``
+selects batch statistics and input dropout, as flax's ``train=True``) and its
+random initialization, drawn on the CPU from an explicit ``torch.Generator``
+(move the built model with ``.to(device)``). Train-time dropout draws from the
+generator the caller passes. Weights trained by the JAX package come in
+through ``models/transplant.py``.
 """
 from __future__ import annotations
 
@@ -13,11 +15,13 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from sibrar_tpu_torch.ops.dw import dense_first_matmul
 from sibrar_tpu_torch.ops.sparse import (
     DeviceCSR,
     csr_row_gather,
     csr_rows_to_dense,
 )
+from sibrar_tpu_torch.ops.spmm import spmm_onehot
 
 ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh,
                "sigmoid": torch.sigmoid, "selu": torch.selu}
@@ -67,15 +71,61 @@ class Embedding(nn.Embedding):
             self.weight.normal_(0.0, 0.1 / dim, generator=gen)
 
 
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last axis.
+
+    Train mode normalizes with the batch mean and the biased batch variance
+    over every leading axis (``E[x^2] - E[x]^2``, clipped at 0, flax's fast
+    variance) and moves the running statistics by
+    ``0.9 * running + 0.1 * batch``, the variance biased too, which is where
+    ``nn.BatchNorm1d`` (unbiased) differs. Eval mode uses the running
+    statistics."""
+
+    def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            flat = x.reshape(-1, x.shape[-1])
+            mean = flat.mean(0)
+            var = ((flat * flat).mean(0) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean)
+                self.running_var.mul_(m).add_((1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * scale + self.bias
+
+
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with the keep mask drawn from ``gen``: kept entries
+    scaled by ``1 / (1 - rate)`` (flax ``nn.Dropout``)."""
+    if gen is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    keep_prob = 1.0 - rate
+    keep = torch.bernoulli(torch.full_like(x, keep_prob), generator=gen)
+    return torch.where(keep.bool(), x / keep_prob, 0.0)
+
+
 class PolyLinear(nn.Module):
     """Configurable MLP: ``layer_config=[100, 50, 2]`` is Linear(100, 50), act,
-    Linear(50, 2); batch norm (eval form, eps 1e-5) before the activation
-    every ``apply_batch_norm_every`` layers, or after the last layer when -1;
-    ``output_fn`` at the end. (The JAX module's input dropout is a training
-    feature; this eval-only slice leaves it out.)"""
+    Linear(50, 2); `BatchNorm` before the activation every
+    ``apply_batch_norm_every`` layers, or after the last layer when -1;
+    ``output_fn`` at the end. In train mode, ``input_dropout`` drops inputs
+    with the keep mask drawn from the ``gen`` passed to `forward`."""
 
     def __init__(self, layer_config: Sequence[int], gen: torch.Generator, *,
                  activation_fn="relu", output_fn="relu",
+                 input_dropout: Optional[float] = None,
                  apply_batch_norm_every: int = 0,
                  torch_default_init: bool = False):
         super().__init__()
@@ -84,6 +134,7 @@ class PolyLinear(nn.Module):
                              f"{list(layer_config)}")
         self.act = get_activation_fn(activation_fn)
         self.out_fn = get_activation_fn(output_fn)
+        self.input_dropout = input_dropout
         dims = list(layer_config)
         self.apply_batch_norm_every = apply_batch_norm_every
         self.linears = nn.ModuleList(
@@ -92,21 +143,20 @@ class PolyLinear(nn.Module):
         every = apply_batch_norm_every
         # batch_norm[i] follows linears[i]; mode -1 puts one after the last
         self.batch_norm = nn.ModuleDict({
-            str(i): nn.BatchNorm1d(d, eps=1e-5, momentum=0.1)
+            str(i): BatchNorm(d)
             for i, d in enumerate(dims[1:])
             if (every > 0 and (i + 1) % every == 0)
             or (every == -1 and i == len(dims) - 2)})
 
-    def _bn(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        bn = self.batch_norm[str(i)]
-        return bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.training and self.input_dropout is not None:
+            x = dropout(x, self.input_dropout, gen)
         n = len(self.linears)
         for i, lin in enumerate(self.linears):
             x = lin(x)
             if str(i) in self.batch_norm:
-                x = self._bn(i, x)
+                x = self.batch_norm[str(i)](x)
             if i < n - 1:
                 x = self.act(x)
         if self.out_fn is not None:
@@ -192,6 +242,11 @@ class FeatureEmbeddingModule(nn.Module):
 BAG_BREAK_EVEN_FACTOR = 2048
 # densify budget: past it the bag path is taken if its gather is smaller
 DENSIFY_MAX_BYTES = 2 << 30
+# First layer of the non-bag path from the CSR rows with K6/K7
+# (`ops.spmm.spmm_onehot`) instead of densify + matmul with K5; off by
+# default, as the JAX package's flag (its "auto" means "on a TPU", and the
+# port has no TPU, so only a truthy value turns it on).
+INTERACTION_SPMM = False
 
 
 class InteractionTower(nn.Module):
@@ -199,11 +254,13 @@ class InteractionTower(nn.Module):
 
     The first layer is ``row @ kernel + bias`` over the 0/1 row of the train
     CSR. The bag path gathers the row's kernel rows and sums them (K1 row
-    gather, then a masked sum); the dense path densifies the rows (K1, then a
-    scatter into zeros) and multiplies. Which one runs follows the JAX
-    package's static gate, with the break-even factor a parameter. The JAX
-    tower's ``normalize``, ``scale`` and torch-default init serve DMF and
-    DropoutNet, not SBNet, and come with those models."""
+    gather, then a masked sum; its backward is autograd's scatter-add); the
+    dense path densifies the rows (K1, then a scatter into zeros) and
+    multiplies, with K5 for the kernel's gradient; with `INTERACTION_SPMM`
+    the non-bag path runs K1 then K6, with K7 for the gradient. Which one
+    runs follows the JAX package's static gate, with the break-even factor
+    a parameter. The JAX tower's ``normalize``, ``scale`` and torch-default
+    init serve DMF and DropoutNet, not SBNet, and come with those models."""
 
     def __init__(self, csr: DeviceCSR, layer_sizes: Sequence[int],
                  gen: torch.Generator, *, activation_fn: str = "relu",
@@ -243,9 +300,12 @@ class InteractionTower(nn.Module):
         if self.use_bag(idxs.numel()):
             cols, mask = csr_row_gather(self.csr, idxs)  # [..., L]
             pre = (self.kernel[cols.long()] * mask.unsqueeze(-1)).sum(dim=-2)
+        elif INTERACTION_SPMM:
+            cols, mask = csr_row_gather(self.csr, idxs.reshape(-1))
+            pre = spmm_onehot(cols, mask, self.kernel).reshape(*idxs.shape, h)
         else:
             vec = csr_rows_to_dense(self.csr, idxs.reshape(-1))
-            pre = (vec @ self.kernel).reshape(*idxs.shape, h)
+            pre = dense_first_matmul(vec, self.kernel).reshape(*idxs.shape, h)
         x = pre + self.bias
         if self.rest is None:
             return self.out_fn(x) if self.out_fn is not None else x

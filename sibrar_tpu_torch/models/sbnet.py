@@ -1,21 +1,26 @@
-"""SingleBranchNet (SiBraR), eval forward (port of
+"""SingleBranchNet (SiBraR), eval and train forwards (port of
 ``sibrar_tpu/models/sbnet.py``).
 
 Each entity projects its modalities to ``common_modality_dim``, ONE shared
 single-branch MLP encodes every projection, and evaluation averages (or
-maxes) the encodings over the eval modalities. This slice serves a trained
-model; the training forward (modality routing, InfoNCE) comes with the
-training slice.
+maxes) the encodings over the eval modalities. Training samples one or two
+modalities per example (balanced routing by default), drops the branch's
+inputs, encodes, and adds the InfoNCE loss between the two sampled
+encodings, weighted by ``regularization_weight``.
 """
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
 from torch import nn
 
+from sibrar_tpu_torch import config_from_dict
+from sibrar_tpu_torch.data.sampling import (
+    balanced_routing,
+    sample_k_modalities,
+)
 from sibrar_tpu_torch.models.base import RecModel
 from sibrar_tpu_torch.models.layers import (
     Embedding,
@@ -24,6 +29,7 @@ from sibrar_tpu_torch.models.layers import (
     PolyLinear,
     l2_normalize,
 )
+from sibrar_tpu_torch.train.losses import info_nce
 
 
 @dataclass
@@ -34,21 +40,29 @@ class SingleBranchFeatureConfig:
 
 @dataclass
 class SingleBranchNetEntityConfig:
-    """The JAX config's fields that shape the eval forward; the training
-    fields (regularization, sampling, input dropout) are accepted and
-    ignored here."""
+    """The JAX config's fields. Two are accepted and ignored:
+    ``preference_hidden_layers`` (read by no SBNet module) and
+    ``sampling_seed`` (draws come from the trainer's generator)."""
 
     features: list = field(default_factory=list)
     single_branch_hidden_layers: list = field(default_factory=list)
+    preference_hidden_layers: list = field(default_factory=list)
     common_modality_dim: int = 128
     activation_fn: str = "relu"
     train_modalities: Optional[list] = None
     eval_modalities: Optional[list] = None
+    sampling_seed: int = 42
+    single_branch_input_dropout: Optional[float] = None
     aggregation_fn: str = "mean"
     normalize_single_branch_input: bool = False
+    embedding_regularization_type: str = "no_regularization"
+    central_modality: Optional[str] = None
+    regularization_temperature: float = 1.0
+    regularization_weight: float = 1.0
     apply_output_activation: bool = False
     apply_batch_normalization: bool = True
     apply_batch_norm_every: int = 0
+    routed_modality_sampling: Optional[bool] = None
 
 
 @dataclass
@@ -62,10 +76,7 @@ class SBFeatureModuleConfig:
     activation_fn: str = "relu"
 
 
-def _from_dict(cls, data: dict):
-    """Dataclass from a config dict; unknown keys are ignored."""
-    names = {f.name for f in dataclasses.fields(cls)}
-    return cls(**{k: v for k, v in data.items() if k in names})
+REG_TYPES = ("no_regularization", "pairwise_single", "central_modality")
 
 
 class SingleBranchNetEntity(RecModel):
@@ -73,11 +84,17 @@ class SingleBranchNetEntity(RecModel):
 
     ``modalities`` holds one module per train modality, in train order (an
     `Embedding` for ``{entity}_embedding``, an `InteractionTower` for
-    ``interactions``, a `FeatureEmbeddingModule` otherwise)."""
+    ``interactions``, a `FeatureEmbeddingModule` otherwise). ``k`` modalities
+    are sampled per train example (1, or 2 with a regularization), with
+    ``central`` fixing the first for central-modality regularization."""
 
     def __init__(self, modality_names, eval_modality_ids, modalities,
                  sb_net: PolyLinear, *, aggregation_fn: str = "mean",
-                 normalize_single_branch_input: bool = False):
+                 normalize_single_branch_input: bool = False, k: int = 1,
+                 central: Optional[int] = None,
+                 regularization_temperature: float = 1.0,
+                 regularization_weight: float = 1.0,
+                 routed_modality_sampling: Optional[bool] = None):
         super().__init__()
         self.modality_names = tuple(modality_names)
         self.eval_modality_ids = tuple(eval_modality_ids)
@@ -85,11 +102,17 @@ class SingleBranchNetEntity(RecModel):
         self.sb_net = sb_net
         self.aggregation_fn = aggregation_fn
         self.normalize_single_branch_input = normalize_single_branch_input
+        self.k = k
+        self.central = central
+        self.regularization_temperature = regularization_temperature
+        self.regularization_weight = regularization_weight
+        self.routed_modality_sampling = routed_modality_sampling
 
-    def _branch(self, x: torch.Tensor) -> torch.Tensor:
+    def _branch(self, x: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.normalize_single_branch_input:
             x = l2_normalize(x, eps=1e-12)
-        return self.sb_net(x)
+        return self.sb_net(x, gen)
 
     def _aggregate(self, x: torch.Tensor) -> torch.Tensor:
         if self.aggregation_fn == "mean":
@@ -103,6 +126,66 @@ class SingleBranchNetEntity(RecModel):
                        for i in self.eval_modality_ids]
         stacked = torch.stack(projections, dim=-2)  # [..., n_eval_mod, d]
         return self._aggregate(self._branch(stacked))
+
+    def train_forward(self, idxs: torch.Tensor,
+                      gen: Optional[torch.Generator] = None, delta=None):
+        """Train-mode representation ``[..., d]`` and the weighted InfoNCE
+        loss between the two sampled encodings (0 when k = 1)."""
+        if self.routed_modality_sampling is not False and len(
+                self.modalities) > 1:
+            picked = self._routed_projections(idxs, gen, delta)
+        else:  # compute every modality, keep the k sampled per example
+            sampled = sample_k_modalities(
+                gen, idxs.shape, len(self.modalities), self.k,
+                central=self.central, device=idxs.device)
+            every = torch.stack([m(idxs) for m in self.modalities], dim=-2)
+            picked = every.gather(-2, sampled.unsqueeze(-1).expand(
+                *sampled.shape, every.shape[-1]))  # [..., k, d]
+        encoded = self._branch(picked, gen)  # [..., k, out]
+        reg = torch.zeros((), device=encoded.device)
+        if self.k == 2:
+            # item batches [B, 1 + n, d]: a row's candidates contrast each
+            # other; user batches [B, d]: users contrast across the batch
+            reg = self.regularization_weight * info_nce(
+                encoded[..., 0, :], encoded[..., 1, :],
+                temperature=self.regularization_temperature)
+        return self._aggregate(encoded), reg
+
+    def _routed_projections(self, idxs: torch.Tensor,
+                            gen: Optional[torch.Generator],
+                            delta: Optional[int]) -> torch.Tensor:
+        """Balanced modality routing: rows are assigned to modalities by
+        their flat position mod P (`balanced_routing`) after a cyclic shift
+        by ``delta`` (uniform in [0, P), drawn from ``gen`` unless given; an
+        int or a 0-d tensor), so each modality projects only its own rows,
+        by static column slices of the rolled [G, P] view. Pad rows are
+        dropped."""
+        slots = balanced_routing(len(self.modalities), self.k, self.central)
+        p = len(slots)
+        flat = idxs.reshape(-1)
+        t = flat.shape[0]
+        g = -(-t // p)
+        pad = g * p - t
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        if delta is None:  # stays on the device: no host sync
+            delta = torch.randint(0, p, (), generator=gen,
+                                  device=flat.device)
+        pos = torch.arange(g * p, device=flat.device)
+        blocks = flat[(pos + delta) % (g * p)].reshape(g, p)  # roll by -delta
+        assign: dict[int, list[tuple[int, int]]] = {}
+        for rho, row in enumerate(slots):
+            for j, m in enumerate(row):
+                assign.setdefault(m, []).append((rho, j))
+        out: list[list] = [[None] * self.k for _ in range(p)]
+        for m in sorted(assign):
+            pairs = assign[m]
+            proj = self.modalities[m](blocks[:, [rho for rho, _ in pairs]])
+            for col, (rho, j) in enumerate(pairs):
+                out[rho][j] = proj[:, col]
+        picked = torch.stack([torch.stack(col, dim=1) for col in out], dim=1)
+        picked = picked.reshape(g * p, self.k, -1)[(pos - delta) % (g * p)]
+        return picked[:t].reshape(*idxs.shape, self.k, picked.shape[-1])
 
 
 class PlainEntityModule(RecModel):
@@ -140,6 +223,17 @@ class SingleBranchNet(RecModel):
     def item_repr(self, i_idxs: torch.Tensor) -> torch.Tensor:
         return self.item_module(i_idxs)
 
+    def forward(self, u_idxs: torch.Tensor, i_idxs: torch.Tensor, *,
+                gen: Optional[torch.Generator] = None, delta=None):
+        """The model call; in train mode each tower takes its train forward
+        (random draws from ``gen``, routing shift ``delta`` when given) and
+        the towers' regularization losses are summed."""
+        if not self.training:
+            return super().forward(u_idxs, i_idxs)
+        u, reg_u = self.user_module.train_forward(u_idxs, gen, delta)
+        i, reg_i = self.item_module.train_forward(i_idxs, gen, delta)
+        return self.combine(u, i), reg_u + reg_i
+
     # ------------------------------------------------------------ construction
     @staticmethod
     def build_from_conf(conf: dict, dataset, device_data, *,
@@ -171,7 +265,7 @@ class SingleBranchNet(RecModel):
             n_entities = (dataset.n_users if entity == "user"
                           else dataset.n_items)
             if not ("features" in econf and not econf.get("embedding_dim")):
-                fc = _from_dict(SBFeatureModuleConfig, econf)
+                fc = config_from_dict(SBFeatureModuleConfig, econf)
                 emb_dim = (fc.embedding_dim if fc.embedding_dim != -1
                            else shared_common_dim)
                 if fc.feature_name == f"{entity}_embedding":
@@ -187,8 +281,8 @@ class SingleBranchNet(RecModel):
                     post_embedding_layers=fc.post_embedding_layers,
                     activation_fn=fc.activation_fn))
 
-            ec = _from_dict(SingleBranchNetEntityConfig, econf)
-            features = [_from_dict(SingleBranchFeatureConfig, f)
+            ec = config_from_dict(SingleBranchNetEntityConfig, econf)
+            features = [config_from_dict(SingleBranchFeatureConfig, f)
                         for f in ec.features]
             available = [f.feature_name for f in features]
             train_mods = list(ec.train_modalities or available)
@@ -229,6 +323,16 @@ class SingleBranchNet(RecModel):
                         pre_embedding_layers=hidden[name] or None,
                         activation_fn=ec.activation_fn))
 
+            if ec.embedding_regularization_type not in REG_TYPES:
+                raise ValueError(f"unknown embedding_regularization_type "
+                                 f"{ec.embedding_regularization_type!r}")
+            central = None
+            if ec.embedding_regularization_type == "central_modality":
+                if ec.central_modality not in train_mods:
+                    raise ValueError(f"central modality "
+                                     f"{ec.central_modality!r} not in train "
+                                     f"modalities")
+                central = train_mods.index(ec.central_modality)
             bn_every = (ec.apply_batch_norm_every
                         if ec.apply_batch_normalization else 0)
             if ec.apply_batch_normalization and ec.apply_batch_norm_every == 0:
@@ -239,12 +343,19 @@ class SingleBranchNet(RecModel):
                 activation_fn=ec.activation_fn,
                 output_fn=(ec.activation_fn if ec.apply_output_activation
                            else None),
+                input_dropout=ec.single_branch_input_dropout,
                 apply_batch_norm_every=bn_every, torch_default_init=True)
             return SingleBranchNetEntity(
                 train_mods, [train_mods.index(m) for m in eval_mods],
                 modalities, sb_net, aggregation_fn=ec.aggregation_fn,
                 normalize_single_branch_input=(
-                    ec.normalize_single_branch_input))
+                    ec.normalize_single_branch_input),
+                k=(1 if ec.embedding_regularization_type
+                   == "no_regularization" else 2),
+                central=central,
+                regularization_temperature=ec.regularization_temperature,
+                regularization_weight=ec.regularization_weight,
+                routed_modality_sampling=ec.routed_modality_sampling)
 
         model = SingleBranchNet(build_entity("user"), build_entity("item"))
         return model.to(device_data.catalog.device).eval()

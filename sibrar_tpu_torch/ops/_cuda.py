@@ -1,10 +1,12 @@
 """Build, load and launch the hand-written Hopper kernels under ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds), loaded
-with ``ctypes``. The library lands in ``sibrar_tpu_torch/_build/`` under a
-name keyed by the sources and flags, on the first launch in a process; a
-later process with the same sources reuses it.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
+started together) into an object file, and the objects are linked into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), loaded with ``ctypes``. Objects and library land in
+``sibrar_tpu_torch/_build/`` under names keyed by their sources and flags,
+on the first launch in a process; a later process with the same sources
+reuses them.
 
 Dispatch rule for every wrapper (`use_kernel`): a CUDA tensor launches the
 kernel, a CPU tensor takes the kernel's plain PyTorch version, anything else
@@ -24,8 +26,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +39,9 @@ _SIGNATURES = {
     "sibrar_score_wmax": [_P, _P, _I, _I, _I, _P, _P, _P],
     "sibrar_gather_windows": [_P, _LL, _P, _I, _I, _P, _P, _P],
     "sibrar_peel_values": [_P, _LL, _I, _P, _P, _P],
+    "sibrar_dw_matmul": [_P, _P, _I, _I, _I, _P, _P],
+    "sibrar_spmm_fwd": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "sibrar_spmm_bwd": [_P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 _lib = None
@@ -53,29 +59,58 @@ def _nvcc() -> str:
     return found
 
 
+def _key(*parts: bytes) -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for part in parts:
+        digest.update(part)
+    return digest.hexdigest()[:16]
+
+
+def _run(procs: list) -> str:
+    """Wait for every ``(cmd, Popen, tmp, dst)``; move each output into
+    place; raise on the first failure. Returns the compilers' reports."""
+    log, failed = "", None
+    for cmd, proc, tmp, dst in procs:
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0 and failed is None:
+            failed = f"{' '.join(cmd)} failed ({proc.returncode}):\n{out}"
+        elif proc.returncode == 0:
+            os.replace(tmp, dst)
+    if failed:
+        raise RuntimeError(failed)
+    return log
+
+
+def _start(cmd: list, dst: Path) -> tuple:
+    tmp = dst.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen([*cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return cmd, proc, tmp, dst
+
+
 def build() -> ctypes.CDLL:
-    """Compile (or reuse) the kernel library and load it. Records the wall
-    seconds and nvcc's ``-Xptxas -v`` report in `build_info`."""
+    """Compile (or reuse) the kernel library and load it: one ``nvcc -c``
+    per source, all at once, then one link. Records the wall seconds and
+    nvcc's ``-Xptxas -v`` report in `build_info`."""
     global _lib
     if _lib is not None:
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    lib_path = BUILD_DIR / f"libsibrar_kernels_{digest.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
-    log = ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs, procs = [], []
+    for src in sources:
+        obj = BUILD_DIR / f"{src.stem}_{_key(src.read_bytes())}.o"
+        objs.append(obj)
+        if not obj.exists():
+            procs.append(_start([_nvcc(), *NVCC_FLAGS, "-c", str(src)], obj))
+    log = _run(procs)
+    lib_path = BUILD_DIR / (
+        f"libsibrar_kernels_{_key(*(o.name.encode() for o in objs))}.so")
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, lib_path)
+        _run([_start([_nvcc(), *ARCH, "-shared", *map(str, objs)],
+                     lib_path)])
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -8,6 +8,7 @@ only for TPU VMEM and HLO-literal limits.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -28,7 +29,7 @@ class DeviceCSR:
     max_row_len: int
 
     @staticmethod
-    def from_scipy(mat, device="cpu") -> "DeviceCSR":
+    def from_scipy(mat, device="cuda") -> "DeviceCSR":
         csr = mat.tocsr()
         csr.sort_indices()
         row_lens = np.diff(csr.indptr)
@@ -40,7 +41,7 @@ class DeviceCSR:
             max_row_len=int(row_lens.max()) if len(row_lens) else 0)
 
     @staticmethod
-    def empty(n_rows: int, n_cols: int, device="cpu") -> "DeviceCSR":
+    def empty(n_rows: int, n_cols: int, device="cuda") -> "DeviceCSR":
         return DeviceCSR(
             indptr=torch.zeros(n_rows + 1, dtype=torch.int32, device=device),
             indices=torch.zeros(0, dtype=torch.int32, device=device),
@@ -119,6 +120,69 @@ def csr_rows_to_dense(csr: DeviceCSR, rows: torch.Tensor,
                         device=rows.device)
     dense.scatter_add_(1, cols2, mask.reshape(cols2.shape).to(dtype))
     return dense.reshape(*rows.shape, csr.n_cols)
+
+
+# -------------------------------------------------------- membership tests
+# Compare path up to this row length: the row fetch is K1 on every device,
+# so the JAX package's TPU-only gate (Pallas fetch, else L <= 128) is just
+# max_row_len <= 2048 here.
+COMPARE_MAX_ROW_LEN = 2048
+
+
+def csr_contains(csr: DeviceCSR, rows: torch.Tensor,
+                 cols: torch.Tensor) -> torch.Tensor:
+    """Is ``(rows[i], cols[i])`` a stored entry? Broadcasts; a fixed number
+    of bisection steps over each row's sorted segment (JAX
+    ``csr_contains``)."""
+    rows_b, cols_b = torch.broadcast_tensors(rows, cols)
+    if csr.nnz == 0:
+        return torch.zeros(rows_b.shape, dtype=torch.bool,
+                           device=rows_b.device)
+    rflat = rows_b.reshape(-1).long()
+    cflat = cols_b.reshape(-1).to(csr.indices.dtype)
+    lo = csr.indptr[rflat].long()
+    hi = csr.indptr[rflat + 1].long()
+    ends = hi
+    cap = csr.nnz - 1
+    n_iters = max(math.ceil(math.log2(max(csr.max_row_len, 1) + 1)) + 1, 1)
+    for _ in range(n_iters):
+        mid = (lo + hi) // 2
+        go_right = csr.indices[mid.clamp(max=cap)] < cflat
+        keep = lo < hi
+        lo, hi = (torch.where(keep & go_right, mid + 1, lo),
+                  torch.where(keep & ~go_right, mid, hi))
+    found = (lo < ends) & (csr.indices[lo.clamp(max=cap)] == cflat)
+    return found.reshape(rows_b.shape)
+
+
+def contains_rows_pregather(csr: DeviceCSR, rows: torch.Tensor):
+    """The ``(row_cols, row_mask)`` row fetch of `csr_contains_rows`, or
+    None where the bisection applies (empty CSR, or rows longer than
+    `COMPARE_MAX_ROW_LEN`). Rejection loops call it once, outside the
+    loop."""
+    if csr.nnz == 0 or csr.max_row_len > COMPARE_MAX_ROW_LEN:
+        return None
+    return csr_row_gather(csr, rows)
+
+
+def contains_pregathered(row_cols: torch.Tensor, row_mask: torch.Tensor,
+                         cols: torch.Tensor) -> torch.Tensor:
+    """Membership of ``cols[b, k]`` in pre-gathered row columns."""
+    hit = cols.unsqueeze(-1) == row_cols.unsqueeze(-2)
+    return (hit & row_mask.unsqueeze(-2)).any(-1)
+
+
+def csr_contains_rows(csr: DeviceCSR, rows: torch.Tensor,
+                      cols: torch.Tensor) -> torch.Tensor:
+    """Membership of ``cols[b, k]`` in row ``rows[b]``: the compare path
+    for short rows, the bisection for long ones."""
+    if csr.nnz == 0:
+        return torch.zeros((*rows.shape, cols.shape[-1]), dtype=torch.bool,
+                           device=rows.device)
+    pre = contains_rows_pregather(csr, rows)
+    if pre is not None:
+        return contains_pregathered(*pre, cols)
+    return csr_contains(csr, rows.unsqueeze(-1), cols)
 
 
 def scatter_fill_rows(scores: torch.Tensor, cols: torch.Tensor,

@@ -40,10 +40,10 @@ class Recommender:
     def __init__(self, score_fn: Callable, dataset: RecDataset,
                  device_data: Optional[DeviceData] = None, *,
                  k: int = 100, batch_size: int = 256,
-                 exclude_seen: bool = True, device=None):
+                 exclude_seen: bool = True, device="cuda"):
         full_f32()
         if device_data is None:
-            device_data = dataset.to_device(device or "cpu")
+            device_data = dataset.to_device(device)
         self.dataset = dataset
         self.data = device_data
         self.device = device_data.catalog.device

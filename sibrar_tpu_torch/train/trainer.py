@@ -1,0 +1,216 @@
+"""Optimizers and the training loop (port of ``sibrar_tpu/train/trainer.py``:
+``build_optimizer``, the dense-optimizer train step, ``epoch_batch_plan``
+and ``train_epoch``).
+
+A train step samples negatives on the device, runs the model's train
+forward (logits and regularization loss), adds the rec loss, and steps the
+optimizer; an epoch walks a permutation of the split's pairs in full
+batches plus a tail batch. The JAX package scans the epoch inside one jit;
+here the steps run eagerly, one after the other, and nothing waits for the
+device until the epoch's losses are read. Every random draw comes from the
+trainer's ``torch.Generator`` on the device.
+
+Not ported yet (``ROADMAP.md`` queue 1, item 2): ``fit`` and ``validate``
+(they need the evaluator), checkpoint and resume, the row-sparse table
+optimizer (``sparse_tables``) and bf16 Adam moments (``moment_dtype``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterable, Optional
+
+import torch
+
+from sibrar_tpu_torch.data.dataset import DeviceData, RecDataset
+from sibrar_tpu_torch.data.sampling import sample_negatives
+from sibrar_tpu_torch.train.losses import build_rec_loss
+
+NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 2)"
+
+
+@dataclass
+class LearningConfig:
+    """The ``learn:`` fields of the JAX config. ``epoch_scan_chunk`` is
+    accepted and ignored: it bounds the JAX package's scanned programs for
+    a TPU runtime, and the port runs its steps eagerly. ``n_epochs``,
+    ``max_patience`` and ``optimizing_metric`` belong to ``fit``."""
+
+    n_epochs: int = 50
+    lr: float = 1e-3
+    wd: float = 0.0
+    optimizer: str = "adam"
+    rec_loss: str = "bce"
+    loss_aggregator: str = "mean"
+    max_patience: int = 10
+    optimizing_metric: str = "ndcg@10"
+    max_batches_per_epoch: Optional[int] = None
+    moment_dtype: Optional[str] = None
+    sparse_tables: bool = False
+    sparse_table_min_rows: int = 16384
+    epoch_scan_chunk: Optional[int] = 512
+
+
+@dataclass
+class DatasetConfig:
+    """The sampling fields of the JAX ``dataset:`` config."""
+
+    n_negative_samples: int = 4
+    negative_sampling_strategy: str = "uniform"
+    popularity_squashing_factor: float = 1.0
+
+
+class Optimizer:
+    """The optax chains of the JAX ``build_optimizer`` over a parameter list.
+
+    - ``adam``: weight decay added to the gradient, then Adam (b1 0.9, b2
+      0.999, eps 1e-8 outside the root);
+    - ``adagrad``: weight decay added to the gradient, then
+      ``optax.scale_by_rss`` (accumulator from 0, eps 1e-7 inside the root,
+      unlike ``torch.optim.Adagrad``);
+    - ``adamw``: Adam, then decoupled decay ``wd * param``;
+    each followed by ``-lr``. A parameter without a gradient steps with a
+    zero gradient, as every parameter does in the JAX package.
+
+    ``state[p]`` holds ``mu`` / ``nu`` (Adam) or ``sum_of_squares``
+    (adagrad); ``count`` is the number of steps taken."""
+
+    B1, B2, EPS, RSS_EPS = 0.9, 0.999, 1e-8, 1e-7
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], kind: str,
+                 lr: float, wd: float = 0.0):
+        if kind not in ("adam", "adagrad", "adamw"):
+            raise ValueError(f"unsupported optimizer {kind!r}")
+        self.kind, self.lr, self.wd = kind, lr, wd
+        self.params = [p for p in params if p.requires_grad]
+        self.count = 0
+        names = ("sum_of_squares",) if kind == "adagrad" else ("mu", "nu")
+        self.state = {p: {n: torch.zeros_like(p) for n in names}
+                      for p in self.params}
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.count += 1
+        for p in self.params:
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            st = self.state[p]
+            if self.kind != "adamw" and self.wd:
+                g = g + self.wd * p
+            if self.kind == "adagrad":
+                ss = st["sum_of_squares"].addcmul_(g, g)
+                upd = torch.where(ss > 0, torch.rsqrt(ss + self.RSS_EPS),
+                                  0.0) * g
+            else:
+                mu = st["mu"].mul_(self.B1).add_(g, alpha=1 - self.B1)
+                nu = st["nu"].mul_(self.B2).addcmul_(g, g, value=1 - self.B2)
+                mu_hat = mu / (1 - self.B1 ** self.count)
+                nu_hat = nu / (1 - self.B2 ** self.count)
+                upd = mu_hat / (nu_hat.sqrt() + self.EPS)
+                if self.kind == "adamw" and self.wd:
+                    upd = upd + self.wd * p
+            p.sub_(self.lr * upd)
+
+
+def build_optimizer(learn: LearningConfig,
+                    params: Iterable[torch.nn.Parameter]) -> Optimizer:
+    """adam / adagrad / adamw as the JAX package chains them."""
+    if learn.moment_dtype not in (None, "float32"):
+        raise NotImplementedError(f"moment_dtype={learn.moment_dtype!r} is "
+                                  f"{NOT_PORTED}")
+    return Optimizer(params, learn.optimizer, learn.lr, learn.wd)
+
+
+class Trainer:
+    """Trains a `RecModel` on one split, on the device of its `DeviceData`
+    (the card unless ``device`` says otherwise)."""
+
+    def __init__(self, model, train_data: RecDataset, learn: LearningConfig,
+                 dataset_conf: DatasetConfig, batch_size: int = 128,
+                 seed: int = 0, device_data: Optional[DeviceData] = None,
+                 device="cuda"):
+        if learn.sparse_tables:
+            raise NotImplementedError(f"sparse_tables is {NOT_PORTED}")
+        self.model = model
+        self.train_dataset = train_data
+        self.data = (device_data if device_data is not None
+                     else train_data.to_device(device))
+        self.device = self.data.catalog.device
+        self.learn = learn
+        self.dataset_conf = dataset_conf
+        self.batch_size = batch_size
+        self.n_neg = dataset_conf.n_negative_samples
+        self.rec_loss = build_rec_loss(
+            learn.rec_loss, n_items=train_data.n_items_in_split,
+            n_neg=self.n_neg, aggregator=learn.loss_aggregator,
+            train_neg_strategy=dataset_conf.negative_sampling_strategy)
+        self.optimizer = build_optimizer(learn, model.parameters())
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.step = 0
+        self.epoch_losses: Optional[torch.Tensor] = None
+
+    def train_step(self, idxs: torch.Tensor) -> torch.Tensor:
+        """One optimizer step on the pairs ``idxs``; returns the device
+        tensor ``[total, rec_loss, reg_loss]``."""
+        data = self.data
+        u = data.train_users[idxs]
+        pos = data.train_items_cat[idxs]
+        negs = sample_negatives(
+            self.gen, u, data.pos_csr, data.popularity,
+            strategy=self.dataset_conf.negative_sampling_strategy,
+            n_catalog=self.train_dataset.n_items_in_split, n_neg=self.n_neg,
+            squashing_factor=self.dataset_conf.popularity_squashing_factor)
+        i_cat = torch.cat([pos.unsqueeze(1), negs], dim=1)
+        i_global = data.catalog[i_cat.long()]
+        labels = torch.zeros(i_cat.shape, device=self.device)
+        labels[:, 0] = 1.0
+        self.model.train()
+        logits, reg = self.model(u, i_global, gen=self.gen)
+        loss = self.rec_loss(logits, labels)
+        total = loss + reg
+        self.optimizer.zero_grad()
+        total.backward()
+        self.optimizer.step()
+        self.step += 1
+        return torch.stack([total, loss, reg]).detach()
+
+    @staticmethod
+    def epoch_batch_plan(n_inter: int, batch_size: int,
+                         max_batches: Optional[int]) -> tuple[int, int]:
+        """(n_full_batches, tail_size): every pair lands in one batch per
+        epoch unless ``max_batches_per_epoch`` caps the count (then no
+        tail)."""
+        n_batches = n_inter // batch_size
+        tail = n_inter - n_batches * batch_size
+        if max_batches and n_batches >= max_batches:
+            return max_batches, 0
+        return n_batches, tail
+
+    def train_epoch(self) -> dict:
+        """One epoch over a fresh permutation of the split's pairs; returns
+        the step losses' mean, the tail step weighted by ``tail / bs``. The
+        per-step losses stay in ``epoch_losses`` ``[n_steps, 3]``."""
+        n_inter = int(self.data.train_users.shape[0])
+        n_batches, tail = self.epoch_batch_plan(
+            n_inter, self.batch_size, self.learn.max_batches_per_epoch)
+        if n_batches == 0 and tail == 0:
+            raise ValueError("not enough interactions for a single batch")
+        if n_batches == 0:  # fewer interactions than one batch: tail only
+            n_batches, tail = 1, 0
+            self.batch_size = min(self.batch_size, n_inter)
+        bs = self.batch_size
+        perm = torch.randperm(n_inter, generator=self.gen, device=self.device)
+        losses = [self.train_step(perm[k * bs:(k + 1) * bs])
+                  for k in range(n_batches)]
+        weights = [1.0] * n_batches
+        if tail:
+            losses.append(self.train_step(
+                perm[n_batches * bs:n_batches * bs + tail]))
+            weights.append(tail / bs)
+        self.epoch_losses = torch.stack(losses)
+        w = torch.tensor(weights, device=self.device).unsqueeze(1)
+        total, rec, reg = ((self.epoch_losses * w).sum(0) / w.sum()).tolist()
+        return {"train/loss": total, "train/rec_loss": rec,
+                "train/reg_loss": reg}

@@ -84,7 +84,8 @@ def _models(jsplits, tsplits, conf):
     stats = jax.tree_util.tree_map_with_path(draw, shaped["batch_stats"])
     variables = {**shaped, "params": params, "batch_stats": stats}
     ttrain = tsplits["train"]
-    tm = SingleBranchNet.build_from_conf(conf, ttrain, ttrain.to_device())
+    tm = SingleBranchNet.build_from_conf(conf, ttrain,
+                                      ttrain.to_device("cpu"))
     transplant(tm, {"params": params, "batch_stats": stats})
     return jm, variables, tm
 
@@ -103,7 +104,7 @@ def test_synthetic_arrays_and_device_data_match_jax():
     assert [set(r) for r in tg.table.tolist()] == [
         set(r) for r in jg.table.tolist()]
     for split in ("val", "test"):
-        jd, td = js[split].to_device(), ts[split].to_device()
+        jd, td = js[split].to_device(), ts[split].to_device("cpu")
         np.testing.assert_array_equal(td.catalog.numpy(),
                                       np.asarray(jd.catalog))
         for field in ("exclude_csr", "user_inter_csr", "item_inter_csr"):
@@ -175,7 +176,7 @@ def test_recommender_matches_jax(n_items, exclude_seen):
                           exclude_seen=exclude_seen)
     jids, jv = jrec.recommend(users, return_scores=True)
 
-    tdata = ttest.to_device()
+    tdata = ttest.to_device("cpu")
     score_fn = make_score_fn(tm, tdata.catalog, item_chunk=1000)  # padded
     np.testing.assert_allclose(score_fn.items.numpy(), np.asarray(i_repr),
                                rtol=1e-4, atol=1e-5)
@@ -209,6 +210,11 @@ from sibrar_tpu_torch.data.synthetic import make_onion_scale_splits
 from sibrar_tpu_torch.models.sbnet import SingleBranchNet
 from sibrar_tpu_torch.serve import Recommender
 from sibrar_tpu_torch.train.scoring import make_score_fn
+from sibrar_tpu_torch.data import sampling
+from sibrar_tpu_torch.ops import dw, spmm
+from sibrar_tpu_torch.train import losses
+from sibrar_tpu_torch.train.trainer import (DatasetConfig, LearningConfig,
+                                            Trainer)
 conf = copy.deepcopy(MODEL_CONF)
 conf["shared_common_dim"] = 8
 conf["user"]["embedding_dim"] = 8
@@ -220,6 +226,11 @@ splits = make_splits(make_onion_scale_splits(
 test = splits["test"]
 data = test.to_device("cpu")
 model = SingleBranchNet.build_from_conf(conf, test, data, seed=3)
+train = splits["train"]
+trainer = Trainer(model, train, LearningConfig(max_batches_per_epoch=2),
+                  DatasetConfig(), batch_size=64,
+                  device_data=train.to_device("cpu"))
+assert np.isfinite(trainer.train_epoch()["train/loss"])
 rec = Recommender(make_score_fn(model, data.catalog), test, data, k=5,
                   batch_size=32)
 assert rec.use_dot
@@ -227,7 +238,7 @@ ids = rec.recommend(np.arange(70))
 assert ids.shape == (70, 5)
 excl = test.exclude_matrix().tocsr()
 assert not np.asarray(excl[np.repeat(np.arange(70), 5), ids.reshape(-1)]).any()
-loaded = [m for m in ("jax", "flax", "yaml", "pandas", "sibrar_tpu")
+loaded = [m for m in ("jax", "flax", "optax", "yaml", "pandas", "sibrar_tpu")
           if sys.modules.get(m) is not None]
 assert not loaded, loaded
 print("slice ok")

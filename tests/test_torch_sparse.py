@@ -44,7 +44,7 @@ def test_csr_row_gather_matches_jax(kind):
     rows = rng.integers(0, 40, 23).astype(np.int32)
     jc, jm = jsparse.csr_row_gather(jsparse.DeviceCSR.from_scipy(mat),
                                     jnp.asarray(rows))
-    tc, tm = tsparse.csr_row_gather(tsparse.DeviceCSR.from_scipy(mat),
+    tc, tm = tsparse.csr_row_gather(tsparse.DeviceCSR.from_scipy(mat, "cpu"),
                                     torch.as_tensor(rows))
     assert tc.dtype == torch.int32 and tm.dtype == torch.bool
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
@@ -60,7 +60,7 @@ def test_csr_rows_to_dense_matches_jax(kind, n_cols):
     rows = rng.integers(0, 30, (4, 5)).astype(np.int32)  # 2-D row batch
     jd = jsparse.csr_rows_to_dense(jsparse.DeviceCSR.from_scipy(mat),
                                    jnp.asarray(rows))
-    td = tsparse.csr_rows_to_dense(tsparse.DeviceCSR.from_scipy(mat),
+    td = tsparse.csr_rows_to_dense(tsparse.DeviceCSR.from_scipy(mat, "cpu"),
                                    torch.as_tensor(rows))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
     np.testing.assert_array_equal(td.numpy(), mat[rows.reshape(-1)]
@@ -91,7 +91,7 @@ def test_plain_segment_gather_matches_pallas_kernels(kernel, kind):
     it the JAX kernels read on into the next row and the wrapper masks)."""
     rng = np.random.default_rng(3)
     mat = _csr(rng, 40, 3000, _lens(rng, kind, 40))
-    csr = tsparse.DeviceCSR.from_scipy(mat)
+    csr = tsparse.DeviceCSR.from_scipy(mat, "cpu")
     rows = rng.integers(0, 40, 16).astype(np.int32)
     length = csr.max_row_len
     fn = (jsparse._segment_gather if kernel == "vmem"

@@ -14,23 +14,33 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
 1. checks each kernel against its plain PyTorch version on the card: K1-K4
    at the serving path's shapes, K5-K7 at the train step's (one real batch:
    512 pairs, 10 uniform negatives each, the 2,256 item rows that balanced
-   routing sends to the interaction tower), with times, bounds and library
-   yardsticks;
+   routing sends to the interaction tower), K8, K9 and K3 on the window
+   tiling at the validation paths' (B = 1,024, C = 100,352), with times,
+   bounds and library yardsticks;
 2. trains with ``Trainer.train_epoch`` (the config's learn / dataset /
    loader settings): a warm-up, then a few hundred timed steps on the
    default first layer (densify + matmul, K5 backward), whose losses must be
    finite and fall; a profiled window; then a few dozen steps with
    ``INTERACTION_SPMM`` on (K6 / K7);
 3. times the item tower's first layer and the catalog encode both ways;
-4. serves from the weights the default training left: catalog encode, then
+4. from the default training's weights, runs ``Trainer.fit`` (the YAML's
+   learn / eval settings, 2 epochs of 60 steps, each validation over the
+   50,000 users of the val split through the dot path) and checks that
+   ``validate()`` afterwards returns fit's best metrics exactly; then, on
+   fit's weights, validates once per ranking path (dot; scores with K8 and
+   the peel; ``pallas`` with K9 and K3 on the tiling; ``full``), checks the
+   key set and ranges of every metric dict, and holds sample batches' lists
+   to the plain ``full`` path;
+5. serves from the weights the default training left: catalog encode, then
    request batches at B = 256 and B = 1024 with k = 100. The lists are
    checked against the users' train + val history (scipy, on the host) and
    against the plain path on the same card (``torch.matmul`` + scatter +
    ``torch.topk``).
 
-Each path (default training, spmm training, serving) runs with every launch
-count set to 0 just before it and read just after; each of its kernels must
-have launched.
+Each path (default training, spmm training, fit, the four validation
+paths, serving) runs with every launch count set to 0 just before it and
+read just after; each of its kernels must have launched, and kernels of
+other paths must not.
 
 Output: progress lines, then one JSON line with a row per kernel, the card's
 name and power limit, and as the last line
@@ -95,6 +105,15 @@ DATASET_CONF = {"n_negative_samples": 10,
                 "popularity_squashing_factor": 1.0}
 LOADER_CONF = {"batch_size": 512, "eval_batch_size": 1024, "num_workers": 0,
                "shuffle": True, "prefetch_factor": 2}
+# The resolved ``eval:`` block of the same file; a test holds it to the YAML.
+# Its group metrics need a ``gender`` user feature, which the onion-scale
+# synthetic data lacks: the run drops them, as the CLI's onion-scale e2e
+# test does (``eval.group_metrics=[]``).
+EVAL_CONF = {"top_k": [1, 3, 5, 10, 20, 50, 100],
+             "metrics": ["ndcg", "recall", "precision", "f_score", "hitrate",
+                         "ap", "coverage"],
+             "group_metrics": ["gender"], "compute_std": True,
+             "topk_method": "auto", "score_dtype": None}
 
 DEVICE = "cuda"
 SEED = 0
@@ -106,6 +125,8 @@ LOSS_WINDOW = 50  # steps in the first and last loss windows
 PROFILE_STEPS = 10  # train steps under torch.profiler
 PROFILE_BATCHES = 5  # request batches of each size under torch.profiler
 SPMM_WARMUP, SPMM_STEPS = 5, 40  # steps with INTERACTION_SPMM on
+FIT_EPOCHS, FIT_BATCHES = 2, 60  # Trainer.fit: epochs, steps per epoch
+LIST_BATCHES = (0, 20, 48)  # validation batches whose lists are checked
 F32_EPS = 2.0 ** -24
 # H100 SXM peaks (NVIDIA data sheet; at 700 W): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores
@@ -161,9 +182,12 @@ def max_abs_err(a, b) -> float:
     return float(torch.where(a == b, 0.0, (a - b).abs()).max())
 
 
-def check_kernels(data, dev) -> dict:
+def check_kernels(data, dev, e_val: int) -> dict:
     """Each kernel against its plain version on the card, at the serving
-    path's shapes; returns name -> {max_abs_err, ms, plain_ms}."""
+    path's shapes (K1-K4) and the validation paths' (K8, K9, K3 on the
+    tiling, K3 as the peel's winner-row gather; ``e_val`` is the val
+    split's longest exclusion row); returns name -> {max_abs_err, ms,
+    plain_ms, library_ms, bound_ms, bound_by}."""
     import torch
 
     from sibrar_tpu_torch.ops import peel, sparse, window
@@ -263,7 +287,95 @@ def check_kernels(data, dev) -> dict:
     rows_out["peel_values"] = dict(
         max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
         **bound(b * m * (128 + t + 1) * 4))
+    rows_out.update(check_eval_kernels(scores, e_val))
     return rows_out
+
+
+def check_eval_kernels(scores, e_val: int) -> dict:
+    """K8, K9 and K3 on the window tiling over the [1024, 100,352] scores
+    (bit-equal to their plain versions), with the validation paths'
+    window counts: the pallas path's m = k + E, the peel's winner rows at
+    its rounded m."""
+    import torch
+
+    from sibrar_tpu_torch.ops import peel, window
+
+    out = {}
+    b, c = scores.shape
+    nw = c // 128
+    view = scores.view(b, nw, 128)
+
+    def exact(name, got, want):
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        if not (err == 0 and all(torch.equal(g, w)
+                                 for g, w in zip(got, want))):
+            raise AssertionError(f"{name} differs from plain: max abs err "
+                                 f"{err}")
+        return err
+
+    # K8 window_max
+    err = exact("K8 window_max", [peel.window_max(scores)],
+                [peel.window_max_plain(scores)])
+    out["window_max"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: peel.window_max(scores), 50),
+        plain_ms=cuda_ms(lambda: peel.window_max_plain(scores), 50),
+        library_ms=cuda_ms(lambda: view.amax(-1), 50),
+        **bound(4 * (b * c + b * nw)))
+    log(f"K8 window_max B={b} C={c}: bit-equal; {out['window_max']}")
+
+    # K9 window_scores_from; the library yardstick is two calls
+    sw_t, wmax = window.window_scores_from(scores)
+    err = exact("K9 window_scores_from", [sw_t, wmax],
+                window.window_scores_from_plain(scores))
+    out["window_scores_from"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: window.window_scores_from(scores), 50),
+        plain_ms=cuda_ms(lambda: window.window_scores_from_plain(scores),
+                         50),
+        library_ms=cuda_ms(lambda: (view.transpose(0, 1).contiguous(),
+                                    view.amax(-1)), 50),
+        **bound(4 * (2 * b * c + b * nw)))
+    log(f"K9 window_scores_from B={b} C={c}: bit-equal (planes and maxima); "
+        f"{out['window_scores_from']}")
+
+    # K3 on the tiling at the pallas path's m = k + E
+    m = min(K + e_val, nw)
+    widx = peel._topk_stable(wmax, m)[1].to(torch.int32).contiguous()
+    err = exact("K3 gather_windows_tiled",
+                [window.gather_windows_tiled(sw_t, widx)],
+                [window.gather_windows_tiled_plain(sw_t, widx)])
+    perm = sw_t.permute(1, 0, 2)
+    idx = widx.long()[:, :, None].expand(-1, -1, 128)
+    out["gather_windows_tiled"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: window.gather_windows_tiled(sw_t, widx), 50),
+        plain_ms=cuda_ms(lambda: window.gather_windows_tiled_plain(sw_t,
+                                                                   widx), 50),
+        library_ms=cuda_ms(lambda: perm.gather(1, idx), 50),
+        **bound(b * m * (2 * 128 * 4 + 4)))
+    log(f"K3 gather_windows_tiled B={b} m={m}: bit-equal; "
+        f"{out['gather_windows_tiled']}")
+
+    # K3 as gather_subwindows: the peel's k winner rows out of its m
+    # gathered windows (m rounded up from k + E, no dead lanes)
+    m = peel._round_m(K + e_val, nw)
+    g = peel.gather_windows(scores, peel._topk_stable(wmax, m)[1].sort(
+        dim=1).values.to(torch.int32).contiguous())
+    slots = torch.randint(0, m, (b, K), device=scores.device,
+                          dtype=torch.int32,
+                          generator=torch.Generator(
+                              device=scores.device).manual_seed(SEED))
+    flat = g.reshape(b, -1)
+    exact("K3 gather_subwindows", [peel.gather_subwindows(g, slots)],
+          [peel.gather_windows_plain(flat, slots)])
+    sub = dict(ms=cuda_ms(lambda: peel.gather_subwindows(g, slots), 50),
+               plain_ms=cuda_ms(lambda: peel.gather_windows_plain(flat,
+                                                                  slots), 50),
+               **bound(b * K * (2 * 128 * 4 + 4)))
+    log(f"K3 as gather_subwindows, g [{b}, {m} x 128], kk={K}: bit-equal; "
+        f"{sub}")
+    return out
 
 
 def check_lists(split, data, score_fn, users, ids, vals) -> int:
@@ -313,6 +425,210 @@ def check_lists(split, data, score_fn, users, ids, vals) -> int:
             if (tie > 2 * bound[r]).any():
                 raise AssertionError(f"row {r}: id sets differ beyond ties")
     return differ
+
+
+def eval_conf(**changes):
+    """The YAML's eval block without its group metrics (module note)."""
+    from sibrar_tpu_torch import config_from_dict
+    from sibrar_tpu_torch.train.trainer import EvalConfig
+
+    return config_from_dict(EvalConfig, {**EVAL_CONF, "group_metrics": [],
+                                         **changes})
+
+
+def expected_keys(conf, name: str = "val") -> set:
+    """The JAX evaluator's keys for an eval block without group metrics:
+    mean and std of every user metric at every cutoff, coverage."""
+    out = set()
+    for m in conf.metrics:
+        for k in conf.top_k:
+            out.add(f"{name}/{m}@{k}")
+            if m != "coverage" and conf.compute_std:
+                out.add(f"{name}/{m}@{k}_std")
+    return out
+
+
+def check_metrics(label: str, metrics: dict, conf) -> None:
+    keys = set(metrics)
+    if keys != expected_keys(conf):
+        raise AssertionError(f"{label}: keys differ from the JAX key set: "
+                             f"{sorted(keys ^ expected_keys(conf))}")
+    bad = {k: v for k, v in metrics.items() if not 0.0 <= v <= 1.0}
+    if bad:  # NaN fails the comparison too
+        raise AssertionError(f"{label}: metrics outside [0, 1]: {bad}")
+
+
+def fit_phase(model, train, tdata, val, vdata, kernels, count_path):
+    """``Trainer.fit`` at the YAML's learn / eval settings, cut to
+    FIT_EPOCHS epochs of FIT_BATCHES steps, validating the whole val split
+    through the dot path; after it, ``validate()`` must return fit's best
+    metrics exactly (the best state was restored). Returns the trainer."""
+    import torch
+
+    from sibrar_tpu_torch import config_from_dict
+    from sibrar_tpu_torch.eval.evaluator import FullEvaluator
+    from sibrar_tpu_torch.train.trainer import (
+        DatasetConfig,
+        LearningConfig,
+        Trainer,
+    )
+
+    conf = eval_conf()
+    learn = config_from_dict(LearningConfig, {
+        **LEARN_CONF, "n_epochs": FIT_EPOCHS,
+        "max_batches_per_epoch": FIT_BATCHES})
+    records = []
+    fitter = Trainer(model, train, learn,
+                     config_from_dict(DatasetConfig, DATASET_CONF),
+                     batch_size=LOADER_CONF["batch_size"], seed=SEED,
+                     device_data=tdata,
+                     val_evaluator=FullEvaluator(conf, val, vdata,
+                                                 evaluator_name="val"),
+                     eval_batch_size=LOADER_CONF["eval_batch_size"],
+                     log_fn=records.append)
+    walls, validate = [], fitter.validate
+
+    def timed_validate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = validate()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    fitter.validate = timed_validate
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    best = fitter.fit()
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    count_path("fit (train steps, dot-path validations)",
+               ["segment_gather", "score_wmax", "gather_windows",
+                "peel_values", "dw_matmul"],
+               ("window_max", "window_scores_from", "gather_windows_tiled"))
+    n_users = int(vdata.users_in_split.shape[0])
+    for rec, wall in zip(records, walls):
+        check_metrics(f"fit epoch {rec['epoch']}",
+                      {k: v for k, v in rec.items()
+                       if k.startswith("val/") and k != "val/wall_s"},
+                      conf)
+        log(f"fit epoch {rec['epoch']}: val ndcg@10 "
+            f"{rec['val/ndcg@10']:.6f}, recall@10 {rec['val/recall@10']:.6f}"
+            f"; validation {wall:.3f} s (catalog encode + {n_users} users "
+            f"in batches of {LOADER_CONF['eval_batch_size']})"
+            + (f"; train loss {rec['train/loss']:.5f}" if rec["epoch"] >= 0
+               else ""))
+    log(f"fit: {total:.2f} s for {FIT_EPOCHS} epochs of {FIT_BATCHES} steps "
+        f"and {len(walls)} validations; best epoch {fitter.best_epoch}, "
+        f"val ndcg@10 {best['val/ndcg@10']:.6f}; redone rows "
+        f"{sum(fitter.val_evaluator.redo_rows)} in "
+        f"{len(fitter.val_evaluator.redo_rows)} batches")
+    again = validate()
+    if again != best:
+        diff = {k: (again[k], best[k]) for k in best if again[k] != best[k]}
+        raise AssertionError(f"validate() after fit differs from fit's best "
+                             f"metrics: {diff}")
+    log("validate() after fit returns fit's best metrics exactly")
+    return fitter
+
+
+def eval_paths(fitter, val, vdata, kernels, count_path) -> dict:
+    """One validation of the val split per ranking path on fit's weights:
+    the dot path, the scores path (the scorer without ``dot_parts``,
+    ``auto``: K8 + the peel), ``pallas`` (K9 + K3 on the tiling) and
+    ``full`` (scatter + ``torch.topk``, the plain yardstick). Returns
+    path -> (metrics, seconds)."""
+    import torch
+
+    from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
+
+    score_fn = fitter.make_score_fn()
+
+    def scores_fn(u):  # the same scorer without dot parts
+        return score_fn(u)
+
+    peel_k = ["segment_gather", "gather_windows", "peel_values"]
+    tiled = ("window_scores_from", "gather_windows_tiled")
+    paths = (("dot", "auto", score_fn, peel_k + ["score_wmax"],
+              ("window_max",) + tiled),
+             ("scores", "auto", scores_fn, peel_k + ["window_max"],
+              ("score_wmax",) + tiled),
+             ("pallas", "pallas", scores_fn, ["segment_gather", *tiled],
+              ("window_max", "peel_values", "score_wmax")),
+             ("full", "full", scores_fn, ["segment_gather"],
+              ("window_max", "peel_values", "score_wmax", "gather_windows")
+              + tiled))
+    out = {}
+    for path, method, fn, needed, absent in paths:
+        conf = eval_conf(topk_method=method)
+        ev = FullEvaluator(conf, val, vdata, evaluator_name="val")
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = evaluate_model(fn, ev, LOADER_CONF["eval_batch_size"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        count_path(f"{path} validation", needed, absent)
+        check_metrics(f"{path} validation", metrics, conf)
+        out[path] = (metrics, wall)
+        n_batches = len(range(0, int(vdata.users_in_split.shape[0]),
+                              LOADER_CONF["eval_batch_size"]))
+        log(f"validation, {path} path (topk_method {method}): "
+            f"{int(vdata.users_in_split.shape[0])} users in {wall:.3f} s "
+            f"(encoded catalog, {n_batches} batches); ndcg@10 "
+            f"{metrics['val/ndcg@10']:.6f}, recall@10 "
+            f"{metrics['val/recall@10']:.6f}; redone rows "
+            f"{sum(ev.redo_rows)}")
+        profile_window(lambda: evaluate_model(
+            fn, ev, LOADER_CONF["eval_batch_size"]), n_batches,
+            f"validation batches, {path} path")
+    full = out["full"][0]
+    for path, (metrics, _) in list(out.items())[:-1]:
+        worst = max(full, key=lambda k: abs(metrics[k] - full[k]))
+        log(f"{path} vs full: largest metric difference "
+            f"{abs(metrics[worst] - full[worst]):.3e} ({worst})")
+    check_path_lists(score_fn, val, vdata)
+    return out
+
+
+def check_path_lists(score_fn, val, vdata) -> None:
+    """On sample batches of the val split: the scores path's and the pallas
+    path's lists equal the full path's on the same score matrix (values
+    bit-equal, ids up to exact ties); the dot path's lists equal the plain
+    path's within the f32 GEMM bound (`check_lists`)."""
+    import torch
+
+    from sibrar_tpu_torch.ops.peel import peel_masked_topk_dot
+    from sibrar_tpu_torch.ops.sparse import csr_row_gather
+    from sibrar_tpu_torch.ops.topk import masked_topk
+
+    bs, csr = LOADER_CONF["eval_batch_size"], vdata.exclude_csr
+    users_all = vdata.users_in_split
+    differ = {"scores": 0, "pallas": 0, "dot": 0}
+    for bi in LIST_BATCHES:
+        u = users_all[bi * bs:(bi + 1) * bs]
+        scores = score_fn(u)
+        fv, fi = masked_topk(scores, csr, u, K, method="full")
+        for path, method in (("scores", "auto"), ("pallas", "pallas")):
+            v, i = masked_topk(scores, csr, u, K, method=method)
+            if not torch.equal(v, fv):
+                raise AssertionError(f"{path} path values differ from the "
+                                     f"full path's (batch {bi})")
+            rows = (i.sort(1).values != fi.sort(1).values).any(1)
+            for r in rows.nonzero().squeeze(1).tolist():
+                extra = sorted(set(i[r].tolist()) ^ set(fi[r].tolist()))
+                if not bool((scores[r, extra] == fv[r, -1]).all()):
+                    raise AssertionError(f"{path} path: row {r} of batch "
+                                         f"{bi} differs beyond exact ties")
+            differ[path] += int(rows.sum())
+        user_fn, items = score_fn.dot_parts
+        cols, mask = csr_row_gather(csr, u)
+        v, i, _ = peel_masked_topk_dot(user_fn(u), items, cols, mask, K)
+        differ["dot"] += check_lists(val, vdata, score_fn, u.cpu().numpy(),
+                                     i.cpu().numpy(), v.cpu().numpy())
+    log(f"lists of {len(LIST_BATCHES)} val batches: scores and pallas paths "
+        f"equal the full path (values bit-equal), dot path within the f32 "
+        f"GEMM bound; rows differing on ties only: {differ}")
 
 
 def first_layer_rows(data, model, gen, n_catalog: int):
@@ -624,7 +940,16 @@ def main() -> int:
                 "sibrar_tpu/ops/pallas_spmm.py:67"),
                ("spmm_bwd", spmm.spmm_bwd,
                 "sibrar_tpu_torch/csrc/spmm_onehot.cu",
-                "sibrar_tpu/ops/pallas_spmm.py:127")]
+                "sibrar_tpu/ops/pallas_spmm.py:127"),
+               ("window_max", peel.window_max,
+                "sibrar_tpu_torch/csrc/window_max.cu",
+                "sibrar_tpu/ops/pallas_peel.py:302"),
+               ("window_scores_from", window.window_scores_from,
+                "sibrar_tpu_torch/csrc/window_retile.cu",
+                "sibrar_tpu/ops/pallas_window.py:147"),
+               ("gather_windows_tiled", window.gather_windows_tiled,
+                "sibrar_tpu_torch/csrc/gather_windows.cu",
+                "sibrar_tpu/ops/pallas_window.py:243")]
     t_start = time.perf_counter()
 
     # ---------------------------------------------------------------- build
@@ -639,13 +964,15 @@ def main() -> int:
     t0 = time.perf_counter()
     arrays = make_onion_scale_splits(seed=7)
     splits = make_splits(arrays)
-    train, test = splits["train"], splits["test"]
+    train, val, test = splits["train"], splits["val"], splits["test"]
     tdata = train.to_device(dev)
+    vdata = val.to_device(dev)
     data = test.to_device(dev)
     log(f"data: {time.perf_counter() - t0:.2f} s; {arrays['n_users']} users "
         f"x {arrays['n_items']} items; train {len(arrays['train'])}, val "
         f"{len(arrays['val'])}, test {len(arrays['test'])}; exclusion nnz "
-        f"{data.exclude_csr.nnz}, E = {data.exclude_csr.max_row_len}; item "
+        f"{data.exclude_csr.nnz}, E = {data.exclude_csr.max_row_len} (val E "
+        f"= {vdata.exclude_csr.max_row_len}); item "
         f"CSR nnz {data.item_inter_csr.nnz}, longest row "
         f"{data.item_inter_csr.max_row_len}; user CSR longest row "
         f"{data.user_inter_csr.max_row_len}")
@@ -665,7 +992,7 @@ def main() -> int:
                              "and the user tower's bag path")
 
     # -------------------------------------------- kernels vs plain versions
-    measured = check_kernels(data, dev)
+    measured = check_kernels(data, dev, vdata.exclude_csr.max_row_len)
     users, rows = first_layer_rows(tdata, model, torch.Generator(
         device=dev).manual_seed(SEED + 2), train.n_items_in_split)
     measured.update(check_train_kernels(tower, rows, users, tdata, dev))
@@ -730,6 +1057,12 @@ def main() -> int:
 
     # --------------------------------------- the first layer, both ways
     first_layer_chains(tower, rows, data.catalog, model, dev)
+
+    # ------------- Trainer.fit from the default training's weights, then
+    # one validation per ranking path on fit's weights
+    model.load_state_dict(snapshot)
+    fitter = fit_phase(model, train, tdata, val, vdata, kernels, count_path)
+    eval_paths(fitter, val, vdata, kernels, count_path)
 
     # -------------------- serving, from the default training's weights
     model.load_state_dict(snapshot)

@@ -3,10 +3,11 @@
 ``to_device``, ``DeviceData``).
 
 A `RecDataset` holds one split on the host (numpy / scipy); `to_device`
-packs what serving and training touch into a `DeviceData` of torch tensors:
-the catalog, the exclusion CSR, the train-interaction CSRs of both entities,
-the split's (user, catalog item) pairs with their positives CSR and the
-item popularity, and the feature tables. Artifact loading (pandas, yaml) is
+packs what serving, training and evaluation touch into a `DeviceData` of
+torch tensors: the catalog, the split's users, the exclusion CSR, the
+train-interaction CSRs of both entities, the split's (user, catalog item)
+pairs with their positives CSR and the item popularity, and the feature
+tables. Artifact loading (pandas, yaml) is
 not part of the port yet.
 """
 from __future__ import annotations
@@ -27,11 +28,13 @@ COLD_START = ("cold_start_user", "cold_start_item", "cold_start_both")
 class FeatureTable:
     """One feature over all entities, row-aligned to the entity index:
     ``kind`` "numeric" (float rows), "tag" (padded tag codes, pad id ==
-    ``n_categories``) or "categorical" (codes)."""
+    ``n_categories``) or "categorical" (codes). ``value_map`` (label ->
+    code) names the codes; group metrics need it for their labels."""
 
     table: np.ndarray
     kind: str
     n_categories: int = 0
+    value_map: Optional[dict] = None
 
 
 class DeviceData(NamedTuple):
@@ -40,6 +43,7 @@ class DeviceData(NamedTuple):
     n_users: int
     n_items: int
     catalog: torch.Tensor  # [n_catalog] int32, global ids of items_in_split
+    users_in_split: torch.Tensor  # [n_users_in_split] int32
     exclude_csr: DeviceCSR  # user -> catalog positions to exclude
     user_inter_csr: DeviceCSR  # user -> global item ids (train split)
     item_inter_csr: DeviceCSR  # item -> global user ids (train split)
@@ -73,10 +77,13 @@ class RecDataset:
             "cold_start_user", "cold_start_both")
         self.is_cold_start_item = self.split_type in (
             "cold_start_item", "cold_start_both")
-        if self.is_cold_start:  # catalog: the items of this split only
+        if self.is_cold_start:  # users and catalog of this split only
+            self.users_in_split = np.unique(
+                self.interactions[:, 0]).astype(np.int64)
             self.items_in_split = np.unique(
                 self.interactions[:, 1]).astype(np.int64)
         else:
+            self.users_in_split = np.arange(self.n_users, dtype=np.int64)
             self.items_in_split = np.arange(self.n_items, dtype=np.int64)
         self.n_items_in_split = len(self.items_in_split)
         self.interaction_matrix_train = self._matrix(self.train_interactions)
@@ -114,6 +121,8 @@ class RecDataset:
         return DeviceData(
             n_users=self.n_users, n_items=self.n_items,
             catalog=torch.as_tensor(cat.astype(np.int32), device=device),
+            users_in_split=torch.as_tensor(
+                self.users_in_split.astype(np.int32), device=device),
             exclude_csr=DeviceCSR.from_scipy(
                 self.exclude_matrix()[:, cat], device),
             user_inter_csr=DeviceCSR.from_scipy(

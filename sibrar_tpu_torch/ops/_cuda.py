@@ -37,11 +37,13 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "sibrar_segment_gather": [_P, _P, _P, _I, _I, _P, _P, _P],
     "sibrar_score_wmax": [_P, _P, _I, _I, _I, _P, _P, _P],
-    "sibrar_gather_windows": [_P, _LL, _P, _I, _I, _P, _P, _P],
+    "sibrar_gather_windows": [_P, _LL, _LL, _P, _I, _I, _P, _P, _P],
     "sibrar_peel_values": [_P, _LL, _I, _P, _P, _P],
     "sibrar_dw_matmul": [_P, _P, _I, _I, _I, _P, _P],
     "sibrar_spmm_fwd": [_P, _P, _P, _I, _I, _I, _P, _P],
     "sibrar_spmm_bwd": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "sibrar_window_max": [_P, _LL, _P, _P],
+    "sibrar_window_retile": [_P, _I, _I, _P, _P, _P],
 }
 
 _lib = None

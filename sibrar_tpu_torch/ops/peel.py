@@ -1,8 +1,9 @@
 """Exact top-k with per-user exclusion by value peeling (port of
 ``sibrar_tpu/ops/pallas_peel.py``).
 
-Pipeline over a [B, C] score matrix and its 128-wide window maxima (both from
-kernel K2, ``ops/window.py``):
+Pipeline over a [B, C] score matrix and its 128-wide window maxima (both
+from kernel K2, ``ops/window.py``, on the dot path; the maxima from kernel
+K8, `window_max`, on the scores path):
 
 1. on the corrected-wmax path, recompute the maxima of the windows that hold
    a user's excluded items; otherwise select ``k + E`` windows (margin path);
@@ -11,9 +12,9 @@ kernel K2, ``ops/window.py``):
 4. peel the top-``t`` distinct values of every window (K4);
 5. merge the ``m * t`` peeled values with one top-k, and recover each
    winner's catalog index from its window row (K3 again);
-6. flag each row ``ok = complete & unique & all_live``. The serving entry
-   point redoes the rows that are not ok with the dense path
-   (``ops/topk.py``); only those rows, not the whole batch as in JAX.
+6. flag each row ``ok = complete & unique & all_live``. The entry points
+   redo the rows that are not ok with the dense path (``ops/topk.py``);
+   only those rows, not the whole batch as in JAX.
 
 Both top-k selections are stable sorts, so ties go to the lower index as in
 ``lax.top_k`` and the ok flags match the JAX package on identical scores.
@@ -27,9 +28,15 @@ import torch.nn.functional as F
 
 from sibrar_tpu_torch.ops import _cuda
 from sibrar_tpu_torch.ops.topk import topk_excluding
-from sibrar_tpu_torch.ops.window import WINDOW, pad_excl, score_wmax
+from sibrar_tpu_torch.ops.window import (
+    BC,
+    NEG,
+    WINDOW,
+    _topk_stable,
+    pad_excl,
+    score_wmax,
+)
 
-NEG = -1e30
 PEELED = float("-inf")  # below any live score, the -1e30 mask included
 
 # JAX's gates for the corrected-wmax path: at most this many excluded items
@@ -37,7 +44,6 @@ PEELED = float("-inf")  # below any live score, the -1e30 mask included
 _CORR_MAX_E = 512
 _CORR_MAX_ROW_BYTES = 1 << 20
 PEEL_T = 8  # peel depth before the adaptive deepening (JAX default t)
-BC = 1024  # catalog padding multiple of the dot path (JAX bc)
 
 
 def _use_corrected_wmax(c_real: int, e: int) -> bool:
@@ -65,10 +71,35 @@ def peel_viable(c: int, k: int, e: int) -> bool:
     return m * PEEL_T >= k and 2 * m <= nw
 
 
-def _topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along dim 1, ties to the lower index (``lax.top_k``'s rule)."""
-    v, i = torch.sort(x, dim=1, descending=True, stable=True)
-    return v[:, :k], i[:, :k]
+# ------------------------------------------------------------------ kernel K8
+def window_max_plain(scores: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8: the [B, C / 128] maxima of the 128-wide windows
+    of ``scores [B, C]``."""
+    b, c = scores.shape
+    return scores.view(b, c // WINDOW, WINDOW).amax(-1)
+
+
+def window_max(scores: torch.Tensor) -> torch.Tensor:
+    """K8: window maxima of ``scores [B, C]``, C a multiple of 128 (JAX
+    ``window_max``; see ``csrc/window_max.cu``, which ignores a NaN lane
+    where ``amax`` would propagate it)."""
+    if scores.ndim != 2 or scores.shape[1] % WINDOW:
+        raise ValueError(f"window_max: scores must be [B, n*128], got "
+                         f"{tuple(scores.shape)}")
+    if not _cuda.use_kernel(scores):
+        return window_max_plain(scores)
+    if scores.dtype != torch.float32 or not scores.is_contiguous():
+        raise ValueError("window_max: contiguous f32 scores only")
+    b, c = scores.shape
+    out = torch.empty((b, c // WINDOW), dtype=torch.float32,
+                      device=scores.device)
+    _cuda.launch("sibrar_window_max", scores.data_ptr(), b * (c // WINDOW),
+                 out.data_ptr())
+    window_max.launches += 1
+    return out
+
+
+window_max.launches = 0
 
 
 # ------------------------------------------------------------------ kernel K3
@@ -104,7 +135,7 @@ def gather_windows(src: torch.Tensor, idx: torch.Tensor,
                          f"[{b}, {m}, {WINDOW}]")
     out = torch.empty((b, m, WINDOW), dtype=torch.float32, device=src.device)
     _cuda.launch("sibrar_gather_windows", src.data_ptr(), src.stride(0),
-                 idx.data_ptr(), b, m,
+                 WINDOW, idx.data_ptr(), b, m,
                  None if dead is None else dead.data_ptr(), out.data_ptr())
     gather_windows.launches += 1
     return out
@@ -243,7 +274,8 @@ def peel_topk_from_scores(scores: torch.Tensor, wmax: torch.Tensor,
                           k: int, c_real: int
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exact top-k with exclusion off a [B, C] score matrix (C a multiple of
-    128, columns >= ``c_real`` padding) and its window maxima ``wmax``.
+    128, columns >= ``c_real`` padding) and its window maxima ``wmax``
+    (JAX ``peel_topk_from_scores``).
 
     Returns ``(v [B, k'], idx [B, k'] int64, ok [B] bool)`` with
     ``k' = min(k, c_real)``; rows with ``ok`` False need the dense redo
@@ -321,10 +353,43 @@ def peel_masked_topk_dot(u: torch.Tensor, items: torch.Tensor,
     scores, wmax = score_wmax(u, items)
     v, idx, ok = peel_topk_from_scores(scores, wmax, excl_cols, excl_mask, k,
                                        c_real)
-    if with_fallback and not bool(ok.all()):
-        redo = (~ok).nonzero().squeeze(1)
-        fv, fi = topk_excluding(scores[redo], excl_cols[redo],
-                                excl_mask[redo], v.shape[1], c_real=c_real)
-        v[redo] = fv
-        idx[redo] = fi
+    if with_fallback:
+        _redo(scores, excl_cols, excl_mask, c_real, v, idx, ok)
     return v, idx, ok
+
+
+def peel_masked_topk_scores(scores: torch.Tensor,
+                            excl_cols: torch.Tensor | None,
+                            excl_mask: torch.Tensor | None, k: int, *,
+                            with_fallback: bool = True
+                            ) -> tuple[torch.Tensor, ...]:
+    """Exclusion + exact top-k over a precomputed [B, C] score matrix (JAX
+    ``peel_masked_topk_scores``): the catalog is padded to a `BC` multiple
+    with -1e30 (the dot path pads with zero scores; either way the lanes
+    past C are dead-masked), K8 takes the window maxima, then the peel.
+    Returns ``(v, idx, ok)`` as `peel_masked_topk_dot` does."""
+    b, c = scores.shape
+    cp = -(-c // BC) * BC
+    if cp != c:
+        scores = F.pad(scores, (0, cp - c), value=NEG)
+    scores = scores.contiguous()
+    excl_cols, excl_mask = pad_excl(excl_cols, excl_mask, b, scores.device)
+    v, idx, ok = peel_topk_from_scores(scores, window_max(scores), excl_cols,
+                                       excl_mask, k, c)
+    if with_fallback:
+        _redo(scores, excl_cols, excl_mask, c, v, idx, ok)
+    return v, idx, ok
+
+
+def _redo(scores: torch.Tensor, excl_cols: torch.Tensor,
+          excl_mask: torch.Tensor, c_real: int, v: torch.Tensor,
+          idx: torch.Tensor, ok: torch.Tensor) -> None:
+    """Overwrite the rows of ``(v, idx)`` whose ``ok`` is False with the
+    dense top-k of their scores (one host sync on ``ok``)."""
+    if bool(ok.all()):
+        return
+    redo = (~ok).nonzero().squeeze(1)
+    fv, fi = topk_excluding(scores[redo], excl_cols[redo], excl_mask[redo],
+                            v.shape[1], c_real=c_real)
+    v[redo] = fv
+    idx[redo] = fi

@@ -7,7 +7,8 @@
   for a test split) are excluded through the split's exclusion CSR;
 - a dot-product model takes the fused path: K2 scores + window maxima, the
   peel selection (K3, K4) and a dense redo of rows whose exactness flag
-  tripped; other scorers take scatter + ``torch.topk``;
+  tripped; other scorers take ``masked_topk(method="auto")`` on their
+  scores (the peel with K8's window maxima where it is viable);
 - catalog positions are mapped back to global item ids.
 
 Not in this slice: the ``bfloat16`` / ``int8`` serving dtypes,
@@ -71,7 +72,8 @@ class Recommender:
     def _step(self, u_idxs: torch.Tensor):
         if not self.use_dot:
             scores = self.score_fn(u_idxs)
-            return masked_topk(scores, self.csr, u_idxs, self.k)
+            return masked_topk(scores, self.csr, u_idxs, self.k,
+                               method="auto")
         u_repr = self.user_repr_fn(u_idxs)
         cols, mask = csr_row_gather(self.csr, u_idxs)
         v, i, ok = peel_masked_topk_dot(u_repr, self.items, cols, mask,

@@ -1,6 +1,8 @@
-"""Optimizers and the training loop (port of ``sibrar_tpu/train/trainer.py``:
-``build_optimizer``, the dense-optimizer train step, ``epoch_batch_plan``
-and ``train_epoch``).
+"""Optimizers, the training loop and validation (port of
+``sibrar_tpu/train/trainer.py``: ``build_optimizer``, the dense-optimizer
+train step, ``epoch_batch_plan``, ``train_epoch``, ``make_score_fn``,
+``validate``, ``fit`` with best-model tracking, ``save`` / ``load``; and of
+the ``EvalConfig`` of ``sibrar_tpu/config/schema.py``).
 
 A train step samples negatives on the device, runs the model's train
 forward (logits and regularization loss), adds the rec loss, and steps the
@@ -8,21 +10,29 @@ optimizer; an epoch walks a permutation of the split's pairs in full
 batches plus a tail batch. The JAX package scans the epoch inside one jit;
 here the steps run eagerly, one after the other, and nothing waits for the
 device until the epoch's losses are read. Every random draw comes from the
-trainer's ``torch.Generator`` on the device.
+trainer's ``torch.Generator`` on the device. Validation runs the model in
+eval mode without autograd (``train/scoring.py``); the next train step
+switches it back.
 
-Not ported yet (``ROADMAP.md`` queue 1, item 2): ``fit`` and ``validate``
-(they need the evaluator), checkpoint and resume, the row-sparse table
-optimizer (``sparse_tables``) and bf16 Adam moments (``moment_dtype``).
+Not ported yet (``ROADMAP.md`` queue 1, item 2): full-state checkpoints and
+resume, ``profile_dir``, the row-sparse table optimizer (``sparse_tables``)
+and bf16 Adam moments (``moment_dtype``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Iterable, Optional
+import math
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Iterable, Optional
 
 import torch
 
 from sibrar_tpu_torch.data.dataset import DeviceData, RecDataset
 from sibrar_tpu_torch.data.sampling import sample_negatives
+from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
+from sibrar_tpu_torch.ops.topk import METHODS
+from sibrar_tpu_torch.train import scoring
 from sibrar_tpu_torch.train.losses import build_rec_loss
 
 NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 2)"
@@ -48,6 +58,37 @@ class LearningConfig:
     sparse_tables: bool = False
     sparse_table_min_rows: int = 16384
     epoch_scan_chunk: Optional[int] = 512
+
+
+@dataclass
+class EvalConfig:
+    """The ``eval:`` fields of the JAX config (defaults: the reference's
+    metric surface). ``topk_method`` is one of ``ops/topk.py``'s methods;
+    ``score_dtype`` other than f32 is not ported yet."""
+
+    top_k: list[int] = field(
+        default_factory=lambda: [1, 3, 5, 10, 20, 50, 100])
+    metrics: list[str] = field(default_factory=lambda: [
+        "ndcg", "recall", "precision", "f_score", "hitrate", "ap",
+        "coverage"])
+    group_metrics: list[str] = field(default_factory=list)
+    compute_std: bool = True
+    topk_method: str = "auto"
+    score_dtype: Optional[str] = None
+
+    def validate(self) -> None:
+        if any(k <= 0 for k in self.top_k):
+            raise ValueError("top_k cut-offs must be positive")
+        if self.topk_method not in METHODS:
+            raise ValueError(f"unsupported topk_method {self.topk_method!r}")
+        if self.score_dtype == "bfloat16":
+            raise NotImplementedError(
+                "score_dtype='bfloat16' is not ported yet (ROADMAP.md queue "
+                "1, item 1)")
+        if self.score_dtype not in (None, "float32"):
+            raise ValueError(
+                f"unsupported score_dtype {self.score_dtype!r} (use "
+                "'float32')")
 
 
 @dataclass
@@ -125,14 +166,29 @@ def build_optimizer(learn: LearningConfig,
 
 class Trainer:
     """Trains a `RecModel` on one split, on the device of its `DeviceData`
-    (the card unless ``device`` says otherwise)."""
+    (the card unless ``device`` says otherwise), and validates it with
+    ``val_evaluator`` (needed by `fit` and `validate`).
+
+    ``log_fn`` receives each epoch's record; ``post_val_fn(model, epoch)``
+    may add metrics after each validation (JAX passes the params where this
+    passes the model); ``results_path`` receives ``model.pt`` whenever the
+    best model changes."""
 
     def __init__(self, model, train_data: RecDataset, learn: LearningConfig,
                  dataset_conf: DatasetConfig, batch_size: int = 128,
                  seed: int = 0, device_data: Optional[DeviceData] = None,
-                 device="cuda"):
+                 device="cuda", *,
+                 val_evaluator: Optional[FullEvaluator] = None,
+                 eval_batch_size: int = 256,
+                 results_path: Optional[str] = None,
+                 log_fn: Optional[Callable[[dict], None]] = None,
+                 train_evaluator: Optional[FullEvaluator] = None,
+                 post_val_fn: Optional[Callable[[Any, int], dict]] = None,
+                 profile_dir: Optional[str] = None):
         if learn.sparse_tables:
             raise NotImplementedError(f"sparse_tables is {NOT_PORTED}")
+        if profile_dir is not None:
+            raise NotImplementedError(f"profile_dir is {NOT_PORTED}")
         self.model = model
         self.train_dataset = train_data
         self.data = (device_data if device_data is not None
@@ -150,6 +206,15 @@ class Trainer:
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.step = 0
         self.epoch_losses: Optional[torch.Tensor] = None
+        self.val_evaluator = val_evaluator
+        self.train_evaluator = train_evaluator
+        self.eval_batch_size = eval_batch_size
+        self.results_path = results_path
+        self.log_fn = log_fn or (lambda record: None)
+        self.post_val_fn = post_val_fn
+        self.best_state: Optional[dict] = None
+        self.best_value = -math.inf
+        self.best_epoch = -1
 
     def train_step(self, idxs: torch.Tensor) -> torch.Tensor:
         """One optimizer step on the pairs ``idxs``; returns the device
@@ -214,3 +279,102 @@ class Trainer:
         total, rec, reg = ((self.epoch_losses * w).sum(0) / w.sum()).tolist()
         return {"train/loss": total, "train/rec_loss": rec,
                 "train/reg_loss": reg}
+
+    # ---------------------------------------------------------- validation
+    def make_score_fn(self, item_chunk: int = 8192) -> scoring.ScoreFn:
+        """Encode the val evaluator's catalog once and return the user-batch
+        scorer (with ``dot_parts`` where the model ranks like a dot)."""
+        return scoring.make_score_fn(self.model,
+                                     self.val_evaluator.data.catalog,
+                                     item_chunk)
+
+    def validate(self) -> dict:
+        return evaluate_model(self.make_score_fn(), self.val_evaluator,
+                              self.eval_batch_size)
+
+    def evaluate_on_train(self) -> dict:
+        """Metrics over the training interactions (reference
+        ``train_eval``)."""
+        if self.train_evaluator is None:
+            raise ValueError("evaluate_on_train needs a train_evaluator")
+        return evaluate_model(self.make_score_fn(), self.train_evaluator,
+                              self.eval_batch_size)
+
+    def fit(self) -> dict:
+        """Validate, then train up to ``n_epochs`` epochs, validating after
+        each; stop after ``max_patience`` epochs without a strictly better
+        ``optimizing_metric``. Restores the best parameters and batch-norm
+        statistics and returns the best validation metrics."""
+        if self.val_evaluator is None:
+            raise ValueError("fit needs a val_evaluator")
+        name = self.val_evaluator.name
+        metric = self.learn.optimizing_metric
+        key = f"{name}/{metric}" if name else metric
+
+        metrics = self.validate()  # before training (reference :103-119)
+        if key not in metrics:
+            raise ValueError(
+                f"optimizing metric {key!r} is not produced by the validation "
+                f"evaluator (available: {sorted(metrics)}); check "
+                f"learn.optimizing_metric against eval.top_k/eval.metrics")
+        self.log_fn({"epoch": -1, **metrics})
+        self._maybe_update_best(metrics[key], -1)
+        best_metrics = metrics
+
+        patience = 0
+        for epoch in range(self.learn.n_epochs):
+            t0 = time.perf_counter()
+            train_metrics = self.train_epoch()
+            train_wall = time.perf_counter() - t0
+            metrics = self.validate()
+            if self.train_evaluator is not None:
+                train_metrics.update(self.evaluate_on_train())
+            if self.post_val_fn is not None:
+                metrics.update(self.post_val_fn(self.model, epoch) or {})
+            self.log_fn({"epoch": epoch, **train_metrics, **metrics,
+                         "train/epoch_wall_s": round(train_wall, 2),
+                         "val/wall_s": round(
+                             time.perf_counter() - t0 - train_wall, 2)})
+            value = metrics.get(key, -math.inf)
+            if value > self.best_value:
+                self._maybe_update_best(value, epoch)
+                best_metrics = metrics
+                patience = 0
+            else:
+                patience += 1
+                if patience >= self.learn.max_patience:
+                    break
+        if self.best_state is not None:
+            self.model.load_state_dict(self.best_state)
+        return best_metrics
+
+    def _maybe_update_best(self, value: float, epoch: int) -> None:
+        if value > self.best_value:
+            self.best_value = value
+            self.best_epoch = epoch
+            # clones: the state dict shares storage with the parameters,
+            # which the optimizer updates in place
+            self.best_state = {k: v.detach().clone()
+                               for k, v in self.model.state_dict().items()}
+            if self.results_path:
+                self.save(self.results_path)
+
+    # --------------------------------------------------------- persistence
+    def save(self, path: str) -> None:
+        """The best state (else the current one) as ``path/model.pt``: the
+        model's state dict, parameters and batch-norm statistics."""
+        os.makedirs(path, exist_ok=True)
+        state = (self.best_state if self.best_state is not None
+                 else self.model.state_dict())
+        torch.save(state, os.path.join(path, "model.pt"))
+
+    def load(self, path: str) -> None:
+        state = torch.load(os.path.join(path, "model.pt"),
+                           map_location=self.device, weights_only=True)
+        self.model.load_state_dict(state)
+
+    def save_checkpoint(self, path: str) -> None:
+        raise NotImplementedError(f"full-state checkpoints are {NOT_PORTED}")
+
+    def load_checkpoint(self, path: str) -> None:
+        raise NotImplementedError(f"full-state checkpoints are {NOT_PORTED}")

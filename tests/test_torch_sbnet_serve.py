@@ -211,10 +211,12 @@ from sibrar_tpu_torch.models.sbnet import SingleBranchNet
 from sibrar_tpu_torch.serve import Recommender
 from sibrar_tpu_torch.train.scoring import make_score_fn
 from sibrar_tpu_torch.data import sampling
-from sibrar_tpu_torch.ops import dw, spmm
+from sibrar_tpu_torch.eval import metrics
+from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
+from sibrar_tpu_torch.ops import dw, peel, spmm, topk, window
 from sibrar_tpu_torch.train import losses
-from sibrar_tpu_torch.train.trainer import (DatasetConfig, LearningConfig,
-                                            Trainer)
+from sibrar_tpu_torch.train.trainer import (DatasetConfig, EvalConfig,
+                                            LearningConfig, Trainer)
 conf = copy.deepcopy(MODEL_CONF)
 conf["shared_common_dim"] = 8
 conf["user"]["embedding_dim"] = 8
@@ -227,10 +229,17 @@ test = splits["test"]
 data = test.to_device("cpu")
 model = SingleBranchNet.build_from_conf(conf, test, data, seed=3)
 train = splits["train"]
+val_ev = FullEvaluator(EvalConfig(top_k=[5, 10]), splits["val"],
+                       device="cpu", evaluator_name="val")
 trainer = Trainer(model, train, LearningConfig(max_batches_per_epoch=2),
                   DatasetConfig(), batch_size=64,
-                  device_data=train.to_device("cpu"))
+                  device_data=train.to_device("cpu"), val_evaluator=val_ev,
+                  eval_batch_size=64)
 assert np.isfinite(trainer.train_epoch()["train/loss"])
+val = trainer.validate()
+assert len(val) == 2 * 6 * 2 + 2 and all(np.isfinite(list(val.values())))
+assert val_ev.redo_rows  # the dot path ran: it records each batch's redo
+
 rec = Recommender(make_score_fn(model, data.catalog), test, data, k=5,
                   batch_size=32)
 assert rec.use_dot

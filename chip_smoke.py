@@ -15,8 +15,15 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    at the serving path's shapes, K5-K7 at the train step's (one real batch:
    512 pairs, 10 uniform negatives each, the 2,256 item rows that balanced
    routing sends to the interaction tower), K8, K9 and K3 on the window
-   tiling at the validation paths' (B = 1,024, C = 100,352), with times,
-   bounds and library yardsticks;
+   tiling at the validation paths' (B = 1,024, C = 100,352), and the
+   windowed rankers' kernels at serving width (K10 ``score_windows`` and K12
+   ``fused_score_wmax`` at B = 1,024, C = 100,352, D = 256, each bit-equal to
+   K2's scores; K3 as ``gather_windows_rows`` and K11 ``recover_winners`` at
+   the test split's m = 160 windows and k = 100 winners; the plane peel's
+   corrected-wmax branch and its redo from the planes, bit-equal to the dot
+   path's; K13 ``exact_topk`` over the [1,024, 100,352] scores, on short
+   rows, at k = n and on all-ones NaN rows), with times, bounds and
+   library yardsticks;
 2. trains with ``Trainer.train_epoch`` (the config's learn / dataset /
    loader settings): a warm-up, then a few hundred timed steps on the
    default first layer (densify + matmul, K5 backward), whose losses must be
@@ -35,12 +42,21 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    request batches at B = 256 and B = 1024 with k = 100. The lists are
    checked against the users' train + val history (scipy, on the host) and
    against the plain path on the same card (``torch.matmul`` + scatter +
-   ``torch.topk``).
+   ``torch.topk``);
+6. on the same weights, serves batches of 1,024 test users through the
+   windowed rankers: ``peel.peel_masked_topk`` (K10, K3 on the planes, K4,
+   K3), the same with ``peel.RECOVER_KERNEL`` (K11 instead of the last K3),
+   ``window.pallas_masked_topk`` (K10, K3 on the tiling),
+   ``score.fused_masked_topk`` (K12) and ``exact_topk`` over K2's scores
+   after the exclusion fill (K13), and holds each list to the
+   ``Recommender``'s for the same users: values bit-equal, ids equal up to
+   exact ties, no excluded item; then profiles the plane peel's device time
+   per batch with each winner recovery.
 
 Each path (default training, spmm training, fit, the four validation
-paths, serving) runs with every launch count set to 0 just before it and
-read just after; each of its kernels must have launched, and kernels of
-other paths must not.
+paths, serving, the five windowed rankers) runs with every launch count set
+to 0 just before it and read just after; each of its kernels must have
+launched, and kernels of other paths must not.
 
 Output: progress lines, then one JSON line with a row per kernel, the card's
 name and power limit, and as the last line
@@ -127,6 +143,7 @@ PROFILE_BATCHES = 5  # request batches of each size under torch.profiler
 SPMM_WARMUP, SPMM_STEPS = 5, 40  # steps with INTERACTION_SPMM on
 FIT_EPOCHS, FIT_BATCHES = 2, 60  # Trainer.fit: epochs, steps per epoch
 LIST_BATCHES = (0, 20, 48)  # validation batches whose lists are checked
+RANKER_BATCHES = 3  # batches of 1,024 test users per windowed ranker
 F32_EPS = 2.0 ** -24
 # H100 SXM peaks (NVIDIA data sheet; at 700 W): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores
@@ -169,6 +186,17 @@ def bound(n_bytes: float, n_ops: float = 0.0) -> dict:
     t_ops = n_ops / F32_FLOPS * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def exact(name: str, got, want) -> float:
+    """0.0 when every tensor of ``got`` equals its twin in ``want``; raises
+    otherwise."""
+    import torch
+
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    if not (err == 0 and all(torch.equal(g, w) for g, w in zip(got, want))):
+        raise AssertionError(f"{name} differs from plain: max abs err {err}")
+    return err
 
 
 def max_abs_err(a, b) -> float:
@@ -265,10 +293,16 @@ def check_kernels(data, dev, e_val: int) -> dict:
                              f"err {err}")
     ms = cuda_ms(lambda: peel.gather_windows(scores, widx, dead), 50)
     pms = cuda_ms(lambda: peel.gather_windows_plain(scores, widx, dead), 50)
+    # the library call for the TPU kernel's function (its dead mask is
+    # applied apart): torch.gather on the [B, NW, 128] view
+    view, lib_idx = scores.view(b, -1, 128), widx.long()[:, :, None].expand(
+        -1, -1, 128)
+    lms = cuda_ms(lambda: view.gather(1, lib_idx), 50)
     log(f"K3 gather_windows B={b} m={m}: bit-equal (also the k={K} winner "
-        f"rows); kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        f"rows); kernel {ms:.4f} ms, plain {pms:.4f} ms, torch.gather on "
+        f"the [B, NW, 128] view {lms:.4f} ms")
     rows_out["gather_windows"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
         **bound(b * m * (128 * 4 + 4 + 128 + 128 * 4)))
 
     # K4 at B = 1024, m = 160, t = 8
@@ -288,6 +322,7 @@ def check_kernels(data, dev, e_val: int) -> dict:
         max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
         **bound(b * m * (128 + t + 1) * 4))
     rows_out.update(check_eval_kernels(scores, e_val))
+    rows_out.update(check_ranker_kernels(u, items, scores, wmax, m))
     return rows_out
 
 
@@ -304,14 +339,6 @@ def check_eval_kernels(scores, e_val: int) -> dict:
     b, c = scores.shape
     nw = c // 128
     view = scores.view(b, nw, 128)
-
-    def exact(name, got, want):
-        err = max(max_abs_err(g, w) for g, w in zip(got, want))
-        if not (err == 0 and all(torch.equal(g, w)
-                                 for g, w in zip(got, want))):
-            raise AssertionError(f"{name} differs from plain: max abs err "
-                                 f"{err}")
-        return err
 
     # K8 window_max
     err = exact("K8 window_max", [peel.window_max(scores)],
@@ -369,13 +396,202 @@ def check_eval_kernels(scores, e_val: int) -> dict:
     flat = g.reshape(b, -1)
     exact("K3 gather_subwindows", [peel.gather_subwindows(g, slots)],
           [peel.gather_windows_plain(flat, slots)])
+    sub_idx = slots.long()[:, :, None].expand(-1, -1, 128)
     sub = dict(ms=cuda_ms(lambda: peel.gather_subwindows(g, slots), 50),
                plain_ms=cuda_ms(lambda: peel.gather_windows_plain(flat,
                                                                   slots), 50),
+               library_ms=cuda_ms(lambda: g.gather(1, sub_idx), 50),
                **bound(b * K * (2 * 128 * 4 + 4)))
     log(f"K3 as gather_subwindows, g [{b}, {m} x 128], kk={K}: bit-equal; "
         f"{sub}")
     return out
+
+
+def check_ranker_kernels(u, items, scores, wmax, m: int) -> dict:
+    """K10, K3 as ``gather_windows_rows``, K11, K12 and K13 against their
+    plain versions at serving width (``scores, wmax`` are K2's of ``u @
+    items.T``, B = 1,024, C = 100,352, D = 256; ``m`` the test split's
+    window count): K10's planes and K12's transposed scores bit-equal to
+    K2's, both within K2's tolerance of their plain versions; the rest
+    bit-equal to theirs."""
+    import torch
+
+    from sibrar_tpu_torch.ops import exact_topk as xtopk
+    from sibrar_tpu_torch.ops import peel, score, window
+
+    out = {}
+    dev = scores.device
+    b, c = scores.shape
+    d = u.shape[1]
+    nw = c // 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    flops = 2 * b * c * d
+
+    def near(name, got, want):
+        err = max_abs_err(got, want)
+        tol = 1e-5 * (1.0 + want.abs().max().item())
+        if not err <= tol:
+            raise AssertionError(f"{name}: max err {err} > {tol}")
+        return err
+
+    # K10: K2's scores as window planes, bit for bit
+    sw_t, wmax10 = window.score_windows(u, items)
+    if not (torch.equal(sw_t, scores.view(b, nw, 128).transpose(0, 1))
+            and torch.equal(wmax10, wmax)):
+        raise AssertionError("K10 score_windows is not K2's scores and "
+                             "maxima bit for bit")
+    psw, pwmax = window.score_windows_plain(u, items)
+    out["score_windows"] = dict(
+        max_abs_err=max(near("K10 score_windows", sw_t, psw),
+                        near("K10 maxima", wmax10, pwmax)),
+        ms=cuda_ms(lambda: window.score_windows(u, items), 20),
+        plain_ms=cuda_ms(lambda: window.score_windows_plain(u, items), 20),
+        library_ms=None,
+        **bound(4 * (b * d + c * d + b * c + b * nw), flops))
+    log(f"K10 score_windows B={b} C={c} D={d}: planes and maxima bit-equal "
+        f"to K2's; {out['score_windows']}")
+    del psw, pwmax
+
+    # K3 as gather_windows_rows: the margin path's m windows off the planes,
+    # 2 % of the lanes dead
+    widx = (peel._topk_stable(wmax, m)[1].sort(dim=1).values
+            .to(torch.int32).contiguous())
+    dead = torch.rand(b, m, 128, device=dev, generator=gen) < 0.02
+    g = peel.gather_windows_rows(sw_t, widx, dead)
+    perm = sw_t.permute(1, 0, 2)
+    lib_idx = widx.long()[:, :, None].expand(-1, -1, 128)
+    out["gather_windows_rows"] = dict(
+        max_abs_err=exact("K3 gather_windows_rows", [g],
+                          [window.gather_windows_tiled_plain(sw_t, widx,
+                                                             dead)]),
+        ms=cuda_ms(lambda: peel.gather_windows_rows(sw_t, widx, dead), 50),
+        plain_ms=cuda_ms(lambda: window.gather_windows_tiled_plain(
+            sw_t, widx, dead), 50),
+        library_ms=cuda_ms(lambda: perm.gather(1, lib_idx), 50),
+        **bound(b * m * (2 * 128 * 4 + 128 + 4)))
+    log(f"K3 as gather_windows_rows B={b} m={m}, dead lanes on copy: "
+        f"bit-equal; {out['gather_windows_rows']}")
+
+    # K11: K winners per user, their values planted from random lanes of
+    # random slots (so every one hits), one row of values that miss
+    slots = torch.randint(0, m, (b, K), device=dev, generator=gen,
+                          dtype=torch.int32)
+    lanes = torch.randint(0, 128, (b, K), device=dev, generator=gen)
+    v = g.reshape(b, -1).gather(1, slots.long() * 128 + lanes)
+    v[0] = float("nan")
+    got = peel.recover_winners(g, widx, slots, v)
+    out["recover_winners"] = dict(
+        max_abs_err=exact("K11 recover_winners", got,
+                          peel.recover_winners_plain(g, widx, slots, v)),
+        ms=cuda_ms(lambda: peel.recover_winners(g, widx, slots, v), 50),
+        plain_ms=cuda_ms(lambda: peel.recover_winners_plain(g, widx, slots,
+                                                            v), 50),
+        library_ms=None,
+        **bound(b * K * (128 * 4 + 4 + 4 + 4 + 3 * 4)))
+    log(f"K11 recover_winners B={b} m={m} kk={K}: bit-equal (lanes, counts "
+        f"up to {int(got[1].max())}, windows); {out['recover_winners']}")
+    del g, dead, sw_t
+    check_plane_peel(u, items, gen)
+
+    # K12 at window 64 (the JAX default); every other window it admits
+    # checked for the maxima of its own scores
+    st, wt = score.fused_score_wmax(u, items, window=64)
+    if not torch.equal(st, scores.T):
+        raise AssertionError("K12 fused_score_wmax is not K2's scores "
+                             "transposed bit for bit")
+    for win in (8, 16, 32, 64, 128, 256, 512):
+        s_w, w_w = score.fused_score_wmax(u, items, window=win)
+        if not (torch.equal(s_w, st)
+                and torch.equal(w_w, st.view(c // win, win, b).amax(1))):
+            raise AssertionError(f"K12 window {win}: maxima differ from "
+                                 "those of its scores")
+    del s_w, w_w
+    pst, pwt = score.fused_score_wmax_plain(u, items, 64)
+    out["fused_score_wmax"] = dict(
+        max_abs_err=max(near("K12 fused_score_wmax", st, pst),
+                        near("K12 maxima", wt, pwt)),
+        ms=cuda_ms(lambda: score.fused_score_wmax(u, items, window=64), 20),
+        plain_ms=cuda_ms(lambda: score.fused_score_wmax_plain(u, items, 64),
+                         20),
+        library_ms=None,
+        **bound(4 * (b * d + c * d + c * b + c // 64 * b), flops))
+    log(f"K12 fused_score_wmax B={b} C={c} D={d} window 64: scores bit-equal "
+        f"to K2's transposed, maxima of windows 8-512 bit-equal to their "
+        f"scores'; {out['fused_score_wmax']}")
+    del st, wt, pst, pwt
+
+    # K13 over the K2 scores; on rows with fewer than k values above -inf
+    # (+0.0 and -0.0 among them); where JAX hands the row to lax.top_k (n
+    # below its min_n = 8,192, k = n); and at k = n on rows where the NaN of
+    # all ones, whose key is K13's "used up" 0, outlasts the other lanes.
+    # Values are compared as bits (NaN != NaN).
+    short = torch.full((8, c), float("-inf"), device=dev)
+    short[:, [130, 5, 7]] = torch.tensor([3.0, 0.0, -0.0], device=dev)
+    narrow = torch.randn(8, 1000, device=dev, generator=gen)
+    nan_rows = torch.randn(4, 300, device=dev, generator=gen)
+    bits = nan_rows.view(torch.int32)
+    bits[0, 200:], bits[1, ::3], bits[2] = -1, -1, -1  # 0xFFFFFFFF
+    for rows, k in ((scores, K), (short, K), (narrow, K), (narrow, 1000),
+                    (nan_rows, 300)):
+        gv, gi = xtopk.exact_topk(rows, k)
+        pv, pi = xtopk.exact_topk_plain(rows, k)
+        exact(f"K13 exact_topk [{rows.shape[0]}, {rows.shape[1]}] k={k}",
+              [gv.view(torch.int32), gi], [pv.view(torch.int32), pi])
+        if not all(len(set(r)) == k for r in gi.tolist()):
+            raise AssertionError("K13 exact_topk repeated an index")
+    out["exact_topk"] = dict(
+        max_abs_err=max_abs_err(xtopk.exact_topk(scores, K)[0],
+                                xtopk.exact_topk_plain(scores, K)[0]),
+        ms=cuda_ms(lambda: xtopk.exact_topk(scores, K), 20),
+        plain_ms=cuda_ms(lambda: xtopk.exact_topk_plain(scores, K), 5),
+        library_ms=cuda_ms(lambda: torch.topk(scores, K, dim=1), 20),
+        **bound(4 * b * c + 12 * b * K))
+    log(f"K13 exact_topk [{b}, {c}] k={K}: bit-equal values and indices "
+        f"(also on rows with 3 live values, on [8, 1000] at k = {K} and k = "
+        f"n, and on [4, 300] rows of all-ones NaN at k = n); "
+        f"{out['exact_topk']}")
+    return out
+
+
+
+def check_plane_peel(u, items, gen) -> None:
+    """`peel.peel_masked_topk` (K10 planes, `gather_windows_rows`) on its
+    corrected-wmax branch (E = 200 > C / 1,024, rows of 100-200 live
+    exclusions) with one forced redo row (a zero user: every score ties, so
+    its exactness flag trips), held bit for bit to `peel_masked_topk_dot`
+    (K2 rows) on the same inputs: values, ids and ok flags."""
+    import torch
+
+    from sibrar_tpu_torch.ops import peel
+
+    b, c = u.shape[0], items.shape[0]
+    e = 200
+    dev = u.device
+    cols = torch.rand(b, c, device=dev, generator=gen).topk(e, dim=1)[1]
+    live = torch.randint(100, e + 1, (b, 1), device=dev, generator=gen)
+    mask = torch.arange(e, device=dev) < live
+    cols = torch.where(mask, cols, 0).to(torch.int32)
+    if not peel._use_corrected_wmax(c, e):
+        raise AssertionError("E = 200 should take the corrected branch")
+    u = u.clone()
+    u[0] = 0.0
+    before = peel.gather_windows_rows.launches
+    got = peel.peel_masked_topk(u, items, cols, mask, K)
+    per_call = peel.gather_windows_rows.launches - before
+    want = peel.peel_masked_topk_dot(u, items, cols, mask, K)
+    if per_call != 2:
+        raise AssertionError(f"corrected branch: {per_call} plane gathers, "
+                             "expected 2")
+    for name, x, y in zip(("values", "ids", "ok flags"), got, want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"peel_masked_topk corrected branch: {name} "
+                                 "differ from peel_masked_topk_dot")
+    redone = int((~got[2]).sum())
+    if bool(got[2][0]) or redone < 1:
+        raise AssertionError("the zero user's row was not redone")
+    log(f"peel_masked_topk B={b} E={e} (corrected wmax, 2 plane gathers per "
+        f"call), {redone} row(s) redone from the planes: values, ids and ok "
+        f"flags bit-equal to peel_masked_topk_dot")
 
 
 def check_lists(split, data, score_fn, users, ids, vals) -> int:
@@ -392,10 +608,7 @@ def check_lists(split, data, score_fn, users, ids, vals) -> int:
     if not np.isfinite(vals).all() or ids.shape != (len(users), K):
         raise AssertionError(f"bad output: shape {ids.shape}, finite "
                              f"{np.isfinite(vals).all()}")
-    excl = split.exclude_matrix().tocsr()
-    seen = np.asarray(excl[np.repeat(users, K), ids.reshape(-1)]).reshape(-1)
-    if seen.any():
-        raise AssertionError(f"{int(seen.sum())} returned items were seen")
+    check_excluded(split, users, ids)
     if (np.diff(vals, axis=1) > 0).any():
         raise AssertionError("lists are not sorted descending")
 
@@ -425,6 +638,147 @@ def check_lists(split, data, score_fn, users, ids, vals) -> int:
             if (tie > 2 * bound[r]).any():
                 raise AssertionError(f"row {r}: id sets differ beyond ties")
     return differ
+
+
+def windowed_rankers(rec, score_fn, split, data, kernels, count_path,
+                     batches) -> None:
+    """Serve ``batches`` (arrays of 1,024 test users) through each windowed
+    ranker on the served weights, gated by its launches, and hold every list
+    to ``rec.recommend``'s for the same users: values bit-equal (every path
+    ranks K2's, K10's or K12's scores, which are the same bits), ids equal
+    up to exact ties, no excluded item (`check_excluded`)."""
+    import numpy as np
+    import torch
+
+    from sibrar_tpu_torch.ops import exact_topk as xtopk
+    from sibrar_tpu_torch.ops import peel, score, window
+    from sibrar_tpu_torch.ops.sparse import csr_row_gather, scatter_fill_rows
+
+    user_fn, items = score_fn.dot_parts
+    c = items.shape[0]
+    items_p = window.pad_catalog(items)  # as the Recommender holds them
+    csr = data.exclude_csr
+
+    def peel_planes(ur, cols, mask):
+        return peel.peel_masked_topk(ur, items, cols, mask, K)[:2]
+
+    def peel_recover(ur, cols, mask):
+        flag = peel.RECOVER_KERNEL
+        try:
+            peel.RECOVER_KERNEL = True
+            return peel_planes(ur, cols, mask)
+        finally:
+            peel.RECOVER_KERNEL = flag
+
+    def tiled(ur, cols, mask):
+        return window.pallas_masked_topk(ur, items, cols, mask, K)
+
+    def fused(ur, cols, mask):
+        return score.fused_masked_topk(
+            ur, items, torch.where(mask, cols, 1 << 30), K)
+
+    def exact_fill(ur, cols, mask):
+        scores = window.score_wmax(ur, items_p)[0][:, :c].contiguous()
+        return xtopk.exact_topk(scatter_fill_rows(scores, cols, mask,
+                                                  fill=-1e30), K)
+
+    peel_k = ["segment_gather", "score_windows", "gather_windows_rows",
+              "peel_values"]
+    others = ("score_wmax", "fused_score_wmax", "exact_topk",
+              "window_scores_from", "window_max")
+    paths = (
+        ("peel_masked_topk", peel_planes, peel_k + ["gather_windows"],
+         others + ("recover_winners", "gather_windows_tiled")),
+        ("peel_masked_topk, RECOVER_KERNEL", peel_recover,
+         peel_k + ["recover_winners"],
+         others + ("gather_windows", "gather_windows_tiled")),
+        ("pallas_masked_topk", tiled,
+         ["segment_gather", "score_windows", "gather_windows_tiled"],
+         others + ("gather_windows_rows", "peel_values", "recover_winners")),
+        ("fused_masked_topk", fused, ["segment_gather", "fused_score_wmax"],
+         ("score_wmax", "score_windows", "exact_topk", "peel_values")),
+        ("exact_topk after the exclusion fill", exact_fill,
+         ["segment_gather", "score_wmax", "exact_topk"],
+         ("score_windows", "fused_score_wmax", "peel_values",
+          "gather_windows")))
+    wants = [rec.recommend(users, return_scores=True) for users in batches]
+    catalog_items = rec._catalog_items
+    position = np.zeros(int(catalog_items.max()) + 1, dtype=np.int64)
+    position[catalog_items] = np.arange(len(catalog_items))
+    for name, fn, needed, absent in paths:
+        reset_counts(kernels)
+        got, walls = [], []
+        with torch.no_grad():
+            for users in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                u_t = torch.as_tensor(users, device=data.catalog.device)
+                cols, mask = csr_row_gather(csr, u_t)
+                v, i = fn(user_fn(u_t), cols, mask)
+                got.append((v.cpu().numpy(), i.cpu().numpy()))
+                walls.append(time.perf_counter() - t0)
+        count_path(f"windowed ranker {name}", needed, absent)
+        differ = 0
+        with torch.no_grad():
+            for users, (wids, wvals), (v, i) in zip(batches, wants, got):
+                if not np.array_equal(v, wvals):
+                    raise AssertionError(f"{name}: values differ from the "
+                                         "Recommender's")
+                ids = catalog_items[i]
+                check_excluded(split, users, ids)
+                u_t = torch.as_tensor(users, device=data.catalog.device)
+                s = window.score_wmax(user_fn(u_t), items_p)[0][:, :c]
+                for r in np.nonzero((np.sort(ids, 1)
+                                     != np.sort(wids, 1)).any(1))[0]:
+                    extra = sorted(set(i[r].tolist())
+                                   ^ set(position[wids[r]].tolist()))
+                    if not bool((s[r, extra] == float(wvals[r, -1])).all()):
+                        raise AssertionError(f"{name}: row {r} differs from "
+                                             "the Recommender's beyond ties")
+                    differ += 1
+        log(f"windowed ranker {name}: {len(batches)} batches of "
+            f"{len(batches[0])}, host {1e3 * np.median(walls):.3f} ms per "
+            f"batch (median, synchronized); values bit-equal to the "
+            f"Recommender's, no excluded item, {differ} rows differ on "
+            f"exact ties")
+    recovery_device_time(batches, user_fn, csr, data.catalog.device,
+                         peel_planes, peel_recover)
+
+
+def recovery_device_time(batches, user_fn, csr, dev, default, recover
+                         ) -> None:
+    """Device busy ms per batch of the plane peel with each winner recovery
+    (K3 + four compares, or K11 under ``RECOVER_KERNEL``), under the
+    profiler over the same batches' user vectors and exclusions, in the
+    order default, K11, K11, default."""
+    import torch
+
+    from sibrar_tpu_torch.ops.sparse import csr_row_gather
+
+    with torch.no_grad():
+        inputs = []
+        for users in batches:
+            u_t = torch.as_tensor(users, device=dev)
+            inputs.append((user_fn(u_t), *csr_row_gather(csr, u_t)))
+        busy = {"default": [], "K11": []}
+        for name in ("default", "K11", "K11", "default"):
+            fn = default if name == "default" else recover
+            busy[name].append(profile_window(
+                lambda f=fn: [f(*args) for args in inputs], len(inputs),
+                f"batches of 1,024, plane peel, {name} recovery"))
+    log(f"plane peel device ms per batch of 1,024: default recovery "
+        f"{busy['default']}, K11 {busy['K11']}")
+
+
+def check_excluded(split, users, ids) -> None:
+    """No returned (global) item id is in the user's exclusion row."""
+    import numpy as np
+
+    excl = split.exclude_matrix().tocsr()
+    seen = np.asarray(excl[np.repeat(users, ids.shape[1]),
+                           ids.reshape(-1)]).reshape(-1)
+    if seen.any():
+        raise AssertionError(f"{int(seen.sum())} returned items were seen")
 
 
 def eval_conf(**changes):
@@ -807,10 +1161,11 @@ def train_window(trainer, n_steps: int) -> dict:
                 steps_per_s=n_steps / wall, losses=losses, summary=summary)
 
 
-def profile_window(fn, n: int, unit: str) -> None:
+def profile_window(fn, n: int, unit: str) -> float | None:
     """torch.profiler over ``fn()``, which runs ``n`` units (train steps,
     request batches): device busy time per unit, idle share of the wall
-    time, and the kernels by device time."""
+    time, and the kernels by device time. Returns the busy ms per unit
+    (None when the profiler saw no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -829,13 +1184,14 @@ def profile_window(fn, n: int, unit: str) -> None:
     busy = sum(by_name.values())
     if busy == 0:
         log(f"profile, {n} {unit}: no device time recorded")
-        return
+        return None
     log(f"profile, {n} {unit}: wall {wall_us / 1e3 / n:.3f} ms per unit, "
         f"device busy {busy / 1e3 / n:.3f} ms per unit, idle share "
         f"{1 - busy / wall_us:.3f} (wall under the profiler)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         log(f"  {us / 1e3 / n:8.4f} ms/unit {100 * us / busy:5.1f} %  "
             f"{name[:110]}")
+    return busy / 1e3 / n
 
 
 def first_layer_chains(tower, rows, catalog, model, dev) -> None:
@@ -909,7 +1265,9 @@ def main() -> int:
     from sibrar_tpu_torch.data.synthetic import make_onion_scale_splits
     from sibrar_tpu_torch.models import layers
     from sibrar_tpu_torch.models.sbnet import SingleBranchNet
-    from sibrar_tpu_torch.ops import _cuda, dw, peel, sparse, spmm, window
+    from sibrar_tpu_torch.ops import _cuda, dw, peel, score, sparse, spmm
+    from sibrar_tpu_torch.ops import exact_topk as xtopk
+    from sibrar_tpu_torch.ops import window
     from sibrar_tpu_torch.serve import Recommender
     from sibrar_tpu_torch.train.scoring import make_score_fn
     from sibrar_tpu_torch.train.trainer import (
@@ -949,7 +1307,22 @@ def main() -> int:
                 "sibrar_tpu/ops/pallas_window.py:147"),
                ("gather_windows_tiled", window.gather_windows_tiled,
                 "sibrar_tpu_torch/csrc/gather_windows.cu",
-                "sibrar_tpu/ops/pallas_window.py:243")]
+                "sibrar_tpu/ops/pallas_window.py:243"),
+               ("score_windows", window.score_windows,
+                "sibrar_tpu_torch/csrc/score_wmax.cu",
+                "sibrar_tpu/ops/pallas_window.py:104"),
+               ("gather_windows_rows", peel.gather_windows_rows,
+                "sibrar_tpu_torch/csrc/gather_windows.cu",
+                "sibrar_tpu/ops/pallas_peel.py:361"),
+               ("recover_winners", peel.recover_winners,
+                "sibrar_tpu_torch/csrc/recover_winners.cu",
+                "sibrar_tpu/ops/pallas_peel.py:654"),
+               ("fused_score_wmax", score.fused_score_wmax,
+                "sibrar_tpu_torch/csrc/fused_score_wmax.cu",
+                "sibrar_tpu/ops/pallas_score.py:47"),
+               ("exact_topk", xtopk.exact_topk,
+                "sibrar_tpu_torch/csrc/exact_topk.cu",
+                "sibrar_tpu/ops/pallas_topk.py:102")]
     t_start = time.perf_counter()
 
     # ---------------------------------------------------------------- build
@@ -1095,7 +1468,9 @@ def main() -> int:
             f"batches (host clock, after one warm-up) on {card}; redone rows "
             f"per batch {rec.redo_rows}")
     count_path("serving path", ["segment_gather", "score_wmax",
-                                "gather_windows", "peel_values"])
+                                "gather_windows", "peel_values"],
+               ("score_windows", "gather_windows_rows", "recover_winners",
+                "fused_score_wmax", "exact_topk"))
     for bs, rec in recs.items():
         users = users_all[start:start + PROFILE_BATCHES * bs]
         start += len(users)
@@ -1109,6 +1484,11 @@ def main() -> int:
     log(f"{n_lists} lists checked: no seen item, sorted, equal to the plain "
         f"path ({differ} differ only on ties); redo on trained weights: "
         f"{sum(redone)} of {n_lists} rows in {len(redone)} batches")
+
+    # --------------- the windowed rankers, on the same weights and split
+    windowed_rankers(recs[1024], score_fn, test, data, kernels, count_path,
+                     [users_all[start + r * 1024:start + (r + 1) * 1024]
+                      for r in range(RANKER_BATCHES)])
 
     rows_json = [dict(name=name, route="cuda", source=src, replaces=rep,
                       launches=launches[name], **measured[name])

@@ -32,7 +32,6 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from sibrar_tpu_torch.data.dataset import DeviceData, RecDataset
 from sibrar_tpu_torch.eval.metrics import (
@@ -41,9 +40,10 @@ from sibrar_tpu_torch.eval.metrics import (
     coverage_flags,
     user_metrics_from_hits,
 )
-from sibrar_tpu_torch.ops.peel import BC, peel_masked_topk_dot, peel_viable
+from sibrar_tpu_torch.ops.peel import peel_masked_topk_dot, peel_viable
 from sibrar_tpu_torch.ops.sparse import csr_contains_rows, csr_row_gather
 from sibrar_tpu_torch.ops.topk import masked_topk
+from sibrar_tpu_torch.ops.window import pad_catalog
 
 
 def natsort_key(s: str):
@@ -154,8 +154,7 @@ class FullEvaluator:
                 or not peel_viable(n_catalog, self.k_max, csr.max_row_len)):
             return None
         # pad the catalog to the GEMM's chunk multiple once per evaluation
-        items_p = F.pad(items,
-                        (0, 0, 0, -(-n_catalog // BC) * BC - n_catalog))
+        items_p = pad_catalog(items)
 
         def eval_batch(u_idxs: torch.Tensor):
             cols, mask = csr_row_gather(csr, u_idxs)

@@ -4,9 +4,9 @@ Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
 started together) into an object file, and the objects are linked into one
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), loaded with ``ctypes``. Objects and library land in
-``sibrar_tpu_torch/_build/`` under names keyed by their sources and flags,
-on the first launch in a process; a later process with the same sources
-reuses them.
+``sibrar_tpu_torch/_build/`` under names keyed by their sources, the shared
+``csrc/*.cuh`` headers and the flags, on the first launch in a process; a
+later process with the same sources reuses them.
 
 Dispatch rule for every wrapper (`use_kernel`): a CUDA tensor launches the
 kernel, a CPU tensor takes the kernel's plain PyTorch version, anything else
@@ -37,6 +37,10 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "sibrar_segment_gather": [_P, _P, _P, _I, _I, _P, _P, _P],
     "sibrar_score_wmax": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "sibrar_score_windows": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "sibrar_fused_score_wmax": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "sibrar_recover_winners": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "sibrar_exact_topk": [_P, _I, _I, _I, _P, _P, _P],
     "sibrar_gather_windows": [_P, _LL, _LL, _P, _I, _I, _P, _P, _P],
     "sibrar_peel_values": [_P, _LL, _I, _P, _P, _P],
     "sibrar_dw_matmul": [_P, _P, _I, _I, _I, _P, _P],
@@ -99,11 +103,12 @@ def build() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     objs, procs = [], []
     for src in sources:
-        obj = BUILD_DIR / f"{src.stem}_{_key(src.read_bytes())}.o"
+        obj = BUILD_DIR / f"{src.stem}_{_key(src.read_bytes(), headers)}.o"
         objs.append(obj)
         if not obj.exists():
             procs.append(_start([_nvcc(), *NVCC_FLAGS, "-c", str(src)], obj))

@@ -1,9 +1,12 @@
 """Exact top-k with per-user exclusion by value peeling (port of
 ``sibrar_tpu/ops/pallas_peel.py``).
 
-Pipeline over a [B, C] score matrix and its 128-wide window maxima (both
-from kernel K2, ``ops/window.py``, on the dot path; the maxima from kernel
-K8, `window_max`, on the scores path):
+Pipeline (`_peel_select`) over scores and their 128-wide window maxima, in
+one of two layouts: a [B, C] score matrix (from kernel K2, ``ops/window.py``,
+on the dot path; the maxima from kernel K8, `window_max`, on the scores
+path), or the window planes ``sw_t [C / 128, B, 128]`` of kernel K10
+(`peel_masked_topk`). Only the window gather differs: K3 off the rows, or
+K3 with the window stride B * 128 off the planes (`gather_windows_rows`).
 
 1. on the corrected-wmax path, recompute the maxima of the windows that hold
    a user's excluded items; otherwise select ``k + E`` windows (margin path);
@@ -11,7 +14,8 @@ K8, `window_max`, on the scores path):
 3. gather them with the excluded and padded lanes set to -inf (K3);
 4. peel the top-``t`` distinct values of every window (K4);
 5. merge the ``m * t`` peeled values with one top-k, and recover each
-   winner's catalog index from its window row (K3 again);
+   winner's catalog index from its window row (K3 again, or kernel K11
+   `recover_winners` when `RECOVER_KERNEL` is set);
 6. flag each row ``ok = complete & unique & all_live``. The entry points
    redo the rows that are not ok with the dense path (``ops/topk.py``);
    only those rows, not the whole batch as in JAX.
@@ -23,6 +27,8 @@ and at the serving catalog (784 windows) JAX takes the exact branch as well.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 
@@ -33,8 +39,11 @@ from sibrar_tpu_torch.ops.window import (
     NEG,
     WINDOW,
     _topk_stable,
+    gather_planes,
+    pad_catalog,
     pad_excl,
     score_wmax,
+    score_windows,
 )
 
 PEELED = float("-inf")  # below any live score, the -1e30 mask included
@@ -44,6 +53,10 @@ PEELED = float("-inf")  # below any live score, the -1e30 mask included
 _CORR_MAX_E = 512
 _CORR_MAX_ROW_BYTES = 1 << 20
 PEEL_T = 8  # peel depth before the adaptive deepening (JAX default t)
+# Winner recovery through kernel K11 instead of K3 + compares: the JAX
+# package's switch (``pallas_peel._RECOVER_KERNEL``), read once from the same
+# environment variable; both spellings give the same bits.
+RECOVER_KERNEL = os.environ.get("SIBRAR_PEEL_RECOVER_KERNEL", "0") == "1"
 
 
 def _use_corrected_wmax(c_real: int, e: int) -> bool:
@@ -207,6 +220,66 @@ def peel_values_grouped(g: torch.Tensor, t: int
     return vals.reshape(b, m * vals.shape[1]), last.reshape(b, m)
 
 
+# ------------------------------------------------------ kernel K3, planes
+def gather_windows_rows(sw_t: torch.Tensor, widx: torch.Tensor,
+                        dead: torch.Tensor | None = None) -> torch.Tensor:
+    """Windows ``widx [B, m]`` of each user's planes of ``sw_t [NW, B, 128]``
+    as ``[B, m, 128]``, ``dead`` lanes -inf (JAX ``gather_windows_rows``):
+    the K3 launch of `window.gather_windows_tiled`, counted here; its plain
+    version is ``window.gather_windows_tiled_plain``."""
+    return gather_planes(sw_t, widx, dead, gather_windows_rows)
+
+
+gather_windows_rows.launches = 0
+
+
+# ----------------------------------------------------------------- kernel K11
+def recover_winners_plain(g: torch.Tensor, widx: torch.Tensor,
+                          slots: torch.Tensor, v: torch.Tensor
+                          ) -> tuple[torch.Tensor, ...]:
+    """Plain version of K11: ``(lane, n_hit, widx_sel)``, int32 [B, kk]."""
+    rows = g.gather(1, slots.long()[:, :, None].expand(-1, -1, g.shape[2]))
+    hit = rows == v[:, :, None]
+    lane_iota = torch.arange(g.shape[2], device=g.device)
+    lane = torch.where(hit, lane_iota, g.shape[2]).amin(dim=-1)
+    return (lane.to(torch.int32), hit.sum(dim=-1, dtype=torch.int32),
+            widx.gather(1, slots.long()).to(torch.int32))
+
+
+def recover_winners(g: torch.Tensor, widx: torch.Tensor, slots: torch.Tensor,
+                    v: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """K11 (JAX ``recover_winners``; see ``csrc/recover_winners.cu``): for
+    each winner ``(b, s)`` with value ``v [B, kk]`` in window slot
+    ``slots [B, kk]`` of the gathered ``g [B, m, 128]``, the first lane of
+    ``g[b, slots[b, s]]`` equal to it (128 if none), the count of equal
+    lanes, and its catalog window ``widx[b, slots[b, s]]``; all int32."""
+    b, m, w = g.shape
+    if (w != WINDOW or widx.shape != (b, m) or slots.ndim != 2
+            or slots.shape[0] != b or v.shape != slots.shape):
+        raise ValueError(f"recover_winners: g {tuple(g.shape)} must be "
+                         f"[B, m, 128], widx {tuple(widx.shape)} [B, m], "
+                         f"slots {tuple(slots.shape)} and v {tuple(v.shape)} "
+                         "[B, kk]")
+    if not _cuda.use_kernel(g, widx, slots, v):
+        return recover_winners_plain(g, widx, slots, v)
+    if (g.dtype != torch.float32 or v.dtype != torch.float32
+            or widx.dtype != torch.int32 or slots.dtype != torch.int32):
+        raise ValueError("recover_winners: f32 g and v, int32 widx and "
+                         "slots")
+    g, widx, slots, v = (t.contiguous() for t in (g, widx, slots, v))
+    kk = slots.shape[1]
+    lane, n_hit, wsel = (torch.empty((b, kk), dtype=torch.int32,
+                                     device=g.device) for _ in range(3))
+    _cuda.launch("sibrar_recover_winners", g.data_ptr(), widx.data_ptr(),
+                 slots.data_ptr(), v.data_ptr(), b, m, kk, lane.data_ptr(),
+                 n_hit.data_ptr(), wsel.data_ptr())
+    recover_winners.launches += 1
+    return lane, n_hit, wsel
+
+
+recover_winners.launches = 0
+
+
 # ------------------------------------------------------------ orchestration
 def _flat_mask(b: int, width: int, pos: torch.Tensor, hit: torch.Tensor,
                device) -> torch.Tensor:
@@ -219,9 +292,8 @@ def _flat_mask(b: int, width: int, pos: torch.Tensor, hit: torch.Tensor,
     return out[:-1].view(b, width)
 
 
-def _corrected_wmax(scores: torch.Tensor, wmax: torch.Tensor,
-                    excl_cols: torch.Tensor, excl_mask: torch.Tensor
-                    ) -> torch.Tensor:
+def _corrected_wmax(gather_fn, wmax: torch.Tensor, excl_cols: torch.Tensor,
+                    excl_mask: torch.Tensor) -> torch.Tensor:
     """Exact post-exclusion maxima of the windows holding excluded items
     (JAX ``_peel_select`` corrected branch, without its [B, E, NW]
     one-hot broadcasts): gather each window once, with every excluded lane of
@@ -232,8 +304,8 @@ def _corrected_wmax(scores: torch.Tensor, wmax: torch.Tensor,
     key = excl_w.sort(dim=1).values.contiguous()  # ascending, pads (nw) last
     first = torch.searchsorted(key, excl_w.contiguous())  # window's 1st slot
     dead = _flat_mask(b, e * WINDOW, first * WINDOW + excl_cols % WINDOW,
-                      excl_mask, scores.device).view(b, e, WINDOW)
-    ge = gather_score_windows(scores, key.clamp(max=nw - 1), dead)
+                      excl_mask, wmax.device).view(b, e, WINDOW)
+    ge = gather_fn(key.clamp(max=nw - 1), dead)
     corr = ge.amax(dim=-1)  # [B, E]
     key_first = torch.searchsorted(key, key)
     n_same = torch.searchsorted(key, key, right=True) - key_first
@@ -269,27 +341,26 @@ def _dead_lanes(widx: torch.Tensor, excl_cols: torch.Tensor,
     return dead
 
 
-def peel_topk_from_scores(scores: torch.Tensor, wmax: torch.Tensor,
-                          excl_cols: torch.Tensor, excl_mask: torch.Tensor,
-                          k: int, c_real: int
-                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Exact top-k with exclusion off a [B, C] score matrix (C a multiple of
-    128, columns >= ``c_real`` padding) and its window maxima ``wmax``
-    (JAX ``peel_topk_from_scores``).
+def _peel_select(gather_fn, wmax: torch.Tensor, excl_cols: torch.Tensor,
+                 excl_mask: torch.Tensor, k: int, c_real: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The peel pipeline shared by both score layouts (JAX ``_peel_select``
+    with ``with_fallback=False``). ``gather_fn(widx [B, m], dead)`` returns
+    the windows ``widx`` of each user's scores as [B, m, 128] with the
+    ``dead`` lanes (or None) set to -inf; ``wmax [B, NW]`` are their maxima;
+    columns >= ``c_real`` are padding.
 
     Returns ``(v [B, k'], idx [B, k'] int64, ok [B] bool)`` with
-    ``k' = min(k, c_real)``; rows with ``ok`` False need the dense redo
-    (JAX ``_peel_select`` with ``with_fallback=False``)."""
-    b, c = scores.shape
-    nw = c // WINDOW
+    ``k' = min(k, c_real)``; rows with ``ok`` False need the dense redo."""
+    b, nw = wmax.shape
     e = excl_cols.shape[1]
-    dev = scores.device
+    dev = wmax.device
     padded = nw * WINDOW > c_real
     if padded:  # fully padded tail windows can't win
         win_ok = torch.arange(nw, device=dev) * WINDOW < c_real
         wmax = torch.where(win_ok, wmax, NEG)
     if _use_corrected_wmax(c_real, e):
-        wmax = _corrected_wmax(scores, wmax, excl_cols, excl_mask)
+        wmax = _corrected_wmax(gather_fn, wmax, excl_cols, excl_mask)
         m = _round_m(k + int(padded), nw)  # exact maxima: no margin
     else:
         m = _round_m(k + e + int(padded), nw)
@@ -300,20 +371,23 @@ def peel_topk_from_scores(scores: torch.Tensor, wmax: torch.Tensor,
 
     # ascending window order: every later stage is invariant to it
     widx = _topk_stable(wmax, m)[1].sort(dim=1).values.to(torch.int32)
-    dead = _dead_lanes(widx, excl_cols, excl_mask, c_real, padded)
-    g = gather_score_windows(scores, widx, dead)  # [B, m, 128]
+    g = gather_fn(widx, _dead_lanes(widx, excl_cols, excl_mask, c_real,
+                                    padded))  # [B, m, 128]
     vals_flat, last = peel_values_grouped(g, t)
     v, p = _topk_stable(vals_flat, kk)  # merge over m*t << m*128 values
 
     # winner-only index recovery from the dead-masked windows
     wslot = (p // t).to(torch.int32)
-    widx_sel = widx.gather(1, wslot.long()).long()
-    rows = gather_subwindows(g, wslot)  # [B, kk, 128]
-    hit = rows == v[:, :, None]
-    lane_iota = torch.arange(WINDOW, device=dev)
-    lane = torch.where(hit, lane_iota, WINDOW).amin(dim=-1)
-    n_hit = hit.sum(dim=-1)  # in-window duplicates of a winner
-    idx = widx_sel * WINDOW + lane.clamp(max=WINDOW - 1)
+    if RECOVER_KERNEL:
+        lane, n_hit, widx_sel = recover_winners(g, widx, wslot, v)
+    else:
+        widx_sel = widx.gather(1, wslot.long())
+        rows = gather_subwindows(g, wslot)  # [B, kk, 128]
+        hit = rows == v[:, :, None]
+        lane_iota = torch.arange(WINDOW, device=dev)
+        lane = torch.where(hit, lane_iota, WINDOW).amin(dim=-1)
+        n_hit = hit.sum(dim=-1)  # in-window duplicates of a winner
+    idx = widx_sel.long() * WINDOW + lane.clamp(max=WINDOW - 1)
 
     # exactness: no window's t-th value beats the k-th winner (complete),
     # every winner matched one lane (unique), no -inf winner (all_live)
@@ -321,6 +395,56 @@ def peel_topk_from_scores(scores: torch.Tensor, wmax: torch.Tensor,
     unique = (n_hit == 1).all(dim=1)
     all_live = (v > PEELED).all(dim=1)
     return v, idx, complete & unique & all_live
+
+
+def peel_topk_from_scores(scores: torch.Tensor, wmax: torch.Tensor,
+                          excl_cols: torch.Tensor, excl_mask: torch.Tensor,
+                          k: int, c_real: int
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact top-k with exclusion off a [B, C] score matrix (C a multiple of
+    128, columns >= ``c_real`` padding) and its window maxima ``wmax``
+    (JAX ``peel_topk_from_scores``): `_peel_select` with K3 gathering the
+    windows off the rows. Returns ``(v, idx, ok)``."""
+    return _peel_select(lambda widx, dead: gather_score_windows(scores, widx,
+                                                                dead),
+                        wmax, excl_cols, excl_mask, k, c_real)
+
+
+def peel_topk_windows(sw_t: torch.Tensor, wmax: torch.Tensor,
+                      excl_cols: torch.Tensor, excl_mask: torch.Tensor,
+                      k: int, c_real: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact top-k with exclusion off the window planes ``sw_t [NW, B, 128]``
+    (columns >= ``c_real`` padding) and their maxima ``wmax`` (JAX
+    ``peel_topk_windows``): `_peel_select` with `gather_windows_rows`
+    gathering the windows off the planes. Returns ``(v, idx, ok)``."""
+    return _peel_select(lambda widx, dead: gather_windows_rows(sw_t, widx,
+                                                               dead),
+                        wmax, excl_cols, excl_mask, k, c_real)
+
+
+def peel_masked_topk(u: torch.Tensor, items: torch.Tensor,
+                     excl_cols: torch.Tensor | None,
+                     excl_mask: torch.Tensor | None, k: int, *,
+                     with_fallback: bool = True
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dot-product scores + exclusion + exact top-k through the window
+    planes (JAX ``peel_masked_topk``): the catalog is padded to a `BC`
+    multiple with zero rows, K10 writes the planes and their maxima, then
+    `peel_topk_windows`. JAX also pads B to its user block and D to 128; K10
+    takes any B and D, and its zero-filled depth tail adds the same zeros.
+
+    Returns ``(v, idx, ok)``. With ``with_fallback`` the rows whose ``ok``
+    is False are redone densely from their planes before returning, as in
+    `peel_masked_topk_dot`."""
+    b, c = u.shape[0], items.shape[0]
+    excl_cols, excl_mask = pad_excl(excl_cols, excl_mask, b, u.device)
+    sw_t, wmax = score_windows(u, pad_catalog(items))
+    v, idx, ok = peel_topk_windows(sw_t, wmax, excl_cols, excl_mask, k, c)
+    if with_fallback:
+        _redo(lambda rows: sw_t[:, rows].transpose(0, 1).reshape(
+            rows.shape[0], -1), excl_cols, excl_mask, c, v, idx, ok)
+    return v, idx, ok
 
 
 def peel_masked_topk_dot(u: torch.Tensor, items: torch.Tensor,
@@ -346,15 +470,13 @@ def peel_masked_topk_dot(u: torch.Tensor, items: torch.Tensor,
     elif not (c % BC == 0 and c_real <= c < c_real + BC):
         raise ValueError(f"c_real={c_real}: items must be pre-padded to the "
                          f"next {BC} multiple (got {c} rows)")
-    cp = -(-c // BC) * BC
-    if cp != c:
-        items = F.pad(items, (0, 0, 0, cp - c))
     excl_cols, excl_mask = pad_excl(excl_cols, excl_mask, b, u.device)
-    scores, wmax = score_wmax(u, items)
+    scores, wmax = score_wmax(u, pad_catalog(items))
     v, idx, ok = peel_topk_from_scores(scores, wmax, excl_cols, excl_mask, k,
                                        c_real)
     if with_fallback:
-        _redo(scores, excl_cols, excl_mask, c_real, v, idx, ok)
+        _redo(lambda rows: scores[rows], excl_cols, excl_mask, c_real, v,
+              idx, ok)
     return v, idx, ok
 
 
@@ -377,19 +499,21 @@ def peel_masked_topk_scores(scores: torch.Tensor,
     v, idx, ok = peel_topk_from_scores(scores, window_max(scores), excl_cols,
                                        excl_mask, k, c)
     if with_fallback:
-        _redo(scores, excl_cols, excl_mask, c, v, idx, ok)
+        _redo(lambda rows: scores[rows], excl_cols, excl_mask, c, v, idx,
+              ok)
     return v, idx, ok
 
 
-def _redo(scores: torch.Tensor, excl_cols: torch.Tensor,
-          excl_mask: torch.Tensor, c_real: int, v: torch.Tensor,
-          idx: torch.Tensor, ok: torch.Tensor) -> None:
+def _redo(scores_of, excl_cols: torch.Tensor, excl_mask: torch.Tensor,
+          c_real: int, v: torch.Tensor, idx: torch.Tensor,
+          ok: torch.Tensor) -> None:
     """Overwrite the rows of ``(v, idx)`` whose ``ok`` is False with the
-    dense top-k of their scores (one host sync on ``ok``)."""
+    dense top-k of their scores, ``scores_of(rows) -> [len(rows), C]`` (one
+    host sync on ``ok``)."""
     if bool(ok.all()):
         return
     redo = (~ok).nonzero().squeeze(1)
-    fv, fi = topk_excluding(scores[redo], excl_cols[redo], excl_mask[redo],
+    fv, fi = topk_excluding(scores_of(redo), excl_cols[redo], excl_mask[redo],
                             v.shape[1], c_real=c_real)
     v[redo] = fv
     idx[redo] = fi

@@ -1,18 +1,21 @@
 """Window maxima and windowed tilings of the score matrix (port of
 ``sibrar_tpu/ops/pallas_window.py``: ``score_native_wmax``,
-``window_scores_from``, ``gather_windows``, ``window_topk_phase2``,
+``score_windows``, ``window_scores_from``, ``gather_windows``,
+``window_topk_phase2``, ``pallas_masked_topk``,
 ``pallas_masked_topk_scores`` and ``_pad_excl``).
 
 Kernel K2 (`score_wmax`, ``csrc/score_wmax.cu``) writes the [B, C] score
 matrix and its window maxima in one pass, so the peel selection never reads
-the full matrix to find its windows.
+the full matrix to find its windows. Kernel K10 (`score_windows`, the same
+source and main loop) writes the same scores as window planes
+``sw_t [C / 128, B, 128]``, bit for bit.
 
-The ``topk_method: pallas`` path over a precomputed score matrix: kernel K9
-(`window_scores_from`, ``csrc/window_retile.cu``) retiles the scores into
-window planes ``sw_t [C / 128, B, 128]`` with their maxima, the top
-``k + E`` windows by maximum are selected, K3 with a window stride
-(`gather_windows_tiled`) gathers them, and exclusion is applied by finalist
-re-ranking (`window_topk_phase2`).
+The windowed ranking (``topk_method: pallas`` over a precomputed score
+matrix, `pallas_masked_topk` over dot products): kernel K9
+(`window_scores_from`, ``csrc/window_retile.cu``) or K10 gives the window
+planes with their maxima, the top ``k + E`` windows by maximum are
+selected, K3 with a window stride (`gather_windows_tiled`) gathers them, and
+exclusion is applied by finalist re-ranking (`window_topk_phase2`).
 """
 from __future__ import annotations
 
@@ -53,9 +56,7 @@ def score_wmax(u: torch.Tensor, items: torch.Tensor
                          f"{tuple(items.shape)} need equal D and C % 128 == 0")
     if not _cuda.use_kernel(u, items):
         return score_wmax_plain(u, items)
-    if u.dtype != torch.float32 or items.dtype != torch.float32:
-        raise ValueError(f"score_wmax: f32 only, got {u.dtype}, {items.dtype}")
-    u, items = u.contiguous(), items.contiguous()
+    u, items = _dot_operands(u, items, "score_wmax")
     scores = torch.empty((b, c), dtype=torch.float32, device=u.device)
     wmax = torch.empty((b, c // WINDOW), dtype=torch.float32, device=u.device)
     _cuda.launch("sibrar_score_wmax", u.data_ptr(), items.data_ptr(), b, c, d,
@@ -65,6 +66,58 @@ def score_wmax(u: torch.Tensor, items: torch.Tensor
 
 
 score_wmax.launches = 0
+
+
+def _dot_operands(u: torch.Tensor, items: torch.Tensor, name: str
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Contiguous f32 ``u [B, D]`` and ``items [C, D]`` for the score
+    kernels, which take any B and D (depths past D read as zeros, as the
+    Pallas kernels' zero padding of D to 128 gives)."""
+    if u.dtype != torch.float32 or items.dtype != torch.float32:
+        raise ValueError(f"{name}: f32 only, got {u.dtype}, {items.dtype}")
+    return u.contiguous(), items.contiguous()
+
+
+# ----------------------------------------------------------------- kernel K10
+def score_windows_plain(u: torch.Tensor, items: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K10: ``(sw_t [C/128, B, 128], wmax [B, C/128])`` of
+    ``u @ items.T``."""
+    return window_scores_from_plain(u @ items.T)
+
+
+def score_windows(u: torch.Tensor, items: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K10: the scores ``u @ items.T`` written once as window planes
+    ``sw_t [C/128, B, 128]`` plus their maxima ``wmax [B, C/128]``, C a
+    multiple of 128 (JAX ``score_windows``; K2's tile and arithmetic with
+    another store address, so ``sw_t`` holds K2's scores bit for bit)."""
+    b, d = u.shape
+    c, di = items.shape
+    if d != di or c % WINDOW:
+        raise ValueError(f"score_windows: u {tuple(u.shape)} and items "
+                         f"{tuple(items.shape)} need equal D and C % 128 == 0")
+    if not _cuda.use_kernel(u, items):
+        return score_windows_plain(u, items)
+    u, items = _dot_operands(u, items, "score_windows")
+    sw_t = torch.empty((c // WINDOW, b, WINDOW), dtype=torch.float32,
+                       device=u.device)
+    wmax = torch.empty((b, c // WINDOW), dtype=torch.float32, device=u.device)
+    _cuda.launch("sibrar_score_windows", u.data_ptr(), items.data_ptr(), b, c,
+                 d, sw_t.data_ptr(), wmax.data_ptr())
+    score_windows.launches += 1
+    return sw_t, wmax
+
+
+score_windows.launches = 0
+
+
+def pad_catalog(items: torch.Tensor, multiple: int = BC) -> torch.Tensor:
+    """``items [C, D]`` with zero rows appended up to a ``multiple`` of
+    rows (zero scores; the rankers dead-mask every column past C)."""
+    c = items.shape[0]
+    cp = -(-c // multiple) * multiple
+    return items if cp == c else F.pad(items, (0, 0, 0, cp - c))
 
 
 def pad_excl(excl_cols: torch.Tensor | None, excl_mask: torch.Tensor | None,
@@ -111,39 +164,52 @@ window_scores_from.launches = 0
 
 
 # ------------------------------------------------------ kernel K3, tiled
-def gather_windows_tiled_plain(sw_t: torch.Tensor, widx: torch.Tensor
+def gather_windows_tiled_plain(sw_t: torch.Tensor, widx: torch.Tensor,
+                               dead: torch.Tensor | None = None
                                ) -> torch.Tensor:
-    """Plain version of K3 on the tiling:
-    ``cand[b, 128 j : +128] = sw_t[widx[b, j], b, :]``, as [B, m * 128]."""
-    nw, b, w = sw_t.shape
-    m = widx.shape[1]
-    return sw_t.permute(1, 0, 2).gather(
-        1, widx.long()[:, :, None].expand(-1, -1, w)).reshape(b, m * w)
+    """Plain version of K3 on the tiling: ``out[b, j] = sw_t[widx[b, j], b]``
+    as [B, m, 128], -inf where ``dead``."""
+    out = sw_t.permute(1, 0, 2).gather(
+        1, widx.long()[:, :, None].expand(-1, -1, sw_t.shape[2]))
+    return out if dead is None else out.masked_fill(dead, float("-inf"))
 
 
-def gather_windows_tiled(sw_t: torch.Tensor, widx: torch.Tensor
-                         ) -> torch.Tensor:
+def gather_planes(sw_t: torch.Tensor, widx: torch.Tensor,
+                  dead: torch.Tensor | None, counted) -> torch.Tensor:
     """K3 with the window stride B * 128: windows ``widx [B, m]`` of each
-    user's planes of ``sw_t [NW, B, 128]`` as ``[B, m * 128]`` (JAX
-    ``pallas_window.gather_windows``; see ``csrc/gather_windows.cu``)."""
+    user's planes of ``sw_t [NW, B, 128]`` as ``[B, m, 128]``, with ``dead
+    [B, m, 128]`` lanes set to -inf on copy (see ``csrc/gather_windows.cu``).
+    A launch adds one to ``counted.launches``: the entry point it serves,
+    `gather_windows_tiled` or ``peel.gather_windows_rows``."""
+    tensors = (sw_t, widx) if dead is None else (sw_t, widx, dead)
     if (sw_t.ndim != 3 or sw_t.shape[2] != WINDOW or widx.ndim != 2
             or widx.shape[0] != sw_t.shape[1]):
-        raise ValueError(f"gather_windows_tiled: sw_t {tuple(sw_t.shape)} "
-                         f"must be [NW, B, 128] and widx {tuple(widx.shape)} "
-                         "[B, m]")
-    if not _cuda.use_kernel(sw_t, widx):
-        return gather_windows_tiled_plain(sw_t, widx)
+        raise ValueError(f"gather_planes: sw_t {tuple(sw_t.shape)} must be "
+                         f"[NW, B, 128] and widx {tuple(widx.shape)} [B, m]")
+    if not _cuda.use_kernel(*tensors):
+        return gather_windows_tiled_plain(sw_t, widx, dead)
+    b, m = widx.shape
     if (sw_t.dtype != torch.float32 or widx.dtype != torch.int32
             or not sw_t.is_contiguous() or not widx.is_contiguous()):
-        raise ValueError("gather_windows_tiled: contiguous f32 sw_t, int32 "
-                         "widx")
-    b, m = widx.shape
-    out = torch.empty((b, m * WINDOW), dtype=torch.float32,
-                      device=sw_t.device)
+        raise ValueError("gather_planes: contiguous f32 sw_t, int32 widx")
+    if dead is not None and (dead.dtype != torch.bool
+                             or not dead.is_contiguous()
+                             or tuple(dead.shape) != (b, m, WINDOW)):
+        raise ValueError("gather_planes: dead must be contiguous bool "
+                         f"[{b}, {m}, {WINDOW}]")
+    out = torch.empty((b, m, WINDOW), dtype=torch.float32, device=sw_t.device)
     _cuda.launch("sibrar_gather_windows", sw_t.data_ptr(), WINDOW,
-                 b * WINDOW, widx.data_ptr(), b, m, None, out.data_ptr())
-    gather_windows_tiled.launches += 1
+                 b * WINDOW, widx.data_ptr(), b, m,
+                 None if dead is None else dead.data_ptr(), out.data_ptr())
+    counted.launches += 1
     return out
+
+
+def gather_windows_tiled(sw_t: torch.Tensor, widx: torch.Tensor,
+                         dead: torch.Tensor | None = None) -> torch.Tensor:
+    """`gather_planes` for `window_topk_phase2` (JAX
+    ``pallas_window.gather_windows``)."""
+    return gather_planes(sw_t, widx, dead, gather_windows_tiled)
 
 
 gather_windows_tiled.launches = 0
@@ -172,7 +238,8 @@ def window_topk_phase2(sw_t: torch.Tensor, wmax: torch.Tensor,
                            wmax, NEG)
     m = min(k + e + int(padded), nw)
     widx = _topk_stable(wmax, m)[1]
-    cand_v = gather_windows_tiled(sw_t, widx.to(torch.int32).contiguous())
+    cand_v = gather_windows_tiled(sw_t, widx.to(torch.int32).contiguous()
+                                  ).reshape(b, m * w)
     lane = torch.arange(w, device=dev)
     if padded:  # pad lanes must not take finalist slots
         gid = (widx[:, :, None] * w + lane).reshape(b, m * w)
@@ -201,4 +268,20 @@ def pallas_masked_topk_scores(scores: torch.Tensor,
         scores = F.pad(scores, (0, cp - c), value=NEG)
     excl_cols, excl_mask = pad_excl(excl_cols, excl_mask, b, scores.device)
     sw_t, wmax = window_scores_from(scores.contiguous())
+    return window_topk_phase2(sw_t, wmax, excl_cols, excl_mask, k, c)
+
+
+def pallas_masked_topk(u: torch.Tensor, items: torch.Tensor,
+                       excl_cols: torch.Tensor | None,
+                       excl_mask: torch.Tensor | None, k: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dot-product scores + exclusion + exact top-k (JAX
+    ``pallas_masked_topk``): the catalog is padded to a `BC` multiple with
+    zero rows, K10 writes the window planes and their maxima, then
+    `window_topk_phase2`. JAX also pads B to its user block and D to 128;
+    K10 takes any B and D, and its zero-filled depth tail adds the same
+    zeros. Returns ``(v, idx int64)``."""
+    b, c = u.shape[0], items.shape[0]
+    excl_cols, excl_mask = pad_excl(excl_cols, excl_mask, b, u.device)
+    sw_t, wmax = score_windows(u, pad_catalog(items))
     return window_topk_phase2(sw_t, wmax, excl_cols, excl_mask, k, c)

@@ -11,6 +11,15 @@
   scores (the peel with K8's window maxima where it is viable);
 - catalog positions are mapped back to global item ids.
 
+JAX's ``Recommender`` has one more branch (``sibrar_tpu/serve.py:296-334``):
+``peel_masked_topk`` (window planes, ``ops/peel.py`` here) when
+``peel_viable(c, k, E, fused=True)`` holds and ``peel_viable(c, k, E)``
+does not. Under JAX's own gates that never happens: the [B, C] path fails
+its gather gate only above m = 1228 selected windows, the planes path needs
+m <= 768. The port's `peel_viable` has no VMEM gates, so its fused and
+unfused forms coincide, and the port takes the [B, C] path wherever JAX
+does (``tests/test_torch_windowed.py`` pins the JAX fact).
+
 Not in this slice: the ``bfloat16`` / ``int8`` serving dtypes,
 ``selection="approx"``, the multi-device path and ``from_run_dir``.
 """
@@ -20,13 +29,13 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from sibrar_tpu_torch import full_f32
 from sibrar_tpu_torch.data.dataset import DeviceData, RecDataset
-from sibrar_tpu_torch.ops.peel import BC, peel_masked_topk_dot, peel_viable
+from sibrar_tpu_torch.ops.peel import peel_masked_topk_dot, peel_viable
 from sibrar_tpu_torch.ops.sparse import DeviceCSR, csr_row_gather
 from sibrar_tpu_torch.ops.topk import masked_topk
+from sibrar_tpu_torch.ops.window import pad_catalog
 
 
 class Recommender:
@@ -65,8 +74,7 @@ class Recommender:
         if self.use_dot:
             self.user_repr_fn, items = dot_parts
             # pad the catalog ONCE to the GEMM's chunk multiple
-            cp = -(-self.c // BC) * BC
-            self.items = F.pad(items, (0, 0, 0, cp - self.c))
+            self.items = pad_catalog(items)
 
     @torch.no_grad()
     def _step(self, u_idxs: torch.Tensor):

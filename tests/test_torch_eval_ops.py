@@ -56,7 +56,9 @@ def test_plain_gather_windows_tiled_matches_pallas():
                                   interpret=True)
     got = twindow.gather_windows_tiled(torch.as_tensor(sw_t),
                                        torch.as_tensor(widx))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.shape == (8, 5, 128)
+    np.testing.assert_array_equal(got.reshape(8, -1).numpy(),
+                                  np.asarray(want))
 
 
 # ----------------------------------------------------------- masked_topk

@@ -51,12 +51,25 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    after the exclusion fill (K13), and holds each list to the
    ``Recommender``'s for the same users: values bit-equal, ids equal up to
    exact ties, no excluded item; then profiles the plane peel's device time
-   per batch with each winner recovery.
+   per batch with each winner recovery;
+7. runs the ported ``tools/`` probes (``sibrar_tpu_torch/tools/``) at
+   their full width: B = 1,024, C = 501,760, D = 256 on the probes'
+   ``default_rng(1)`` draws. Each K14 epilogue variant
+   (``ops/gemm_probe.py``) must hold K2's scores and maxima bit for bit in
+   its layout, K15 (the bf16 pass) must stay within the f32 summation bound
+   of the product of the bf16-rounded operands with the maxima of its own
+   scores, K16 (lane moves by a device offset) and K17 (the masked fill)
+   must equal their plain versions bit for bit (width 200, shifts past n,
+   reads past the end, bool and int8 masks at [16, 168, 128] and [1024,
+   168, 128]); then every mode of the three GEMM probes is timed through
+   their ``run`` entry points (CUDA events; the bisect's kernels under
+   ``torch.profiler``), the roll probes and ``try_mask`` must report ok,
+   and ``try_recover`` must find K11 bit-equal to plain at m = 168.
 
 Each path (default training, spmm training, fit, the four validation
-paths, serving, the five windowed rankers) runs with every launch count set
-to 0 just before it and read just after; each of its kernels must have
-launched, and kernels of other paths must not.
+paths, serving, the five windowed rankers, the probes) runs with every
+launch count set to 0 just before it and read just after; each of its
+kernels must have launched, and kernels of other paths must not.
 
 Output: progress lines, then one JSON line with a row per kernel, the card's
 name and power limit, and as the last line
@@ -146,9 +159,10 @@ LIST_BATCHES = (0, 20, 48)  # validation batches whose lists are checked
 RANKER_BATCHES = 3  # batches of 1,024 test users per windowed ranker
 F32_EPS = 2.0 ** -24
 # H100 SXM peaks (NVIDIA data sheet; at 700 W): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, dense bf16 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 
 def log(*parts) -> None:
@@ -179,11 +193,13 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_ops: float = 0.0) -> dict:
+def bound(n_bytes: float, n_ops: float = 0.0,
+          flops: float = F32_FLOPS) -> dict:
     """The least time the card could take: the larger of the bytes moved
-    over the HBM rate and the operations over the f32 peak."""
+    over the HBM rate and the operations over their type's peak (f32 unless
+    ``flops`` says otherwise)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOPS * 1e3
+    t_ops = n_ops / flops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -1130,6 +1146,219 @@ def check_train_kernels(tower, rows, users, data, dev) -> dict:
     return out
 
 
+def check_probe_kernels(u, items) -> dict:
+    """K14-K17 against K2 and their plain versions: K14 and K15 at the GEMM
+    probes' width (``u [1024, 256]``, ``items [501,760, 256]``), K16 and
+    K17 at the roll and mask probes' shapes (K17 also at [1024, 168, 128])
+    and on a width-200 row, shifts past n and reads past the end; returns
+    name -> row."""
+    import torch
+
+    from sibrar_tpu_torch.ops import gemm_probe, roll, window
+    from sibrar_tpu_torch.ops import mask as mask_ops
+    from sibrar_tpu_torch.tools import probe_pred_input, probe_roll
+
+    out = {}
+    b, d = u.shape
+    c = items.shape[0]
+    nw = c // 128
+    flops = 2 * b * c * d
+    operands = 4 * (b * d + c * d)
+
+    def within(name, got, want, tol) -> float:
+        diff = (got - want).abs()
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"{name}: past the f32 summation bound by "
+                                 f"up to {float((diff - tol).max())}")
+        return float(diff.max())
+
+    def window_max(x):
+        return x.view(b, nw, 128).amax(-1)
+
+    # K2's scores and maxima: the bits every K14 variant must hold; their
+    # distance from the plain f32 product, within D 2^-24 (|u| @ |items|^T)
+    scores, wmax = window.score_wmax(u, items)
+    plain = u @ items.T
+    tol = d * F32_EPS * (u.abs() @ items.abs().T)
+    errs = {"scores": within("K2 scores", scores, plain, tol),
+            "maxima": within("K2 maxima", wmax, window_max(plain),
+                             window_max(tol))}
+    del plain, tol
+    matmul_ms = cuda_ms(lambda: torch.matmul(u, items.T), 10)
+    for variant, fn in gemm_probe.VARIANTS.items():
+        got = fn(u, items)
+        want = gemm_probe.variant_outputs(variant, scores, wmax)
+        if not all(g.shape == w.shape and torch.equal(g, w)
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"K14 {variant}: not K2's scores and "
+                                 "maxima bit for bit in its layout")
+        del got, want
+        stores = ((0 if variant == "noscores" else b * c)
+                  + (0 if variant == "nowmax" else b * nw))
+        out[f"score_{variant}"] = dict(
+            max_abs_err=max(errs["scores"] if variant != "noscores" else 0.0,
+                            errs["maxima"] if variant != "nowmax" else 0.0),
+            ms=cuda_ms(lambda: fn(u, items), 10),
+            plain_ms=cuda_ms(lambda: gemm_probe.score_variant_plain(
+                u, items, variant), 5),
+            library_ms=matmul_ms if variant == "nowmax" else None,
+            **bound(operands + 4 * stores, flops))
+        log(f"K14 score_{variant} B={b} C={c} D={d}: K2's bits in its "
+            f"layout; {out[f'score_{variant}']}")
+    log(f"torch.matmul f32 (the xla mode) {matmul_ms:.4f} ms")
+
+    # K15: within D 2^-24 (|u~| @ |i~|^T) of the f32 product of the rounded
+    # operands u~, i~; its maxima those of its own scores
+    s15, w15 = gemm_probe.score_bf16(u, items)
+    if not torch.equal(w15, window_max(s15).T):
+        raise AssertionError("K15 score_bf16: maxima are not those of its "
+                             "scores")
+    rel_f32 = float((s15 - scores).abs().max() / scores.abs().max())
+    del scores, wmax
+    ps, pw = gemm_probe.score_bf16_plain(u, items)
+    ub, ib = u.bfloat16().float(), items.bfloat16().float()
+    tol = d * F32_EPS * (ub.abs() @ ib.abs().T)
+    err = max(within("K15 score_bf16", s15, ps, tol),
+              within("K15 maxima", w15, pw, window_max(tol).T))
+    del s15, w15, ps, pw, tol, ub, ib
+    u16, i16 = u.bfloat16(), items.bfloat16()
+    lib16 = cuda_ms(lambda: torch.matmul(u16, i16.T), 10)
+    del u16, i16
+    out["score_bf16"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: gemm_probe.score_bf16(u, items),
+                                    10),
+        plain_ms=cuda_ms(lambda: gemm_probe.score_bf16_plain(u, items), 5),
+        library_ms=None,
+        **bound(operands + 4 * (b * c + b * nw), flops, BF16_FLOPS))
+    log(f"K15 score_bf16 B={b} C={c} D={d}: within the f32 summation bound "
+        f"of the rounded operands' product, maxima of its own scores; "
+        f"against K2's f32 scores max |diff| / max |s| = {rel_f32:.3e}; "
+        f"bf16-out torch.matmul of the rounded operands {lib16:.4f} ms "
+        f"(a yardstick, not the same function); {out['score_bf16']}")
+    torch.cuda.empty_cache()
+
+    # K16 on the probes' inputs, at width 200 with shifts past n and below
+    # 0, and reading past the end
+    dev = u.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    probe_x = torch.arange(256, dtype=torch.float32, device=dev)[None]
+    probe_s = torch.tensor([37], **i32)
+    row200 = torch.randn(4, 200, device=dev, generator=gen)
+    errs = {"roll_lanes": max(
+        exact(f"K16 roll_lanes {tuple(x.shape)} shift {int(s)}",
+              [roll.roll_lanes(x, s)], [roll.roll_lanes_plain(x, s)])
+        for x, s in ((probe_x, probe_s), (row200, torch.tensor([237], **i32)),
+                     (row200, torch.tensor([-5], **i32)),
+                     (row200.view(torch.int32), torch.tensor([400], **i32))))}
+    slice_x = torch.arange(512, dtype=torch.float32, device=dev)[None]
+    errs["lane_slice"] = max(
+        exact(f"K16 lane_slice {tuple(x.shape)} start {int(s)}",
+              [roll.lane_slice(x, s)], [roll.lane_slice_plain(x, s)])
+        for x, s in ((slice_x, probe_s), (row200, torch.tensor([150], **i32))))
+    flat = torch.arange(probe_roll.SEGMENT_N, **i32)
+    starts = torch.tensor(probe_roll.SEGMENT_STARTS, **i32)
+    errs["segment_roll"] = max(
+        exact(f"K16 segment_roll starts {st.tolist()}",
+              [roll.segment_roll(flat, st, probe_roll.SEGMENT_LEN)],
+              [roll.segment_roll_plain(flat, st, probe_roll.SEGMENT_LEN)])
+        for st in (starts, torch.tensor([8100, 0, 127, 128, 8191], **i32)))
+    n_seg = starts.numel() * probe_roll.SEGMENT_LEN
+    for name, fn, plain_fn, lib, n_bytes in (
+            ("roll_lanes", lambda: roll.roll_lanes(probe_x, probe_s),
+             lambda: roll.roll_lanes_plain(probe_x, probe_s),
+             lambda: torch.roll(probe_x, -37, dims=1), 2 * 4 * 256 + 4),
+            ("lane_slice", lambda: roll.lane_slice(slice_x, probe_s),
+             lambda: roll.lane_slice_plain(slice_x, probe_s), None,
+             2 * 4 * 128 + 4),
+            ("segment_roll", lambda: roll.segment_roll(
+                flat, starts, probe_roll.SEGMENT_LEN),
+             lambda: roll.segment_roll_plain(flat, starts,
+                                             probe_roll.SEGMENT_LEN), None,
+             4 * (2 * n_seg + starts.numel()))):
+        out[name] = dict(max_abs_err=errs[name], ms=cuda_ms(fn, 100),
+                         plain_ms=cuda_ms(plain_fn, 100),
+                         library_ms=None if lib is None else cuda_ms(lib, 100),
+                         **bound(n_bytes))
+        log(f"K16 {name} at the probe's shape: bit-equal (also width 200, "
+            f"shifts 237, -5, 400, reads past the end); {out[name]}")
+
+    # K17: both mask dtypes at the probe's [16, 168, 128] and at
+    # [1024, 168, 128]; timed there with the bool mask
+    err = 0.0
+    for rows in (16, 1024):
+        for dtype_name in ("bool", "int8"):
+            x, _, m = probe_pred_input.mask_inputs(dtype_name, rows, dev)
+            err = max(err, exact(f"K17 mask_where {dtype_name} [{rows}, 168, "
+                                 f"128]", [mask_ops.mask_where(m, x)],
+                                 [mask_ops.mask_where_plain(m, x)]))
+    int8_ms = cuda_ms(lambda: mask_ops.mask_where(m, x), 50)
+    x, m, _ = probe_pred_input.mask_inputs("bool", 1024, dev)
+    out["mask_where"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: mask_ops.mask_where(m, x), 50),
+        plain_ms=cuda_ms(lambda: mask_ops.mask_where_plain(m, x), 50),
+        library_ms=cuda_ms(lambda: torch.where(m, mask_ops.NEG, x), 50),
+        **bound(x.numel() * (4 + 1 + 4)))
+    log(f"K17 mask_where [1024, 168, 128]: bit-equal with bool and int8 "
+        f"masks (also [16, 168, 128]); int8 mask {int8_ms:.4f} ms; bool "
+        f"mask {out['mask_where']}")
+    return out
+
+
+def probes_phase(kernels, count_path) -> dict:
+    """The ported ``tools/`` probes at their full width: the kernel checks
+    (`check_probe_kernels`), then, counted, every mode of the three GEMM
+    probes through their ``run`` entry points (their JSON records logged),
+    the three roll probes, ``try_mask`` with both dtypes at b = 16 and
+    1,024, and ``try_recover`` (K11 at m = 168, bit-equal to plain). The
+    [1024, 501,760] score tensors are freed at the end."""
+    import torch
+
+    from sibrar_tpu_torch.ops import gemm_probe
+    from sibrar_tpu_torch.tools import (
+        _common,
+        probe_gemm_bisect,
+        probe_gemm_precision,
+        probe_gemm_variants,
+        probe_pred_input,
+        probe_roll,
+    )
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    u, items = _common.inputs(_common.C, torch.device(DEVICE))
+    log(f"probe inputs u [{_common.B}, {_common.D}], items [{_common.C}, "
+        f"{_common.D}] (default_rng(1)): {time.perf_counter() - t0:.2f} s")
+    measured = check_probe_kernels(u, items)
+    torch.cuda.empty_cache()
+
+    reset_counts(kernels)
+    for module in (probe_gemm_variants, probe_gemm_bisect,
+                   probe_gemm_precision):
+        name = module.__name__.rsplit(".", 1)[-1]
+        for mode in module.MODES:
+            log(f"{name}: {json.dumps(module.run(mode, u, items))}")
+    for which, probe in probe_roll.PROBES.items():
+        if probe(DEVICE) is not True:
+            raise AssertionError(f"probe_roll {which}: not ok")
+    for rows in (16, 1024):
+        for dtype_name in ("bool", "int8"):
+            if not probe_pred_input.try_mask(dtype_name, rows, DEVICE):
+                raise AssertionError(f"try_mask {dtype_name} b={rows}: "
+                                     "differs from torch.where")
+    got = probe_pred_input.try_recover(DEVICE)
+    if not (got["lane"] and got["nhit"] and got["wsel"]):
+        raise AssertionError(f"try_recover: K11 differs from plain: {got}")
+    count_path("probes path",
+               [*(f"score_{v}" for v in gemm_probe.VARIANTS),
+                "score_bf16", "roll_lanes", "lane_slice", "segment_roll",
+                "mask_where", "recover_winners"],
+               ("score_wmax",))
+    del u, items
+    torch.cuda.empty_cache()
+    return measured
+
+
 def reset_counts(kernels) -> None:
     for _, fn, _, _ in kernels:
         fn.launches = 0
@@ -1165,29 +1394,19 @@ def profile_window(fn, n: int, unit: str) -> float | None:
     """torch.profiler over ``fn()``, which runs ``n`` units (train steps,
     request batches): device busy time per unit, idle share of the wall
     time, and the kernels by device time. Returns the busy ms per unit
-    (None when the profiler saw no device time)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    (None when the profiler saw no device time). The session is held to
+    one device record per kernel launch (`tools._common.profiled`)."""
+    from sibrar_tpu_torch.tools._common import profiled
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.name] = (by_name.get(evt.name, 0.0)
-                                 + evt.time_range.elapsed_us())
+    by_name, wall_us, idle_s = profiled(fn)
     busy = sum(by_name.values())
     if busy == 0:
         log(f"profile, {n} {unit}: no device time recorded")
         return None
     log(f"profile, {n} {unit}: wall {wall_us / 1e3 / n:.3f} ms per unit, "
         f"device busy {busy / 1e3 / n:.3f} ms per unit, idle share "
-        f"{1 - busy / wall_us:.3f} (wall under the profiler)")
+        f"{1 - busy / wall_us:.3f} (wall under the profiler; the session "
+        f"idled {idle_s} s first)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         log(f"  {us / 1e3 / n:8.4f} ms/unit {100 * us / busy:5.1f} %  "
             f"{name[:110]}")
@@ -1265,9 +1484,10 @@ def main() -> int:
     from sibrar_tpu_torch.data.synthetic import make_onion_scale_splits
     from sibrar_tpu_torch.models import layers
     from sibrar_tpu_torch.models.sbnet import SingleBranchNet
-    from sibrar_tpu_torch.ops import _cuda, dw, peel, score, sparse, spmm
+    from sibrar_tpu_torch.ops import _cuda, dw, gemm_probe, peel, roll, score
     from sibrar_tpu_torch.ops import exact_topk as xtopk
-    from sibrar_tpu_torch.ops import window
+    from sibrar_tpu_torch.ops import mask as mask_ops
+    from sibrar_tpu_torch.ops import sparse, spmm, window
     from sibrar_tpu_torch.serve import Recommender
     from sibrar_tpu_torch.train.scoring import make_score_fn
     from sibrar_tpu_torch.train.trainer import (
@@ -1323,6 +1543,25 @@ def main() -> int:
                ("exact_topk", xtopk.exact_topk,
                 "sibrar_tpu_torch/csrc/exact_topk.cu",
                 "sibrar_tpu/ops/pallas_topk.py:102")]
+    # K14's six epilogues (the bisect probe's kernel bodies), K15-K17
+    kernels += [(f"score_{variant}", gemm_probe.VARIANTS[variant],
+                 "sibrar_tpu_torch/csrc/score_variants.cu",
+                 f"tools/probe_gemm_bisect.py:{line}")
+                for variant, line in (("full", 66), ("noscores", 72),
+                                      ("nowmax", 77), ("wmax_contig", 80),
+                                      ("wmax_T", 86), ("wmax_lanes", 96))]
+    kernels += [("score_bf16", gemm_probe.score_bf16,
+                 "sibrar_tpu_torch/csrc/score_bf16.cu",
+                 "tools/probe_gemm_precision.py:43"),
+                ("roll_lanes", roll.roll_lanes, "sibrar_tpu_torch/csrc/roll.cu",
+                 "tools/probe_roll.py:26"),
+                ("lane_slice", roll.lane_slice, "sibrar_tpu_torch/csrc/roll.cu",
+                 "tools/probe_roll.py:45"),
+                ("segment_roll", roll.segment_roll,
+                 "sibrar_tpu_torch/csrc/roll.cu", "tools/probe_roll.py:64"),
+                ("mask_where", mask_ops.mask_where,
+                 "sibrar_tpu_torch/csrc/mask_where.cu",
+                 "tools/probe_pred_input.py:31")]
     t_start = time.perf_counter()
 
     # ---------------------------------------------------------------- build
@@ -1489,6 +1728,9 @@ def main() -> int:
     windowed_rankers(recs[1024], score_fn, test, data, kernels, count_path,
                      [users_all[start + r * 1024:start + (r + 1) * 1024]
                       for r in range(RANKER_BATCHES)])
+
+    # ------------------ the ported tools/ probes, at their full width
+    measured.update(probes_phase(kernels, count_path))
 
     rows_json = [dict(name=name, route="cuda", source=src, replaces=rep,
                       launches=launches[name], **measured[name])

@@ -33,6 +33,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points: name -> argument types (every entry returns a cudaError_t)
 _SIGNATURES = {
     "sibrar_segment_gather": [_P, _P, _P, _I, _I, _P, _P, _P],
@@ -48,6 +49,12 @@ _SIGNATURES = {
     "sibrar_spmm_bwd": [_P, _P, _P, _I, _I, _I, _P, _P],
     "sibrar_window_max": [_P, _LL, _P, _P],
     "sibrar_window_retile": [_P, _I, _I, _P, _P, _P],
+    "sibrar_score_variant": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "sibrar_score_bf16": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "sibrar_roll_lanes": [_P, _P, _LL, _I, _P, _P],
+    "sibrar_lane_slice": [_P, _P, _LL, _I, _I, _P, _P],
+    "sibrar_segment_roll": [_P, _LL, _P, _I, _I, _P, _P],
+    "sibrar_mask_where": [_P, _P, _F, _LL, _P, _P],
 }
 
 _lib = None

@@ -213,7 +213,11 @@ from sibrar_tpu_torch.train.scoring import make_score_fn
 from sibrar_tpu_torch.data import sampling
 from sibrar_tpu_torch.eval import metrics
 from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
-from sibrar_tpu_torch.ops import dw, peel, spmm, topk, window
+from sibrar_tpu_torch.ops import (dw, gemm_probe, mask, peel, roll, spmm,
+                                  topk, window)
+from sibrar_tpu_torch.tools import (probe_gemm_bisect, probe_gemm_precision,
+                                    probe_gemm_variants, probe_pred_input,
+                                    probe_roll)
 from sibrar_tpu_torch.train import losses
 from sibrar_tpu_torch.train.trainer import (DatasetConfig, EvalConfig,
                                             LearningConfig, Trainer)
@@ -247,6 +251,9 @@ ids = rec.recommend(np.arange(70))
 assert ids.shape == (70, 5)
 excl = test.exclude_matrix().tocsr()
 assert not np.asarray(excl[np.repeat(np.arange(70), 5), ids.reshape(-1)]).any()
+assert probe_roll.PROBES["segment"]("cpu")
+assert probe_pred_input.try_mask("int8", device="cpu")
+probe_gemm_bisect.main(["wmax_lanes", "1024", "--device", "cpu"])
 loaded = [m for m in ("jax", "flax", "optax", "yaml", "pandas", "sibrar_tpu")
           if sys.modules.get(m) is not None]
 assert not loaded, loaded

@@ -22,7 +22,10 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    the test split's m = 160 windows and k = 100 winners; the plane peel's
    corrected-wmax branch and its redo from the planes, bit-equal to the dot
    path's; K13 ``exact_topk`` over the [1,024, 100,352] scores, on short
-   rows, at k = n and on all-ones NaN rows), with times, bounds and
+   rows, at k = n and on all-ones NaN rows), the score kernels off their
+   tiles (K2, K10, K12 and every K14 variant at B = 1, 37 and 1,000 and at
+   D = 254, K2's bits) and K5 off its tiles (R = 2,255, H = 500, C =
+   50,000 and 49,999, within its f32 bound), with times, bounds and
    library yardsticks;
 2. trains with ``Trainer.train_epoch`` (the config's learn / dataset /
    loader settings): a warm-up, then a few hundred timed steps on the
@@ -508,6 +511,7 @@ def check_ranker_kernels(u, items, scores, wmax, m: int) -> dict:
         f"up to {int(got[1].max())}, windows); {out['recover_winners']}")
     del g, dead, sw_t
     check_plane_peel(u, items, gen)
+    check_score_edges(items, gen)
 
     # K12 at window 64 (the JAX default); every other window it admits
     # checked for the maxima of its own scores
@@ -568,6 +572,52 @@ def check_ranker_kernels(u, items, scores, wmax, m: int) -> dict:
         f"{out['exact_topk']}")
     return out
 
+
+
+def check_score_edges(items, gen) -> None:
+    """The score kernels off their tiles: K2, K10, K12 (windows 64 and 512)
+    and the six K14 variants at ragged B (1, 37 and 1,000 users, D = 256;
+    and 37 users at D = 254, where the main loop loads 4-byte words) over
+    ``items``' C rows. K2 within ``1e-5 (1 + max |s|)`` of the plain
+    product, its maxima those of its scores; every other kernel K2's bits in
+    its layout."""
+    import torch
+
+    from sibrar_tpu_torch.ops import gemm_probe, score, window
+
+    dev = items.device
+    c = items.shape[0]
+    nw = c // 128
+    for b, d in ((1, 256), (37, 256), (1000, 256), (37, 254)):
+        u = torch.randn(b, d, device=dev, generator=gen)
+        it = items[:, :d].contiguous()
+        s, wm = window.score_wmax(u, it)
+        ps = u @ it.T
+        err = max_abs_err(s, ps)
+        tol = 1e-5 * (1.0 + ps.abs().max().item())
+        if not (err <= tol and torch.equal(wm, s.view(b, nw, 128).amax(-1))):
+            raise AssertionError(f"K2 at B={b} D={d}: max err {err} > {tol}, "
+                                 "or maxima not those of its scores")
+        sw, wm10 = window.score_windows(u, it)
+        if not (torch.equal(sw, s.view(b, nw, 128).transpose(0, 1))
+                and torch.equal(wm10, wm)):
+            raise AssertionError(f"K10 at B={b} D={d}: not K2's bits")
+        for win in (64, 512):
+            st, wt = score.fused_score_wmax(u, it, window=win)
+            if not (torch.equal(st, s.T) and torch.equal(
+                    wt, st.view(c // win, win, b).amax(1))):
+                raise AssertionError(f"K12 window {win} at B={b} D={d}: not "
+                                     "K2's bits, or maxima not its scores'")
+        for variant, fn in gemm_probe.VARIANTS.items():
+            got = fn(u, it)
+            want = gemm_probe.variant_outputs(variant, s, wm)
+            if not all(g.shape == w.shape and torch.equal(g, w)
+                       for g, w in zip(got, want)):
+                raise AssertionError(f"K14 {variant} at B={b} D={d}: not "
+                                     "K2's bits in its layout")
+        log(f"score kernels at B={b} D={d} C={c}: K2 max abs err {err:.3e} "
+            f"(tol {tol:.3e}); K10, K12 (windows 64, 512) and the six K14 "
+            f"variants K2's bits")
 
 
 def check_plane_peel(u, items, gen) -> None:
@@ -1095,6 +1145,19 @@ def check_train_kernels(tower, rows, users, data, dev) -> dict:
         **bound(4 * (r * n_cols + r * h + n_cols * h), 2 * r * n_cols * h))
     log(f"K5 dw_matmul R={r} C={n_cols} H={h}: max abs err {err:.3e} (within "
         f"2 R eps |vec|.|g| per element); {out['dw_matmul']}")
+    # K5's ragged edges: R and H off its tiles (16-byte copies), and C off
+    # a multiple of 4 too (4-byte copies)
+    for rr, cc, hh in ((r - 1, n_cols, 500), (r - 1, n_cols - 1, 500)):
+        v2, g2 = vec[:rr, :cc].contiguous(), g[:rr, :hh].contiguous()
+        got, want = dw.dw_matmul(v2, g2), dw.dw_matmul_plain(v2, g2)
+        tol = 2 * rr * F32_EPS * (v2.abs().T @ g2.abs())
+        if not bool(((got - want).abs() <= tol).all()):
+            raise AssertionError(f"K5 dw_matmul R={rr} C={cc} H={hh} beyond "
+                                 f"the f32 GEMM bound: max abs err "
+                                 f"{max_abs_err(got, want)}")
+        log(f"K5 dw_matmul R={rr} C={cc} H={hh}: max abs err "
+            f"{max_abs_err(got, want):.3e}, within the bound")
+    del v2, g2, got, want, tol
 
     # K6 / K7 bounds: the function reads the mask everywhere and the column
     # ids at the live slots only

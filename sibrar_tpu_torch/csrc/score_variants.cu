@@ -21,10 +21,12 @@
 //
 // Bound on the H100: f32 FFMA. At the probes' shape (B = 1024, C = 501,760,
 // D = 256) the GEMM is 263 GFLOP (3.93 ms at 67 TFLOP/s) against 2.59 GB
-// moved by full (0.77 ms at 3.35 TB/s). Design: K2's main loop
-// (score_tile.cuh) and K2's reduction, so every variant's scores and maxima
-// are K2's bit for bit; only the stores differ. A block owns one 128-wide
-// window of 64 users; its maxima are 64 consecutive floats of wmax_t.
+// moved by full (0.77 ms at 3.35 TB/s). Design: K2's kernel with other
+// stores: the main loop of score_tile.cuh on a 128 x 128 tile (one window
+// of 128 users), K2's reduction (row_max) and K2's raster (the user tiles
+// of one window on consecutive blocks), so every variant's scores and
+// maxima are K2's bit for bit; only the stores differ. A block's maxima
+// are 128 consecutive floats of wmax_t.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,10 +34,8 @@
 
 namespace {
 
-using sibrar::BK;
-using sibrar::BM;
-using sibrar::BN;
-using sibrar::PAD;
+using sibrar::THREADS;
+using sibrar::TILE;
 
 // what a variant stores
 constexpr int kScores = 1;    // scores [B, C]
@@ -46,41 +46,36 @@ constexpr int kWmaxLanes = 8; // maxima as [B, C / 128]
 template <int kStore>
 __device__ __forceinline__ void variant_tile(
     const float* __restrict__ u, const float* __restrict__ items, int B,
-    int C, int D, float* __restrict__ scores, float* __restrict__ wmax) {
-  __shared__ __align__(16) float As[BK][BM + PAD];
-  __shared__ __align__(16) float Bs[BK][BN + PAD];
-  __shared__ float tile_max[BM];
+    int C, int D, bool vec, float* __restrict__ scores,
+    float* __restrict__ wmax) {
+  __shared__ __align__(16) sibrar::TileSmem sm;
+  __shared__ float tile_max[TILE];
   constexpr bool kMax = (kStore & (kWmaxT | kStagedT | kWmaxLanes)) != 0;
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int row0 = blockIdx.y * BM;
-  const int w = blockIdx.x;
-  float acc[4][8];
-  sibrar::score_tile(u, items, B, D, row0, w * BN, acc, As, Bs);
+  const int n_ut = (B + TILE - 1) / TILE;
+  const int row0 = (blockIdx.x % n_ut) * TILE;
+  const int w = blockIdx.x / n_ut;
+  float acc[8][8];
+  sibrar::score_tile(u, B, items, C, D, vec, row0, w * TILE, acc, sm);
 
-  const int nw = C / BN;
+  const int tx = sibrar::thread_tx();
+  const int ty = sibrar::thread_ty();
+  const int nw = C / TILE;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
     float mx = 0.0f;
-    if constexpr (kMax) {  // K2's reduction, in K2's order
-      mx = acc[i][0];
-#pragma unroll
-      for (int j = 1; j < 8; ++j) mx = fmaxf(mx, acc[i][j]);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    }
-    const int r = row0 + ty * 4 + i;
+    if constexpr (kMax) mx = sibrar::row_max(acc[i]);  // K2's reduction
+    const int t = sibrar::tile_row(ty, i);
+    const int r = row0 + t;
     if constexpr ((kStore & kStagedT) != 0) {
-      if (tx == 0) tile_max[ty * 4 + i] = mx;
+      if (tx == 0) tile_max[t] = mx;
     }
     if (r < B) {
       if constexpr ((kStore & kScores) != 0) {
-        float* srow = scores + static_cast<int64_t>(r) * C + w * BN;
-        *reinterpret_cast<float4*>(srow + tx * 4) =
+        float* srow = scores + static_cast<int64_t>(r) * C + w * TILE;
+        *reinterpret_cast<float4*>(srow + sibrar::tile_col(tx, 0)) =
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        *reinterpret_cast<float4*>(srow + 64 + tx * 4) =
+        *reinterpret_cast<float4*>(srow + sibrar::tile_col(tx, 4)) =
             make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
       }
       if constexpr ((kStore & kWmaxT) != 0) {
@@ -94,16 +89,17 @@ __device__ __forceinline__ void variant_tile(
   if constexpr ((kStore & kStagedT) != 0) {
     __syncthreads();
     const int t = threadIdx.x;
-    if (t < BM && row0 + t < B)
+    if (t < TILE && row0 + t < B)
       wmax[static_cast<int64_t>(w) * B + row0 + t] = tile_max[t];
   }
 }
 
 #define SIBRAR_VARIANT(NAME, STORE)                                          \
-  __global__ void __launch_bounds__(256) NAME(                              \
+  __global__ void __launch_bounds__(THREADS, 2) NAME(                       \
       const float* __restrict__ u, const float* __restrict__ items, int B,  \
-      int C, int D, float* __restrict__ scores, float* __restrict__ wmax) { \
-    variant_tile<STORE>(u, items, B, C, D, scores, wmax);                   \
+      int C, int D, bool vec, float* __restrict__ scores,                   \
+      float* __restrict__ wmax) {                                           \
+    variant_tile<STORE>(u, items, B, C, D, vec, scores, wmax);              \
   }
 
 SIBRAR_VARIANT(score_full_kernel, kScores | kWmaxT)
@@ -114,8 +110,8 @@ SIBRAR_VARIANT(score_wmax_T_kernel, kScores | kStagedT)
 SIBRAR_VARIANT(score_wmax_lanes_kernel, kScores | kWmaxLanes)
 #undef SIBRAR_VARIANT
 
-using Kernel = void (*)(const float*, const float*, int, int, int, float*,
-                        float*);
+using Kernel = void (*)(const float*, const float*, int, int, int, bool,
+                        float*, float*);
 // indexed by the wrapper's variant code (ops/gemm_probe.py VARIANT_CODES)
 constexpr Kernel kKernels[] = {score_full_kernel,      score_noscores_kernel,
                                score_nowmax_kernel,    score_wmax_contig_kernel,
@@ -130,9 +126,11 @@ extern "C" int sibrar_score_variant(const void* u, const void* items, int B,
   if (variant < 0 || variant >= 6) return static_cast<int>(
       cudaErrorInvalidValue);
   if (B == 0 || C == 0) return 0;
-  const dim3 grid(C / BN, (B + BM - 1) / BM);
-  kKernels[variant]<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (B + TILE - 1) / TILE * (C / TILE);
+  kKernels[variant]<<<blocks, THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(u), static_cast<const float*>(items), B, C, D,
-      static_cast<float*>(scores), static_cast<float*>(wmax));
+      sibrar::vec_operands(u, items, D), static_cast<float*>(scores),
+      static_cast<float*>(wmax));
   return static_cast<int>(cudaGetLastError());
 }

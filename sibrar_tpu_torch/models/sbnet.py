@@ -35,7 +35,7 @@ from sibrar_tpu_torch.train.losses import info_nce
 @dataclass
 class SingleBranchFeatureConfig:
     feature_name: str
-    feature_hidden_layers: Optional[list] = None
+    feature_hidden_layers: Optional[list[int]] = None
 
 
 @dataclass
@@ -44,13 +44,13 @@ class SingleBranchNetEntityConfig:
     ``preference_hidden_layers`` (read by no SBNet module) and
     ``sampling_seed`` (draws come from the trainer's generator)."""
 
-    features: list = field(default_factory=list)
-    single_branch_hidden_layers: list = field(default_factory=list)
-    preference_hidden_layers: list = field(default_factory=list)
+    features: list[SingleBranchFeatureConfig] = field(default_factory=list)
+    single_branch_hidden_layers: list[int] = field(default_factory=list)
+    preference_hidden_layers: list[int] = field(default_factory=list)
     common_modality_dim: int = 128
     activation_fn: str = "relu"
-    train_modalities: Optional[list] = None
-    eval_modalities: Optional[list] = None
+    train_modalities: Optional[list[str]] = None
+    eval_modalities: Optional[list[str]] = None
     sampling_seed: int = 42
     single_branch_input_dropout: Optional[float] = None
     aggregation_fn: str = "mean"
@@ -71,8 +71,8 @@ class SBFeatureModuleConfig:
 
     feature_name: str
     embedding_dim: int
-    pre_embedding_layers: Optional[list] = None
-    post_embedding_layers: Optional[list] = None
+    pre_embedding_layers: Optional[list[int]] = None
+    post_embedding_layers: Optional[list[int]] = None
     activation_fn: str = "relu"
 
 
@@ -282,8 +282,7 @@ class SingleBranchNet(RecModel):
                     activation_fn=fc.activation_fn))
 
             ec = config_from_dict(SingleBranchNetEntityConfig, econf)
-            features = [config_from_dict(SingleBranchFeatureConfig, f)
-                        for f in ec.features]
+            features = ec.features
             available = [f.feature_name for f in features]
             train_mods = list(ec.train_modalities or available)
             for m in train_mods:

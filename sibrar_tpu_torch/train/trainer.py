@@ -59,6 +59,30 @@ class LearningConfig:
     sparse_table_min_rows: int = 16384
     epoch_scan_chunk: Optional[int] = 512
 
+    def validate(self) -> None:
+        if self.epoch_scan_chunk is not None and self.epoch_scan_chunk < 1:
+            raise ValueError("epoch_scan_chunk must be >= 1 or null")
+        if self.optimizer not in ("adam", "adagrad", "adamw"):
+            raise ValueError(f"unsupported optimizer {self.optimizer!r}")
+        if self.sparse_tables and self.optimizer != "adam":
+            raise ValueError(
+                "sparse_tables requires optimizer='adam' (SparseAdam "
+                f"semantics); got {self.optimizer!r}")
+        if self.sparse_table_min_rows < 1:
+            raise ValueError("sparse_table_min_rows must be >= 1")
+        if self.moment_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(
+                f"unsupported moment_dtype {self.moment_dtype!r}")
+        if self.rec_loss not in ("bce", "bpr", "sampled_softmax"):
+            raise ValueError(f"unsupported rec_loss {self.rec_loss!r}")
+        if self.loss_aggregator not in ("mean", "sum"):
+            raise ValueError(
+                f"unsupported loss aggregator {self.loss_aggregator!r}")
+        if not self.lr > 0:
+            raise ValueError("lr must be > 0")
+        if self.wd < 0:
+            raise ValueError("wd must be >= 0")
+
 
 @dataclass
 class EvalConfig:
@@ -98,6 +122,13 @@ class DatasetConfig:
     n_negative_samples: int = 4
     negative_sampling_strategy: str = "uniform"
     popularity_squashing_factor: float = 1.0
+
+    def validate(self) -> None:
+        if self.negative_sampling_strategy not in ("uniform",
+                                                   "uniform_recbole",
+                                                   "popular"):
+            raise ValueError(f"unsupported sampling strategy "
+                             f"{self.negative_sampling_strategy!r}")
 
 
 class Optimizer:

@@ -24,9 +24,13 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    path's; K13 ``exact_topk`` over the [1,024, 100,352] scores, on short
    rows, at k = n and on all-ones NaN rows), the score kernels off their
    tiles (K2, K10, K12 and every K14 variant at B = 1, 37 and 1,000 and at
-   D = 254, K2's bits) and K5 off its tiles (R = 2,255, H = 500, C =
-   50,000 and 49,999, within its f32 bound), with times, bounds and
-   library yardsticks;
+   D = 254, K2's bits), K5 off its tiles (R = 2,255, H = 500, C =
+   50,000 and 49,999, within its f32 bound), K4 on edge rows (ties across
+   lanes, +0.0 with -0.0, rows of only -inf, NaN rows, which peel NaN;
+   t = 1, 8 and 128; R off its 32 rows per block) and K6 off the train
+   batch (masks with holes and not packed left, empty rows, a row longer
+   than any run, B = 1; H = 500, 511 and 512), and K6 twice on the train
+   batch, bit for bit, with times, bounds and library yardsticks;
 2. trains with ``Trainer.train_epoch`` (the config's learn / dataset /
    loader settings): a warm-up, then a few hundred timed steps on the
    default first layer (densify + matmul, K5 backward), whose losses must be
@@ -84,6 +88,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -340,9 +345,89 @@ def check_kernels(data, dev, e_val: int) -> dict:
     rows_out["peel_values"] = dict(
         max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
         **bound(b * m * (128 + t + 1) * 4))
+    check_peel_edges(dev)
     rows_out.update(check_eval_kernels(scores, e_val))
     rows_out.update(check_ranker_kernels(u, items, scores, wmax, m))
     return rows_out
+
+
+def same_values(a, b) -> bool:
+    """Equal tensors, NaN in the same places (``torch.equal`` with NaN)."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb) and torch.equal(a[~na], b[~nb]))
+
+
+def check_peel_edges(dev) -> None:
+    """K4 against its plain version on edge rows: ties across lanes, a row
+    of +0.0 and -0.0, rows of only -inf, rows with a NaN (NaN in every
+    round, as JAX's max gives), t = 1, 8 and 128, and row counts that are
+    no multiple of the 32 rows a block takes. Equal values with NaN in the
+    same places; a tie of +0.0 with -0.0 may come out as either zero, as
+    it does from ``torch.amax``."""
+    import torch
+
+    from sibrar_tpu_torch.ops import peel
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for r in (1, 37, 1_005, 163_843):
+        x = torch.randint(-6, 6, (r, 128), device=dev, generator=gen).float()
+        x[torch.rand(r, 128, device=dev, generator=gen) < 0.05] = -math.inf
+        x[r // 2] = torch.where(torch.arange(128, device=dev) % 2 == 0,
+                                0.0, -0.0)
+        if r > 1:
+            x[r // 3] = -math.inf
+            x[r - 1, 77] = math.nan
+            x[r // 4, :64] = torch.randn(64, device=dev, generator=gen)
+            x[r // 4, 5] = math.nan
+        for t in (1, 8, 128):
+            vals, last = peel.peel_values(x, t)
+            pvals, plast = peel.peel_values_plain(x, t)
+            if not (same_values(vals, pvals) and same_values(last, plast)):
+                raise AssertionError(f"K4 peel_values differs from plain on "
+                                     f"edge rows, R={r}, t={t}")
+            if r > 1 and not bool(torch.isnan(vals[r - 1]).all()):
+                raise AssertionError("K4: a NaN row must peel NaN")
+    log("K4 peel_values edges (ties, +-0, -inf rows, NaN rows; t = 1, 8, "
+        "128; R = 1, 37, 1,005, 163,843): equal to plain, NaN rows NaN")
+
+
+def check_spmm_edges(kernel, dev) -> None:
+    """K6 against its plain version off the train batch's shape: masks with
+    holes and not packed left, rows with no live slot, a row longer than
+    any run, B = 1, and H = 500, 511 (4-byte loads) and 512; each within
+    the f32 sum bound ``2 n eps sum |kernel rows|`` per row."""
+    import torch
+
+    from sibrar_tpu_torch.ops import spmm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    n_cols = kernel.shape[0]
+    cases = []
+    for b, length, p in ((64, 300, 0.3), (257, 2_205, 0.01), (1, 3_000, 0.5),
+                         (1, 7, 0.0)):
+        cols = torch.randint(0, n_cols, (b, length), device=dev,
+                             generator=gen, dtype=torch.int32)
+        mask = torch.rand(b, length, device=dev, generator=gen) < p
+        if b > 1:
+            mask[1] = False  # an empty row
+            mask[b // 2] = True  # longer than any run of the batch
+            mask[b // 2, ::7] = False  # with holes
+        cases.append((f"B={b} L={length}", cols, mask))
+    for label, cols, mask in cases:
+        for h in (500, 511, 512):
+            kh = kernel[:, :h].contiguous()
+            got = spmm.spmm_fwd(cols, mask, kh)
+            want = spmm.spmm_fwd_plain(cols, mask, kh)
+            tol = (2 * mask.sum(1, keepdim=True) * F32_EPS
+                   * spmm.spmm_fwd_plain(cols, mask, kh.abs()))
+            if not bool(((got - want).abs() <= tol).all()):
+                raise AssertionError(f"K6 spmm_fwd beyond the f32 sum bound "
+                                     f"at {label} H={h}: max abs err "
+                                     f"{max_abs_err(got, want)}")
+    log("K6 spmm_fwd edges (holes, empty rows, a row longer than any run, "
+        "B = 1; H = 500, 511 and 512): within the f32 sum bound")
 
 
 def check_eval_kernels(scores, e_val: int) -> dict:
@@ -1181,7 +1266,21 @@ def check_train_kernels(tower, rows, users, data, dev) -> dict:
         library_ms=cuda_ms(lambda: F.embedding_bag(
             cols64, kernel, mode="sum", per_sample_weights=weights), 20),
         **bound(index_bytes + distinct * h * 4 + r * h * 4, live * h))
-    log(f"K6 spmm_fwd: max abs err {err:.3e}; {out['spmm_fwd']}")
+    if not torch.equal(got, spmm.spmm_fwd(cols, mask, kernel)):
+        raise AssertionError("K6 spmm_fwd: two calls on the train batch "
+                             "differ")
+    counts = mask.sum(1).float()
+    q50, q90, q99 = counts.quantile(torch.tensor(
+        [0.5, 0.9, 0.99], device=dev)).tolist()
+    long_rows = counts > 32  # the rows K6 spreads over runs
+    log(f"K6 spmm_fwd: max abs err {err:.3e}, the same bits on a second "
+        f"call; rows' live slots: median {q50:.0f}, p90 {q90:.0f}, p99 "
+        f"{q99:.1f}, longest {counts.max().item():.0f}, "
+        f"{int((counts == 0).sum())} empty, {int(long_rows.sum())} above 32 "
+        f"holding {int(counts[long_rows].sum())}; {out['spmm_fwd']}")
+    profile_window(lambda: [spmm.spmm_fwd(cols, mask, kernel)
+                            for _ in range(10)], 10, "K6 calls, train batch")
+    check_spmm_edges(kernel, dev)
 
     # K7: atomics add in any order; per element of dk, two sums of its n
     # contributions differ by at most 2 n eps sum |g|

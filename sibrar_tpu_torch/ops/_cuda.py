@@ -45,7 +45,7 @@ _SIGNATURES = {
     "sibrar_gather_windows": [_P, _LL, _LL, _P, _I, _I, _P, _P, _P],
     "sibrar_peel_values": [_P, _LL, _I, _P, _P, _P],
     "sibrar_dw_matmul": [_P, _P, _I, _I, _I, _P, _P],
-    "sibrar_spmm_fwd": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "sibrar_spmm_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "sibrar_spmm_bwd": [_P, _P, _P, _I, _I, _I, _P, _P],
     "sibrar_window_max": [_P, _LL, _P, _P],
     "sibrar_window_retile": [_P, _I, _I, _P, _P, _P],
@@ -56,6 +56,8 @@ _SIGNATURES = {
     "sibrar_segment_roll": [_P, _LL, _P, _I, _I, _P, _P],
     "sibrar_mask_where": [_P, _P, _F, _LL, _P, _P],
 }
+# Size queries: name -> argument types (each returns a byte count)
+_QUERIES = {"sibrar_spmm_fwd_workspace": [_I, _I, _I]}
 
 _lib = None
 build_info: dict = {}
@@ -130,6 +132,10 @@ def build() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in _QUERIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     lib.sibrar_error_string.argtypes = [ctypes.c_int]
     lib.sibrar_error_string.restype = ctypes.c_char_p
     build_info.update(seconds=time.perf_counter() - t0, ptxas=log,
@@ -145,6 +151,11 @@ def launch(name: str, *args) -> None:
     if err != 0:
         text = lib.sibrar_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({text})")
+
+
+def query(name: str, *args) -> int:
+    """Call size query `name` (no stream, no launch)."""
+    return int(getattr(build(), name)(*args))
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

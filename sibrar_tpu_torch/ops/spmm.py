@@ -47,7 +47,11 @@ def spmm_fwd_plain(cols: torch.Tensor, mask: torch.Tensor,
 
 def spmm_fwd(cols: torch.Tensor, mask: torch.Tensor,
              kernel: torch.Tensor) -> torch.Tensor:
-    """K6: the masked sum of kernel rows, ``[B, H]`` f32."""
+    """K6: the masked sum of kernel rows, ``[B, H]`` f32, the same bits on
+    every call (a row of more than 32 live slots sums its runs apart, so
+    its last bits may differ from a serial sum; see
+    ``csrc/spmm_onehot.cu``). Takes a workspace fixed by B, L and H: the
+    packed live ids, the plan and the partial sums."""
     if not _cuda.use_kernel(cols, mask, kernel):
         return spmm_fwd_plain(cols, mask, kernel)
     _check(cols, mask, kernel, "spmm_fwd")
@@ -56,8 +60,11 @@ def spmm_fwd(cols: torch.Tensor, mask: torch.Tensor,
     b, length = cols.shape
     h = kernel.shape[1]
     out = torch.empty((b, h), dtype=torch.float32, device=kernel.device)
+    work = torch.empty(_cuda.query("sibrar_spmm_fwd_workspace", b, length, h),
+                       dtype=torch.uint8, device=kernel.device)
     _cuda.launch("sibrar_spmm_fwd", cols.data_ptr(), mask.data_ptr(),
-                 kernel.data_ptr(), b, length, h, out.data_ptr())
+                 kernel.data_ptr(), b, length, h, out.data_ptr(),
+                 work.data_ptr())
     spmm_fwd.launches += 1
     return out
 

@@ -1,27 +1,43 @@
-"""Time the score GEMM (K2, K14 ``full``) and K5 ``dw_matmul`` as built
-from several kernel source trees, in turns on one card.
+"""Time the score GEMM (K2, K14 ``full``), K5 ``dw_matmul``, K6
+``spmm_fwd`` and K4 ``peel_values`` as built from several kernel source
+trees, in turns on one card.
 
     python3 -m sibrar_tpu_torch.tools.compare_builds DIR [DIR ...]
+        [--only NAME ...]
 
 Each DIR holds kernel sources laid out as ``sibrar_tpu_torch/csrc/`` (any
-of ``dw_matmul.cu``, ``score_wmax.cu``, ``score_variants.cu`` with the
-headers they include, and ``error_string.cu``), for example the port's own
-``csrc`` and an unpacked older commit's. Each tree is built with the
-port's nvcc flags into its own library under ``sibrar_tpu_torch/_build/``;
-its kernels are checked against the plain versions (K2 and K14 within
-``1e-5 (1 + max |s|)``, K5 within ``2 R eps |vec| . |g|`` per element), then
-timed with CUDA events at the main paths' shapes in the order DIR1, DIR2,
-..., DIRn, DIRn, ..., DIR1, so a drift of the card's clock cancels in each
-tree's mean. One PyTorch call for the same product is timed beside them.
-Prints one JSON line: the card, then per kernel each tree's times; each
-build's registers and spills (``-Xptxas -v``) go to stderr.
+of ``dw_matmul.cu``, ``score_wmax.cu``, ``score_variants.cu``,
+``spmm_onehot.cu``, ``peel_values.cu`` with the headers they include, and
+``error_string.cu``), for example the port's own ``csrc`` and an unpacked
+older commit's. Each tree is built with the port's nvcc flags into its own
+library under ``sibrar_tpu_torch/_build/``; its kernels are checked against
+the plain versions (K2 and K14 within ``1e-5 (1 + max |s|)``, K5 within
+``2 R eps |vec| . |g|`` per element, K6 within ``2 n eps`` times the sum of
+the row's n |kernel rows| and the same bits on a second call, K4 equal with
+NaN in the same places), then timed with CUDA events at the main paths'
+shapes in the order DIR1, DIR2, ..., DIRn, DIRn, ..., DIR1, so a drift of
+the card's clock cancels in each tree's mean. One PyTorch call for the same
+function is timed beside them where one exists. Prints one JSON line: the
+card, then per kernel each tree's times; each build's registers and spills
+(``-Xptxas -v``) go to stderr, and with ``--sass`` each kernel function's
+static SASS instruction count by opcode (``cuobjdump -sass``) too.
+
+K6's input is the train step's own batch: ``chip_smoke.py``'s SBNet over
+``make_onion_scale_splits(seed=7)`` and its ``first_layer_rows`` (2,256 rows
+of the item interaction CSR, L = 2,205), so the tool runs from the
+repository's root. ``spmm_fwd_cut64`` is that batch with every row cut to
+its first 64 live slots. K4's input is the serving path's: the windows of
+the K2-shaped scores (B = 1,024, C = 100,352) with the 160 largest maxima,
+163,840 rows, t = 8.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import hashlib
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -34,17 +50,39 @@ from sibrar_tpu_torch.tools._common import cuda_ms
 
 F32_EPS = 2.0 ** -24
 SOURCES = ("dw_matmul.cu", "score_wmax.cu", "score_variants.cu",
-           "error_string.cu")
+           "spmm_onehot.cu", "peel_values.cu", "error_string.cu")
 # the main paths' shapes: K5 on the train step's item rows (R x C users x
 # H), K2 at serving and validation width, K14 full at the probes' catalog
 DW_SHAPE = (2256, 50_000, 512)
 SCORE_SHAPE = (1024, 100_352, 256)
 PROBE_C = 501_760
+# one SASS instruction: its address, an optional predicate, the opcode
+SASS_LINE = re.compile(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_]*)")
 
 
-def build_tree(tree: Path) -> ctypes.CDLL:
+def sass_counts(obj: Path) -> dict:
+    """Each kernel function of `obj`: its static SASS instructions by opcode
+    (predicates and modifiers dropped)."""
+    tool = Path(_cuda._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(obj)], capture_output=True,
+                          text=True, check=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            fn = out.setdefault(m.group(1), collections.Counter())
+            continue
+        m = SASS_LINE.match(line)
+        if m and fn is not None:
+            fn[m.group(1)] += 1
+    return out
+
+
+def build_tree(tree: Path, sass: bool = False) -> ctypes.CDLL:
     """Compile the sources of `tree` (one nvcc each, in parallel) and link
-    them into a library keyed by their bytes; returns it loaded."""
+    them into a library keyed by their bytes; returns it loaded. With
+    `sass`, prints each kernel's SASS opcode counts to stderr."""
     srcs = [tree / s for s in SOURCES if (tree / s).exists()]
     headers = b"".join(h.read_bytes() for h in sorted(tree.glob("*.cuh")))
     key = hashlib.sha256(b"".join(s.read_bytes() for s in srcs) + headers
@@ -58,6 +96,11 @@ def build_tree(tree: Path) -> ctypes.CDLL:
     for line in log.splitlines():  # registers and spills, to stderr
         if any(w in line for w in ("Compiling entry", "Used", "spill")):
             print(f"{tree}: {line.strip()}", file=sys.stderr)
+    for obj in objs if sass else ():
+        for fn, ops in sass_counts(obj).items():
+            top = ", ".join(f"{op} {n}" for op, n in ops.most_common(10))
+            print(f"{tree}: {fn}: {sum(ops.values())} instructions; {top}",
+                  file=sys.stderr)
     lib_path = out / "libcompare.so"
     if not lib_path.exists():
         _cuda._run([_cuda._start([_cuda._nvcc(), *_cuda.ARCH, "-shared",
@@ -67,6 +110,11 @@ def build_tree(tree: Path) -> ctypes.CDLL:
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
+    if hasattr(lib, "sibrar_spmm_fwd_workspace"):
+        lib.sibrar_spmm_fwd_workspace.restype = ctypes.c_longlong
+    elif hasattr(lib, "sibrar_spmm_fwd"):  # older trees: no workspace
+        lib.sibrar_spmm_fwd.argtypes = _cuda._SIGNATURES[
+            "sibrar_spmm_fwd"][:-1]
     return lib
 
 
@@ -76,11 +124,129 @@ def call(lib, name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}")
 
 
-def cases(dev) -> dict:
+def train_batch(dev):
+    """The train step's item rows as ``chip_smoke.py`` draws them:
+    ``(cols, mask, kernel)`` of the SBNet item interaction tower."""
+    sys.path.insert(0, str(Path.cwd()))
+    import chip_smoke as cs
+    from sibrar_tpu_torch.data.dataset import make_splits
+    from sibrar_tpu_torch.data.synthetic import make_onion_scale_splits
+    from sibrar_tpu_torch.models.sbnet import SingleBranchNet
+    from sibrar_tpu_torch.ops.sparse import csr_row_gather
+
+    train = make_splits(make_onion_scale_splits(seed=7))["train"]
+    tdata = train.to_device(dev)
+    model = SingleBranchNet.build_from_conf(cs.MODEL_CONF, train, tdata,
+                                            seed=cs.SEED)
+    item = model.item_module
+    tower = item.modalities[item.modality_names.index("interactions")]
+    _, rows = cs.first_layer_rows(tdata, model, torch.Generator(
+        device=dev).manual_seed(cs.SEED + 2), train.n_items_in_split)
+    cols, mask = csr_row_gather(tower.csr, rows)
+    return cols, mask, tower.kernel.detach().contiguous()
+
+
+def spmm_cases(dev) -> dict:
+    """K6 on the train batch, whole and cut to 64 live slots per row."""
+    import torch.nn.functional as F
+
+    from sibrar_tpu_torch.ops import spmm
+
+    cols, mask, kernel = train_batch(dev)
+    b, length = cols.shape
+    h = kernel.shape[1]
+    out = {}
+    for name, m in (("spmm_fwd", mask),
+                    ("spmm_fwd_cut64", mask & (mask.cumsum(1) <= 64))):
+        res = torch.empty(b, h, device=dev)
+        work = {}
+
+        def step(lib, m=m, res=res, work=work):
+            if not hasattr(lib, "sibrar_spmm_fwd_workspace"):
+                call(lib, "sibrar_spmm_fwd", cols.data_ptr(), m.data_ptr(),
+                     kernel.data_ptr(), b, length, h, res.data_ptr())
+                return
+            if id(lib) not in work:
+                work[id(lib)] = torch.empty(
+                    lib.sibrar_spmm_fwd_workspace(b, length, h),
+                    dtype=torch.uint8, device=dev)
+            call(lib, "sibrar_spmm_fwd", cols.data_ptr(), m.data_ptr(),
+                 kernel.data_ptr(), b, length, h, res.data_ptr(),
+                 work[id(lib)].data_ptr())
+
+        def check(lib, step=step, m=m, res=res, name=name):
+            step(lib)
+            first = res.clone()
+            step(lib)
+            want = spmm.spmm_fwd_plain(cols, m, kernel)
+            tol = (2 * m.sum(1, keepdim=True) * F32_EPS
+                   * spmm.spmm_fwd_plain(cols, m, kernel.abs()))
+            if not (torch.equal(first, res)
+                    and bool(((res - want).abs() <= tol).all())):
+                raise AssertionError(f"{name}: beyond the f32 sum bound or "
+                                     "not the same bits on a second call")
+        weights, cols64 = m.float(), cols.long()
+        out[name] = ("sibrar_spmm_fwd", step, check, 20,
+                     lambda cols64=cols64, weights=weights: F.embedding_bag(
+                         cols64, kernel, mode="sum",
+                         per_sample_weights=weights))
+    return out
+
+
+def peel_case(dev, u, items) -> dict:
+    """K4 on the serving path's gathered windows."""
+    from sibrar_tpu_torch.ops import peel
+
+    b, t, m = u.shape[0], 8, 160
+    scores = u @ items.T
+    wmax = scores.view(b, -1, 128).amax(-1)
+    widx = wmax.topk(m, dim=1).indices.sort(dim=1).values
+    x = scores.view(b, -1, 128).gather(
+        1, widx[:, :, None].expand(-1, -1, 128)).reshape(b * m, 128)
+    del scores
+    r = x.shape[0]
+    vals = torch.empty(r, t, device=dev)
+    last = torch.empty(r, device=dev)
+
+    def step(lib):
+        call(lib, "sibrar_peel_values", x.data_ptr(), r, t, vals.data_ptr(),
+             last.data_ptr())
+
+    def check(lib):
+        step(lib)
+        want, wlast = peel.peel_values_plain(x, t)
+        if not (torch.equal(vals, want) and torch.equal(last, wlast)):
+            raise AssertionError("peel_values differs from plain")
+    return {"peel_values": ("sibrar_peel_values", step, check, 50, None)}
+
+
+def cases(dev, only=None) -> dict:
     """name -> (C entry, step(lib), check(lib), iters, library call): one
     input set per kernel, shared by every tree. ``check`` raises where the
-    tree's kernel disagrees with the plain version."""
+    tree's kernel disagrees with the plain version. ``only`` names the
+    kernels to build inputs for (all by default)."""
     gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    want = set(only or ("dw_matmul", "score_wmax", "score_full", "spmm_fwd",
+                        "spmm_fwd_cut64", "peel_values"))
+    if want & {"spmm_fwd", "spmm_fwd_cut64"}:
+        out.update(spmm_cases(dev))
+    if "dw_matmul" in want:
+        out.update(dw_case(dev, gen))
+    b, _, d = SCORE_SHAPE
+    u = torch.randn(b, d, device=dev, generator=gen)
+    if want & {"score_wmax", "score_full"}:
+        out.update(score_cases(dev, gen, u))
+    if "peel_values" in want:
+        items = torch.randn(SCORE_SHAPE[1], d, device=dev,
+                            generator=gen) / d ** 0.5
+        out.update(peel_case(dev, u, items))
+        del items
+    return {k: v for k, v in out.items() if k in want}
+
+
+def dw_case(dev, gen) -> dict:
+    """K5 at the train step's shape."""
     out = {}
     r, n_cols, h = DW_SHAPE
     vec = (torch.rand(r, n_cols, device=dev, generator=gen) < 2.5e-4).float()
@@ -98,8 +264,13 @@ def cases(dev) -> dict:
             raise AssertionError("dw_matmul beyond the f32 GEMM bound")
     out["dw_matmul"] = ("sibrar_dw_matmul", dw_step, dw_check, 10,
                         lambda: torch.matmul(vec.T, g))
+    return out
+
+
+def score_cases(dev, gen, u) -> dict:
+    """K2 at serving width and K14 ``full`` at the probes' catalog."""
+    out = {}
     b, _, d = SCORE_SHAPE
-    u = torch.randn(b, d, device=dev, generator=gen)
     for name, entry, c in (("score_wmax", "sibrar_score_wmax",
                             SCORE_SHAPE[1]),
                            ("score_full", "sibrar_score_variant", PROBE_C)):
@@ -132,17 +303,22 @@ def cases(dev) -> dict:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("trees", nargs="+", type=Path)
+    p.add_argument("--only", nargs="+", default=None,
+                   help="kernels to compare (default: all)")
+    p.add_argument("--sass", action="store_true",
+                   help="print each kernel's SASS opcode counts to stderr")
     args = p.parse_args(argv)
     full_f32()
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    libs = [build_tree(t) for t in args.trees]
+    libs = [build_tree(t, args.sass) for t in args.trees]
     order = list(range(len(libs))) + list(reversed(range(len(libs))))
     result = {"card": card, "trees": [str(t) for t in args.trees],
               "order": order, "kernels": {}}
-    for name, (entry, step, check, iters, lib_call) in cases(dev).items():
+    for name, (entry, step, check, iters, lib_call) in cases(
+            dev, args.only).items():
         have = [hasattr(lib, entry) for lib in libs]
         for lib, ok in zip(libs, have):
             if ok:
@@ -152,7 +328,8 @@ def main(argv=None) -> None:
             if have[i]:
                 times[i].append(cuda_ms(lambda: step(libs[i]), iters, dev))
         result["kernels"][name] = {
-            "ms": times, "library_ms": cuda_ms(lib_call, iters, dev)}
+            "ms": times, "library_ms": None if lib_call is None
+            else cuda_ms(lib_call, iters, dev)}
     print(json.dumps(result))
 
 

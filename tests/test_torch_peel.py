@@ -83,6 +83,51 @@ def test_plain_peel_values_grouped_matches_pallas():
     np.testing.assert_array_equal(tlast.numpy(), np.asarray(jlast))
 
 
+
+def _edge_rows(case, shape):
+    """Tied rows with a NaN row or rows of +0.0 and -0.0 planted."""
+    rng = np.random.default_rng(5)
+    x = _tied_rows(rng, shape).reshape(-1, 128)
+    if case == "nan_row":
+        x[3, 17] = np.nan  # one NaN among tied values
+        x[6] = -np.inf
+        x[6, 100] = np.nan  # a NaN among -inf
+    else:  # signed_zero
+        x[3] = np.where(np.arange(128) % 2 == 0, 0.0, -0.0)
+        x[6, :64] = -0.0  # -0.0 tied with +0.0 below larger values
+        x[6, 64:] = np.where(np.arange(64) % 3 == 0, 0.0, 2.0)
+    return x.reshape(shape)
+
+
+@pytest.mark.parametrize("case", ["nan_row", "signed_zero"])
+def test_plain_peel_values_edge_rows_match_pallas(case):
+    """The rule K4 is held to: a row with a NaN peels NaN in every round
+    (and in ``last``); +0.0 and -0.0 clear together."""
+    x = _edge_rows(case, (37, 128))
+    tv, tlast = tpeel.peel_values(torch.as_tensor(x), 8)
+    jv = jpeel.peel_values(jnp.asarray(x), 8, rows_per_block=16,
+                           interpret=True)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tlast.numpy(), np.asarray(jv)[:, -1])
+    if case == "nan_row":
+        assert np.isnan(tv.numpy()[[3, 6]]).all()
+        assert not np.isnan(np.delete(tv.numpy(), [3, 6], axis=0)).any()
+    else:
+        assert (tv.numpy()[3] == [0.0] + [-np.inf] * 7).all()
+        assert (tv.numpy()[6][:2] == [2.0, 0.0]).all()
+
+
+@pytest.mark.parametrize("case", ["nan_row", "signed_zero"])
+def test_plain_peel_values_grouped_edge_rows_match_pallas(case):
+    g = _edge_rows(case, (16, 8, 128))
+    jv, jlast = jpeel.peel_values_grouped(jnp.asarray(g), 8, interpret=True)
+    tv, tlast = tpeel.peel_values_grouped(torch.as_tensor(g), 8)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tlast.numpy(), np.asarray(jlast))
+    if case == "nan_row":  # rows 3 and 6 are user 0's windows 3 and 6
+        assert np.isnan(tlast.numpy()[0, [3, 6]]).all()
+
+
 def _dense_oracle(scores, cols, mask, k, c_real):
     s = scores.astype(np.float64).copy()
     for b in range(s.shape[0]):

@@ -22,20 +22,29 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    the test split's m = 160 windows and k = 100 winners; the plane peel's
    corrected-wmax branch and its redo from the planes, bit-equal to the dot
    path's; K13 ``exact_topk`` over the [1,024, 100,352] scores, on short
-   rows, at k = n and on all-ones NaN rows), the score kernels off their
-   tiles (K2, K10, K12 and every K14 variant at B = 1, 37 and 1,000 and at
-   D = 254, K2's bits), K5 off its tiles (R = 2,255, H = 500, C =
+   rows, at k = n, on all-ones NaN rows, on rows not 16-byte aligned, on
+   NaN scores and on the rows of its exact path: constant, -inf, +-0.0,
+   3,000 copies of the k-th value, k = n = 5,000), the score kernels off
+   their tiles (K2, K10, K12 and every K14 variant at B = 1, 37 and 1,000
+   and at D = 254, K2's bits), JAX's NaN rule in every maximum (a NaN item
+   and a NaN user through K2, K10, K12, K14 and K15: NaN maxima where the
+   plain versions have them; K8 and K9 on NaN lanes and signed zeros:
+   their plain versions' bits), K5 off its tiles (R = 2,255, H = 500, C =
    50,000 and 49,999, within its f32 bound), K4 on edge rows (ties across
    lanes, +0.0 with -0.0, rows of only -inf, NaN rows, which peel NaN;
    t = 1, 8 and 128; R off its 32 rows per block) and K6 off the train
    batch (masks with holes and not packed left, empty rows, a row longer
    than any run, B = 1; H = 500, 511 and 512), and K6 twice on the train
-   batch, bit for bit, with times, bounds and library yardsticks;
+   batch, bit for bit; K7 bit-equal to its plain version run on the CPU
+   (JAX's order of the sums) on the train batch and on edge batches (B =
+   1 and 2,255, no live slot, a column in every row once and three times,
+   H = 500, 511 and 512, unhit rows +0.0), twice bit for bit; with times,
+   bounds and library yardsticks;
 2. trains with ``Trainer.train_epoch`` (the config's learn / dataset /
    loader settings): a warm-up, then a few hundred timed steps on the
    default first layer (densify + matmul, K5 backward), whose losses must be
    finite and fall; a profiled window; then a few dozen steps with
-   ``INTERACTION_SPMM`` on (K6 / K7);
+   ``INTERACTION_SPMM`` on (K6 / K7) and a profiled window of them;
 3. times the item tower's first layer and the catalog encode both ways;
 4. from the default training's weights, runs ``Trainer.fit`` (the YAML's
    learn / eval settings, 2 epochs of 60 steps, each validation over the
@@ -359,6 +368,16 @@ def same_values(a, b) -> bool:
     return bool(torch.equal(na, nb) and torch.equal(a[~na], b[~nb]))
 
 
+def same_bits(a, b) -> bool:
+    """f32 tensors with NaN in the same places and the same bits elsewhere
+    (so +0.0 is not -0.0)."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb) and torch.equal(
+        a[~na].view(torch.int32), b[~nb].view(torch.int32)))
+
+
 def check_peel_edges(dev) -> None:
     """K4 against its plain version on edge rows: ties across lanes, a row
     of +0.0 and -0.0, rows of only -inf, rows with a NaN (NaN in every
@@ -597,6 +616,7 @@ def check_ranker_kernels(u, items, scores, wmax, m: int) -> dict:
     del g, dead, sw_t
     check_plane_peel(u, items, gen)
     check_score_edges(items, gen)
+    check_nan_maxima(items, gen)
 
     # K12 at window 64 (the JAX default); every other window it admits
     # checked for the maxima of its own scores
@@ -627,23 +647,49 @@ def check_ranker_kernels(u, items, scores, wmax, m: int) -> dict:
 
     # K13 over the K2 scores; on rows with fewer than k values above -inf
     # (+0.0 and -0.0 among them); where JAX hands the row to lax.top_k (n
-    # below its min_n = 8,192, k = n); and at k = n on rows where the NaN of
-    # all ones, whose key is K13's "used up" 0, outlasts the other lanes.
-    # Values are compared as bits (NaN != NaN).
+    # below its min_n = 8,192, k = n); at k = n on rows where the NaN of
+    # all ones (key 0) outlasts the other lanes; on rows of n = 100,001 and
+    # 1,001 (rows not 16-byte aligned); on rows with a NaN score; and on rows
+    # whose threshold passes more than the kernel's 2,048 buffered elements,
+    # its exact path: constant rows, rows of -inf, 3,000 copies of the k-th
+    # value over many windows, k = n = 5,000 (batches of 2,048). Values are
+    # compared as bits (NaN != NaN).
     short = torch.full((8, c), float("-inf"), device=dev)
     short[:, [130, 5, 7]] = torch.tensor([3.0, 0.0, -0.0], device=dev)
     narrow = torch.randn(8, 1000, device=dev, generator=gen)
     nan_rows = torch.randn(4, 300, device=dev, generator=gen)
     bits = nan_rows.view(torch.int32)
     bits[0, 200:], bits[1, ::3], bits[2] = -1, -1, -1  # 0xFFFFFFFF
-    for rows, k in ((scores, K), (short, K), (narrow, K), (narrow, 1000),
-                    (nan_rows, 300)):
+    odd = torch.randn(9, 1001, device=dev, generator=gen)
+    odd_wide = torch.randn(4, 100_001, device=dev, generator=gen)
+    nan_scores = scores[:8].clone()
+    nan_scores[0, 777], nan_scores[1, ::5000] = math.nan, math.nan
+    nan_scores[2] = math.nan
+    flat = torch.full((4, c), 1.5, device=dev)
+    flat[1] = float("-inf")
+    flat[2] = -0.0
+    flat[3, ::2] = 0.0
+    copies = torch.randn(4, c, device=dev, generator=gen) - 10.0
+    for r in range(4):
+        pos = torch.randperm(c, device=dev, generator=gen)
+        copies[r, pos[:3_000]] = 2.0
+        copies[r, pos[3_000:3_000 + K // 2]] = 5.0
+    wide_k = torch.randn(3, 5_000, device=dev, generator=gen)
+    for rows, k, exact_path in (
+            (scores, K, False), (short, K, True), (narrow, K, False),
+            (narrow, 1000, False), (nan_rows, 300, False),
+            (odd_wide, K, False), (odd, 1001, False), (nan_scores, K, False),
+            (flat, K, True),
+            (copies, K, True), (wide_k, 5_000, True)):
         gv, gi = xtopk.exact_topk(rows, k)
         pv, pi = xtopk.exact_topk_plain(rows, k)
         exact(f"K13 exact_topk [{rows.shape[0]}, {rows.shape[1]}] k={k}",
               [gv.view(torch.int32), gi], [pv.view(torch.int32), pi])
         if not all(len(set(r)) == k for r in gi.tolist()):
             raise AssertionError("K13 exact_topk repeated an index")
+        if exact_path and not bool((topk_passing(rows, k) > 2_048).all()):
+            raise AssertionError("K13 edge rows meant for the exact path "
+                                 "pass too few elements")
     out["exact_topk"] = dict(
         max_abs_err=max_abs_err(xtopk.exact_topk(scores, K)[0],
                                 xtopk.exact_topk_plain(scores, K)[0]),
@@ -653,10 +699,122 @@ def check_ranker_kernels(u, items, scores, wmax, m: int) -> dict:
         **bound(4 * b * c + 12 * b * K))
     log(f"K13 exact_topk [{b}, {c}] k={K}: bit-equal values and indices "
         f"(also on rows with 3 live values, on [8, 1000] at k = {K} and k = "
-        f"n, and on [4, 300] rows of all-ones NaN at k = n); "
+        f"n, on [4, 300] rows of all-ones NaN at k = n, on [4, 100,001] "
+        f"and [9, 1,001] rows, "
+        f"on rows with NaN scores, and on the exact path's rows: constant, "
+        f"-inf, +-0.0, 3,000 copies of the k-th value, k = n = 5,000); "
         f"{out['exact_topk']}")
     return out
 
+
+def topk_passing(rows, k: int):
+    """Per row, the elements K13's threshold passes: those whose total-order
+    key is at least the k-th largest 128-window maximum key (windows from
+    a 16-byte aligned row start; every element when k exceeds the
+    windows). More than 2,048 sends the row to the kernel's exact path."""
+    import torch
+    import torch.nn.functional as F
+
+    b, n = rows.shape
+    bits = rows.contiguous().view(torch.int32)
+    keys = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    low = torch.iinfo(torch.int64).min
+    wkey = F.pad(keys, (0, -n % 128), value=low).view(b, -1, 128).amax(-1)
+    if k > wkey.shape[1]:
+        return torch.full((b,), n, device=rows.device)
+    t = wkey.topk(k, dim=1).values[:, -1:]
+    return (keys >= t).sum(1)
+
+
+def check_nan_maxima(items, gen) -> None:
+    """JAX's NaN rule in every maximum-producing kernel: a NaN item (one
+    catalog row) and a NaN user (one ``u`` row) at B = 37, C = 8,192. K2,
+    K12 (window 64) and K15 give NaN maxima exactly where their plain
+    versions do (the item's window for every user, every window of the
+    user), each the maxima of its own scores; K10, K12 and the six K14
+    variants hold K2's bits, NaN included. K8 and K9 over a score matrix
+    with NaN lanes, windows of +0.0 and -0.0 in several orders and windows
+    of -inf: their plain versions' bits (JAX's max: +0.0 where a +0.0 is
+    among the zeros) with NaN in the same places."""
+    import torch
+
+    from sibrar_tpu_torch.ops import gemm_probe, peel, score, window
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    def nan_like_plain(name, got, want, own):
+        if not (torch.equal(torch.isnan(got), torch.isnan(want))
+                and same_values(got, own)):
+            raise AssertionError(f"{name}: NaN maxima not where its plain "
+                                 "version's are, or maxima not its scores'")
+
+    dev = items.device
+    b, c = 37, 8_192
+    nw = c // 128
+    it = items[:c].clone()
+    it[300, 5] = math.nan  # window 2 of every user
+    u = torch.randn(b, it.shape[1], device=dev, generator=gen)
+    u[3, 7] = math.nan  # every window of user 3
+    s, wm = window.score_wmax(u, it)
+    want = torch.zeros(b, nw, dtype=torch.bool, device=dev)
+    want[:, 2], want[3] = True, True
+    if not torch.equal(torch.isnan(wm), want):
+        raise AssertionError("K2: NaN maxima not at the NaN item's window "
+                             "and the NaN user's row")
+    nan_like_plain("K2", wm, window.score_wmax_plain(u, it)[1],
+                   s.view(b, nw, 128).amax(-1))
+    sw, wm10 = window.score_windows(u, it)
+    if not (torch.equal(bits(sw), bits(s.view(b, nw, 128).transpose(0, 1)))
+            and torch.equal(bits(wm10), bits(wm))):
+        raise AssertionError("K10 with NaN: not K2's bits")
+    st, wt = score.fused_score_wmax(u, it, window=64)
+    if not torch.equal(bits(st), bits(s.T)):
+        raise AssertionError("K12 with NaN: scores not K2's bits")
+    nan_like_plain("K12", wt, score.fused_score_wmax_plain(u, it, 64)[1],
+                   st.view(c // 64, 64, b).amax(1))
+    for variant, fn in gemm_probe.VARIANTS.items():
+        got = fn(u, it)
+        ref = gemm_probe.variant_outputs(variant, s, wm)
+        if not all(g.shape == w.shape and torch.equal(bits(g), bits(w))
+                   for g, w in zip(got, ref)):
+            raise AssertionError(f"K14 {variant} with NaN: not K2's bits")
+    s15, w15 = gemm_probe.score_bf16(u, it)
+    nan_like_plain("K15", w15, gemm_probe.score_bf16_plain(u, it)[1],
+                   s15.view(b, nw, 128).amax(-1).T)
+
+    x = torch.randn(64, c, device=dev, generator=gen)
+    x[5, 130] = math.nan
+    x[9, ::1000] = math.nan
+    x[11, :128] = torch.where(torch.arange(128, device=dev) % 2 == 0, 0.0,
+                              -0.0)
+    x[12, 128:256] = -0.0
+    x[13, 256:384] = float("-inf")
+    x[14, 384:512] = -torch.rand(128, device=dev, generator=gen)
+    x[14, 400], x[14, 401] = -0.0, 0.0
+    for r, p in ((15, 0), (16, 77), (17, 127)):  # one +0.0 among -0.0
+        x[r, :128] = -0.0
+        x[r, p] = 0.0
+        x[r + 3, :128] = 0.0  # one -0.0 among +0.0
+        x[r + 3, p] = -0.0
+    w8 = peel.window_max(x)
+    sw9, w9 = window.window_scores_from(x)
+    psw9, pw9 = window.window_scores_from_plain(x)
+    if not (same_bits(w8, peel.window_max_plain(x)) and same_bits(w9, pw9)
+            and torch.equal(bits(sw9), bits(psw9))):
+        raise AssertionError("K8 / K9 with NaN lanes and signed zeros: not "
+                             "their plain versions' bits with NaN in the "
+                             "same places")
+    if not (bool(torch.isnan(w8[5, 1])) and int(torch.isnan(w8[9]).sum())
+            == len(range(0, c, 1000))
+            and bits(w8[[11, 15, 16, 17, 18, 19, 20], 0]).eq(0).all()
+            and int(bits(w8[12:13, 1])[0]) == -2**31  # -0.0 alone
+            and int(bits(w8[14:15, 3])[0]) == 0):
+        raise AssertionError("K8: NaN or signed-zero windows wrong")
+    log(f"NaN maxima (B = {b}, C = {c}; a NaN item and a NaN user): K2, K12 "
+        f"and K15 NaN where their plain versions are, K10, K12 and the six "
+        f"K14 variants K2's bits; K8 / K9 with NaN lanes, +-0.0 and -inf "
+        f"windows: their plain versions' bits, +0.0 where +0.0 is present")
 
 
 def check_score_edges(items, gen) -> None:
@@ -1282,17 +1440,8 @@ def check_train_kernels(tower, rows, users, data, dev) -> dict:
                             for _ in range(10)], 10, "K6 calls, train batch")
     check_spmm_edges(kernel, dev)
 
-    # K7: atomics add in any order; per element of dk, two sums of its n
-    # contributions differ by at most 2 n eps sum |g|
-    got = spmm.spmm_bwd(cols, mask, g, n_cols)
-    want = spmm.spmm_bwd_plain(cols, mask, g, n_cols)
-    count = torch.bincount(cols[mask].long(), minlength=n_cols).unsqueeze(1)
-    tol = 2 * count * F32_EPS * spmm.spmm_bwd_plain(cols, mask, g.abs(),
-                                                    n_cols)
-    err = max_abs_err(got, want)
-    if not bool(((got - want).abs() <= tol).all()):
-        raise AssertionError(f"K7 spmm_bwd beyond the f32 sum bound: max abs "
-                             f"err {err}")
+    # K7: JAX's order of the sums, so the plain version's bits on the CPU
+    err = check_spmm_bwd(cols, mask, g, n_cols, dev)
     src_rows, _ = torch.nonzero(mask, as_tuple=True)
     dst = cols[mask].long()
     out["spmm_bwd"] = dict(
@@ -1303,9 +1452,80 @@ def check_train_kernels(tower, rows, users, data, dev) -> dict:
         library_ms=cuda_ms(lambda: torch.zeros_like(kernel).index_add_(
             0, dst, g.index_select(0, src_rows)), 20),
         **bound(index_bytes + r * h * 4 + n_cols * h * 4, live * h))
-    log(f"K7 spmm_bwd: max abs err {err:.3e} (atomic order); "
-        f"{out['spmm_bwd']}")
+    log(f"K7 spmm_bwd: {out['spmm_bwd']}")
+    profile_window(lambda: [spmm.spmm_bwd(cols, mask, g, n_cols)
+                            for _ in range(10)], 10, "K7 calls, train batch")
     return out
+
+
+def check_spmm_bwd(cols, mask, g, n_cols: int, dev) -> float:
+    """K7 bit for bit against its plain version run on the CPU copies of the
+    inputs (``index_add_`` there adds in index order, JAX's order), on the
+    train batch and on edge batches: B = 1 and B = 2,255 (no multiple of
+    the row group of 8), a mask with no live slot, a column in every row
+    (once: a block's shared-memory sort; three times: 6,765 entries, the
+    sort in device memory), H = 500, 511 (4-byte loads) and 512, and
+    columns no slot hits, which must be +0.0. Two calls on the train batch
+    give the same bits. Returns the max abs error (0.0)."""
+    import torch
+
+    from sibrar_tpu_torch.ops import spmm
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    b, length = cols.shape
+    hot = 12_345
+    every_once = cols[:257].clone()
+    every_once_mask = mask[:257].clone()
+    slot = torch.randint(0, length, (257,), device=dev, generator=gen)
+    every_once[torch.arange(257, device=dev), slot] = hot
+    every_once_mask[torch.arange(257, device=dev), slot] = True
+    thrice = cols[:b - 1].clone()
+    thrice_mask = mask[:b - 1].clone()
+    for j in range(3):
+        thrice[:, j * 700] = hot
+        thrice_mask[:, j * 700] = True
+    tail = n_cols - 1_000  # columns [tail, n_cols) are never hit
+    cases = [("train batch", cols, mask),
+             ("B=1", torch.randint(0, tail, (1, 3_000), device=dev,
+                                   generator=gen, dtype=torch.int32),
+              torch.rand(1, 3_000, device=dev, generator=gen) < 0.5),
+             ("B=2,255", cols[:b - 1], mask[:b - 1]),
+             ("no live slot", cols[:64], torch.zeros_like(mask[:64])),
+             ("a column in every row, once", every_once, every_once_mask),
+             ("a column in every row, three times", thrice, thrice_mask)]
+    cases.append(("untouched tail columns",
+                  torch.randint(0, tail, (300, 700), device=dev,
+                                generator=gen, dtype=torch.int32),
+                  torch.rand(300, 700, device=dev, generator=gen) < 0.2))
+    for label, c, m in cases:
+        hit = torch.zeros(n_cols, dtype=torch.bool, device=dev)
+        hit[c[m].long()] = True
+        for h in (500, 511, 512):
+            gh = g[:c.shape[0], :h].contiguous()
+            got = spmm.spmm_bwd(c, m, gh, n_cols)
+            want = spmm.spmm_bwd_plain(c.cpu(), m.cpu(), gh.cpu(), n_cols)
+            if not torch.equal(bits(got).cpu(), bits(want)):
+                raise AssertionError(f"K7 spmm_bwd differs from its plain "
+                                     f"version on the CPU ({label}, H={h}): "
+                                     f"max abs err "
+                                     f"{max_abs_err(got.cpu(), want)}")
+            if bool((bits(got)[~hit] != 0).any()):
+                raise AssertionError(f"K7 spmm_bwd: a row no slot hits is not "
+                                     f"+0.0 ({label}, H={h})")
+    first = spmm.spmm_bwd(cols, mask, g, n_cols)
+    if not torch.equal(bits(first), bits(spmm.spmm_bwd(cols, mask, g,
+                                                       n_cols))):
+        raise AssertionError("K7 spmm_bwd: two calls on the train batch "
+                             "differ")
+    log(f"K7 spmm_bwd: bit-equal to its plain version on the CPU on the "
+        f"train batch and on {len(cases) - 1} edge batches (H = 500, 511, "
+        f"512; B = 1, 2,255; no live slot; column {hot} in every row once "
+        f"and three times; untouched tail columns), unhit rows +0.0, two "
+        f"calls on the train batch bit-equal")
+    return 0.0
 
 
 def check_probe_kernels(u, items) -> dict:
@@ -1820,6 +2040,9 @@ def main() -> int:
         count_path("spmm train path",
                    ["segment_gather", "spmm_fwd", "spmm_bwd"],
                    ("dw_matmul",))
+        trainer.learn.max_batches_per_epoch = PROFILE_STEPS
+        profile_window(trainer.train_epoch, PROFILE_STEPS,
+                       "train steps, INTERACTION_SPMM on")
     finally:
         layers.INTERACTION_SPMM = flag
     if not np.isfinite(run["losses"]).all():

@@ -27,7 +27,8 @@
 // lie inside one tile; for 256 and 512 the block walks 2 or 4 tiles and
 // carries each user's running maximum in a register. No atomics, no second
 // pass. The raster runs the user tiles of one catalog span on consecutive
-// blocks, so each items window leaves HBM once.
+// blocks, so each items window leaves HBM once. A window with a NaN score
+// has a NaN maximum, as in JAX (fmax_nan.cuh).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -95,8 +96,9 @@ fused_score_wmax_kernel(const float* __restrict__ u,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int j = 4 * h + q;
-          m[q] = fmaxf(fmaxf(acc[4 * g][j], acc[4 * g + 1][j]),
-                       fmaxf(acc[4 * g + 2][j], acc[4 * g + 3][j]));
+          m[q] = sibrar::fmax_nan(
+              sibrar::fmax_nan(acc[4 * g][j], acc[4 * g + 1][j]),
+              sibrar::fmax_nan(acc[4 * g + 2][j], acc[4 * g + 3][j]));
         }
         *reinterpret_cast<float4*>(
             &sm.part[g * 16 + ty][sibrar::tile_col(tx, 4 * h)]) =
@@ -111,13 +113,14 @@ fused_score_wmax_kernel(const float* __restrict__ u,
         const int user = idx % TILE;
         float mx = sm.part[wi * groups][user];
         for (int q = 1; q < groups; ++q)
-          mx = fmaxf(mx, sm.part[wi * groups + q][user]);
+          mx = sibrar::fmax_nan(mx, sm.part[wi * groups + q][user]);
         if (user0 + user < B)
           wmax_t[static_cast<int64_t>(c0 / window + wi) * B + user0 + user] =
               mx;
       }
     } else if (tid < TILE) {
-      for (int q = 0; q < TILE / 4; ++q) run = fmaxf(run, sm.part[q][tid]);
+      for (int q = 0; q < TILE / 4; ++q)
+        run = sibrar::fmax_nan(run, sm.part[q][tid]);
     }
     __syncthreads();  // the next tile's stages overwrite part
   }

@@ -23,11 +23,14 @@
 // operand buffers) so that K2's epilogue can read them back: each thread
 // holds 4 rows x 8 columns, reduces them, a 16-lane shuffle reduces the row,
 // and the scores leave as float4s. The maxima are the max of the very
-// values stored. No wgmma, TMA or double buffering yet.
+// values stored, NaN where one of them is (fmax_nan.cuh). No wgmma, TMA or
+// double buffering yet.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "fmax_nan.cuh"
 
 namespace {
 
@@ -126,6 +129,7 @@ score_bf16_kernel(const float* __restrict__ u, const float* __restrict__ items,
 
   // K2's epilogue: thread (ty, tx) holds rows ty*4 .. +3, columns tx*4 .. +3
   // and 64 + tx*4 .. +3
+  using sibrar::fmax_nan;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 #pragma unroll
@@ -133,11 +137,11 @@ score_bf16_kernel(const float* __restrict__ u, const float* __restrict__ items,
     const float* crow = Cs + (ty * 4 + i) * LDC;
     const float4 v0 = *reinterpret_cast<const float4*>(crow + tx * 4);
     const float4 v1 = *reinterpret_cast<const float4*>(crow + 64 + tx * 4);
-    float mx = fmaxf(fmaxf(fmaxf(v0.x, v0.y), fmaxf(v0.z, v0.w)),
-                     fmaxf(fmaxf(v1.x, v1.y), fmaxf(v1.z, v1.w)));
+    float mx = fmax_nan(fmax_nan(fmax_nan(v0.x, v0.y), fmax_nan(v0.z, v0.w)),
+                        fmax_nan(fmax_nan(v1.x, v1.y), fmax_nan(v1.z, v1.w)));
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      mx = fmax_nan(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     const int r = row0 + ty * 4 + i;
     if (r < B) {
       float* srow = scores + static_cast<int64_t>(r) * C + col0;

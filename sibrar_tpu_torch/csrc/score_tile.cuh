@@ -34,6 +34,8 @@
 
 #include <stdint.h>
 
+#include "fmax_nan.cuh"
+
 namespace sibrar {
 
 constexpr int TILE = 128;      // rows and columns of one output tile
@@ -161,14 +163,15 @@ __device__ __forceinline__ void score_tile(
 }
 
 // Max of one accumulator row over the tile's 128 columns: the thread's 8,
-// then across the 16 lanes that hold the row. Every lane calls it.
+// then across the 16 lanes that hold the row. Every lane calls it. NaN
+// when any of the 128 is NaN, as JAX's max (fmax_nan.cuh).
 __device__ __forceinline__ float row_max(const float (&v)[8]) {
   float mx = v[0];
 #pragma unroll
-  for (int j = 1; j < 8; ++j) mx = fmaxf(mx, v[j]);
+  for (int j = 1; j < 8; ++j) mx = fmax_nan(mx, v[j]);
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    mx = fmax_nan(mx, __shfl_xor_sync(0xffffffffu, mx, off));
   return mx;
 }
 

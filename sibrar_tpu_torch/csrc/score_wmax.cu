@@ -22,7 +22,8 @@
 // score_tile.cuh on a 128 x 128 tile, i.e. one window for 128 users, so the
 // window max is a reduction inside the block (row_max: each thread's 8
 // columns, then a 16-lane shuffle). wmax is written once, with no atomics
-// and no second pass; it is the max of the very values stored. A warp
+// and no second pass; it is the max of the very values stored (NaN where
+// one of them is, as JAX's max: fmax_nan.cuh). A warp
 // stores two rows of 256 contiguous bytes per float4 store. The raster
 // runs the B / 128 user tiles of one window on consecutive blocks, so each
 // items window leaves HBM once, not once per user tile; with two blocks

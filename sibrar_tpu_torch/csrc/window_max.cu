@@ -16,11 +16,12 @@
 // lane loads one float4 (the warp's load is one coalesced 512-byte run),
 // reduces it, and a shuffle tree reduces the warp.
 //
-// NaN rule: fmaxf returns the other operand when one is NaN, so a NaN lane
-// is ignored unless the whole window is NaN (torch.amax would propagate
-// it). Scores are finite on every path that calls this kernel.
+// NaN rule: JAX's, as every maximum of the port (fmax_nan.cuh): a window
+// with a NaN lane has a NaN maximum, as from .max in JAX or torch.amax.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fmax_nan.cuh"
 
 namespace {
 
@@ -35,10 +36,11 @@ window_max_kernel(const float* __restrict__ scores, int64_t n_windows,
                     + threadIdx.x / 32;
   if (w >= n_windows) return;
   const float4 v = reinterpret_cast<const float4*>(scores + w * W)[lane];
-  float m = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
+  float m = sibrar::fmax_nan(sibrar::fmax_nan(v.x, v.y),
+                             sibrar::fmax_nan(v.z, v.w));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    m = sibrar::fmax_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
   if (lane == 0) out[w] = m;
 }
 

@@ -17,9 +17,12 @@
 // 411 MB each (plus 3.2 MB of maxima), 0.247 ms at 3.35 TB/s. Design: one
 // warp per chunk, taken in source order so a block's reads are one run;
 // each lane moves one float4 with a coalesced load and store, and the warp
-// reduces the maximum with shuffles (fmaxf, K8's NaN rule).
+// reduces the maximum with shuffles (fmax_nan: a NaN lane gives a NaN
+// maximum, as JAX's max).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fmax_nan.cuh"
 
 namespace {
 
@@ -37,10 +40,11 @@ window_retile_kernel(const float* __restrict__ scores, int B, int nw,
   const int64_t j = w - b * nw;
   const float4 v = reinterpret_cast<const float4*>(scores + w * W)[lane];
   reinterpret_cast<float4*>(sw_t + (j * B + b) * W)[lane] = v;
-  float m = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
+  float m = sibrar::fmax_nan(sibrar::fmax_nan(v.x, v.y),
+                             sibrar::fmax_nan(v.z, v.w));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    m = sibrar::fmax_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
   if (lane == 0) wmax[w] = m;
 }
 

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "sibrar_peel_values": [_P, _LL, _I, _P, _P, _P],
     "sibrar_dw_matmul": [_P, _P, _I, _I, _I, _P, _P],
     "sibrar_spmm_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "sibrar_spmm_bwd": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "sibrar_spmm_bwd": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "sibrar_window_max": [_P, _LL, _P, _P],
     "sibrar_window_retile": [_P, _I, _I, _P, _P, _P],
     "sibrar_score_variant": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -57,7 +57,8 @@ _SIGNATURES = {
     "sibrar_mask_where": [_P, _P, _F, _LL, _P, _P],
 }
 # Size queries: name -> argument types (each returns a byte count)
-_QUERIES = {"sibrar_spmm_fwd_workspace": [_I, _I, _I]}
+_QUERIES = {"sibrar_spmm_fwd_workspace": [_I, _I, _I],
+            "sibrar_spmm_bwd_workspace": [_I, _I, _I]}
 
 _lib = None
 build_info: dict = {}

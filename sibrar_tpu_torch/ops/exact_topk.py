@@ -7,7 +7,8 @@ below n. ``lax.top_k`` compares floats in their total order (-0.0 below
 +0.0), which ``torch.sort`` does not, so the plain version sorts the total
 order's integer keys. The JAX kernel masks an extracted element with -inf
 and so repeats an index once a row has fewer than k values above -inf; K13
-marks extracted elements in a bitmask and keeps the contract there too.
+selects by a threshold (the k-th largest 128-window maximum), sorts the
+elements that pass it, and keeps the contract there too.
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ import torch
 from sibrar_tpu_torch.ops import _cuda
 from sibrar_tpu_torch.ops.window import WINDOW
 
-# K13 keeps 20 bytes of shared memory per 128 values of a row, within the
-# 227 KB a block may use (1 KB left for its static part)
+# The longest row K13 takes, unchanged since its first version (which kept
+# 20 bytes of shared memory per 128 values); it now keeps 4 bytes per 128
+# values plus 17 KB of buffers, 63 KB at MAX_N
 MAX_N = (226 * 1024 // 20) * WINDOW
 
 

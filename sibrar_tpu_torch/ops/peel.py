@@ -40,6 +40,7 @@ from sibrar_tpu_torch.ops.window import (
     WINDOW,
     _topk_stable,
     gather_planes,
+    max_like_jax,
     pad_catalog,
     pad_excl,
     score_wmax,
@@ -89,13 +90,13 @@ def window_max_plain(scores: torch.Tensor) -> torch.Tensor:
     """Plain version of K8: the [B, C / 128] maxima of the 128-wide windows
     of ``scores [B, C]``."""
     b, c = scores.shape
-    return scores.view(b, c // WINDOW, WINDOW).amax(-1)
+    return max_like_jax(scores.view(b, c // WINDOW, WINDOW), -1)
 
 
 def window_max(scores: torch.Tensor) -> torch.Tensor:
     """K8: window maxima of ``scores [B, C]``, C a multiple of 128 (JAX
-    ``window_max``; see ``csrc/window_max.cu``, which ignores a NaN lane
-    where ``amax`` would propagate it)."""
+    ``window_max``; see ``csrc/window_max.cu``). A window with a NaN lane
+    has a NaN maximum, as from JAX's max (`max_like_jax`)."""
     if scores.ndim != 2 or scores.shape[1] % WINDOW:
         raise ValueError(f"window_max: scores must be [B, n*128], got "
                          f"{tuple(scores.shape)}")
@@ -306,7 +307,7 @@ def _corrected_wmax(gather_fn, wmax: torch.Tensor, excl_cols: torch.Tensor,
     dead = _flat_mask(b, e * WINDOW, first * WINDOW + excl_cols % WINDOW,
                       excl_mask, wmax.device).view(b, e, WINDOW)
     ge = gather_fn(key.clamp(max=nw - 1), dead)
-    corr = ge.amax(dim=-1)  # [B, E]
+    corr = max_like_jax(ge, -1)  # [B, E]
     key_first = torch.searchsorted(key, key)
     n_same = torch.searchsorted(key, key, right=True) - key_first
     # JAX takes the max over every slot with -1e30 for slots of other

@@ -17,6 +17,7 @@ from sibrar_tpu_torch.ops.window import (
     NEG,
     _dot_operands,
     _topk_stable,
+    max_like_jax,
     pad_catalog,
 )
 
@@ -36,7 +37,7 @@ def fused_score_wmax_plain(u: torch.Tensor, items: torch.Tensor,
     """Plain version of K12: ``(scores_t [C, B], wmax_t [C/window, B])``."""
     scores_t = items @ u.T
     c, b = scores_t.shape
-    return scores_t, scores_t.view(c // window, window, b).amax(1)
+    return scores_t, max_like_jax(scores_t.view(c // window, window, b), 1)
 
 
 def fused_score_wmax(u: torch.Tensor, items: torch.Tensor, *,

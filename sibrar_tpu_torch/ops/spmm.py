@@ -7,6 +7,10 @@ sums the rows' kernel rows, and its backward, kernel K7 (`spmm_bwd`),
 scatters the output gradient back into those rows (``csrc/spmm_onehot.cu``).
 Masked slots contribute nothing; the result is differentiable in ``kernel``
 only. Live ``cols`` must lie in ``[0, n_cols)``.
+
+K7 and its plain version sum each kernel row's gradient in JAX's order
+(`bwd_order`), so both are bit-equal to JAX's ``_spmm_bwd`` and the same on
+every call.
 """
 from __future__ import annotations
 
@@ -73,28 +77,47 @@ spmm_fwd.launches = 0
 
 
 # ------------------------------------------------------------------ kernel K7
+def bwd_order(rows: torch.Tensor, slots: torch.Tensor,
+              length: int) -> torch.Tensor:
+    """The order in which JAX's ``_spmm_bwd`` adds the live slots ``(rows,
+    slots)`` into a column: row groups of 8, then slots, then rows within
+    the group, i.e. ascending key ``(b >> 3, l, b & 7)``."""
+    key = ((rows >> 3) * length + slots) * 8 + (rows & 7)
+    return torch.argsort(key)
+
+
 def spmm_bwd_plain(cols: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
                    n_cols: int) -> torch.Tensor:
     """Plain version of K7:
-    ``dk[c] = sum_{(b, l): mask[b, l], cols[b, l] == c} g[b]``."""
-    rows, c = _live(cols, mask)
+    ``dk[c] = sum_{(b, l): mask[b, l], cols[b, l] == c} g[b]``, each sum
+    from +0.0 in `bwd_order` (``index_add_`` on the CPU adds in index
+    order, so there it is bit-equal to JAX's ``_spmm_bwd``)."""
+    rows, slots = torch.nonzero(mask, as_tuple=True)
+    order = bwd_order(rows, slots, cols.shape[1])
+    rows, slots = rows[order], slots[order]
     dk = torch.zeros((n_cols, g.shape[1]), dtype=g.dtype, device=g.device)
-    return dk.index_add_(0, c, g[rows])
+    return dk.index_add_(0, cols[rows, slots].long(), g[rows])
 
 
 def spmm_bwd(cols: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
              n_cols: int) -> torch.Tensor:
-    """K7: the kernel's gradient ``[n_cols, H]`` f32, summed with atomics
-    (the order of the sums varies between runs)."""
+    """K7: the kernel's gradient ``[n_cols, H]`` f32, every row written by
+    the kernel (+0.0 where no live slot hits it), each sum in `bwd_order`:
+    the same bits on every call, and JAX's. Takes a workspace fixed by B, L
+    and n_cols: the per-column counts and starts and one key per slot."""
     if not _cuda.use_kernel(cols, mask, g):
         return spmm_bwd_plain(cols, mask, g, n_cols)
     _check(cols, mask, g, "spmm_bwd")
     cols, mask, g = cols.contiguous(), mask.contiguous(), g.contiguous()
     b, length = cols.shape
     h = g.shape[1]
-    dk = torch.zeros((n_cols, h), dtype=torch.float32, device=g.device)
+    dk = torch.empty((n_cols, h), dtype=torch.float32, device=g.device)
+    work = torch.empty(_cuda.query("sibrar_spmm_bwd_workspace", b, length,
+                                   n_cols),
+                       dtype=torch.uint8, device=g.device)
     _cuda.launch("sibrar_spmm_bwd", cols.data_ptr(), mask.data_ptr(),
-                 g.data_ptr(), b, length, h, dk.data_ptr())
+                 g.data_ptr(), b, length, h, n_cols, dk.data_ptr(),
+                 work.data_ptr())
     spmm_bwd.launches += 1
     return dk
 

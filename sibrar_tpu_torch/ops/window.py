@@ -29,6 +29,16 @@ BC = 1024  # catalog padding multiple of both paths (JAX bc)
 NEG = -1e30
 
 
+def max_like_jax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.amax(dim)`` under JAX's max, the rule of every window maximum of
+    the port (plain versions and kernels): NaN where any value is NaN, and
+    +0.0 where the maximum is a zero and +0.0 is among the values, in any
+    order (``lax.max(-0.0, +0.0)`` is +0.0; ``amax`` keeps either zero)."""
+    m = x.amax(dim)
+    plus_zero = ((x == 0) & ~torch.signbit(x)).any(dim)
+    return torch.where(plus_zero & (m == 0), 0.0, m)
+
+
 def _topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k along dim 1, ties to the lower index (``lax.top_k``'s rule)."""
     v, i = torch.sort(x, dim=1, descending=True, stable=True)
@@ -42,7 +52,7 @@ def score_wmax_plain(u: torch.Tensor, items: torch.Tensor
     ``wmax`` [B, C / 128]."""
     scores = u @ items.T
     b, c = scores.shape
-    return scores, scores.view(b, c // WINDOW, WINDOW).amax(-1)
+    return scores, max_like_jax(scores.view(b, c // WINDOW, WINDOW), -1)
 
 
 def score_wmax(u: torch.Tensor, items: torch.Tensor
@@ -135,7 +145,7 @@ def window_scores_from_plain(scores: torch.Tensor
     """Plain version of K9: ``(sw_t [C/128, B, 128], wmax [B, C/128])``."""
     b, c = scores.shape
     sw = scores.view(b, c // WINDOW, WINDOW)
-    return sw.transpose(0, 1).contiguous(), sw.amax(-1)
+    return sw.transpose(0, 1).contiguous(), max_like_jax(sw, -1)
 
 
 def window_scores_from(scores: torch.Tensor

@@ -1,22 +1,26 @@
 """Time the score GEMM (K2, K14 ``full``), K5 ``dw_matmul``, K6
-``spmm_fwd`` and K4 ``peel_values`` as built from several kernel source
-trees, in turns on one card.
+``spmm_fwd``, K7 ``spmm_bwd``, K4 ``peel_values`` and K13 ``exact_topk``
+as built from several kernel source trees, in turns on one card.
 
     python3 -m sibrar_tpu_torch.tools.compare_builds DIR [DIR ...]
         [--only NAME ...]
 
 Each DIR holds kernel sources laid out as ``sibrar_tpu_torch/csrc/`` (any
 of ``dw_matmul.cu``, ``score_wmax.cu``, ``score_variants.cu``,
-``spmm_onehot.cu``, ``peel_values.cu`` with the headers they include, and
-``error_string.cu``), for example the port's own ``csrc`` and an unpacked
-older commit's. Each tree is built with the port's nvcc flags into its own
-library under ``sibrar_tpu_torch/_build/``; its kernels are checked against
-the plain versions (K2 and K14 within ``1e-5 (1 + max |s|)``, K5 within
-``2 R eps |vec| . |g|`` per element, K6 within ``2 n eps`` times the sum of
-the row's n |kernel rows| and the same bits on a second call, K4 equal with
-NaN in the same places), then timed with CUDA events at the main paths'
-shapes in the order DIR1, DIR2, ..., DIRn, DIRn, ..., DIR1, so a drift of
-the card's clock cancels in each tree's mean. One PyTorch call for the same
+``spmm_onehot.cu``, ``peel_values.cu``, ``exact_topk.cu`` with the headers
+they include, and ``error_string.cu``), for example the port's own
+``csrc`` and an unpacked older commit's. Each tree is built with the
+port's nvcc flags into its own library under ``sibrar_tpu_torch/_build/``;
+its kernels are checked against the plain versions (K2 and K14 within
+``1e-5 (1 + max |s|)``, K5 within ``2 R eps |vec| . |g|`` per element, K6
+within ``2 n eps`` times the sum of the row's n |kernel rows| and the same
+bits on a second call, K4 equal with NaN in the same places, K7 bit-equal
+to its plain version on the CPU and the same bits on a second call, or,
+for a tree whose K7 sums with atomics (no ``sibrar_spmm_bwd_workspace``),
+within ``2 n eps`` times the sum of the column's n |g rows|, K13 bit-equal),
+then timed with CUDA events at the main paths' shapes in the order DIR1,
+DIR2, ..., DIRn, DIRn, ..., DIR1, so a drift of the card's clock cancels in
+each tree's mean. One PyTorch call for the same
 function is timed beside them where one exists. Prints one JSON line: the
 card, then per kernel each tree's times; each build's registers and spills
 (``-Xptxas -v``) go to stderr, and with ``--sass`` each kernel function's
@@ -26,9 +30,12 @@ K6's input is the train step's own batch: ``chip_smoke.py``'s SBNet over
 ``make_onion_scale_splits(seed=7)`` and its ``first_layer_rows`` (2,256 rows
 of the item interaction CSR, L = 2,205), so the tool runs from the
 repository's root. ``spmm_fwd_cut64`` is that batch with every row cut to
-its first 64 live slots. K4's input is the serving path's: the windows of
+its first 64 live slots. K7 takes that batch with a random output
+gradient; an older tree's K7, which adds into a zeroed gradient, is timed
+with that zero-fill (``torch.Tensor.zero_``) inside its step, so both sides
+write the whole gradient. K4's input is the serving path's: the windows of
 the K2-shaped scores (B = 1,024, C = 100,352) with the 160 largest maxima,
-163,840 rows, t = 8.
+163,840 rows, t = 8. K13's is those scores, k = 100.
 """
 from __future__ import annotations
 
@@ -50,7 +57,11 @@ from sibrar_tpu_torch.tools._common import cuda_ms
 
 F32_EPS = 2.0 ** -24
 SOURCES = ("dw_matmul.cu", "score_wmax.cu", "score_variants.cu",
-           "spmm_onehot.cu", "peel_values.cu", "error_string.cu")
+           "spmm_onehot.cu", "peel_values.cu", "exact_topk.cu",
+           "error_string.cu")
+# an older tree's K7 (no workspace, adds into a zeroed gradient)
+OLD_SPMM_BWD = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p,
+                                                             ctypes.c_void_p]
 # the main paths' shapes: K5 on the train step's item rows (R x C users x
 # H), K2 at serving and validation width, K14 full at the probes' catalog
 DW_SHAPE = (2256, 50_000, 512)
@@ -115,6 +126,10 @@ def build_tree(tree: Path, sass: bool = False) -> ctypes.CDLL:
     elif hasattr(lib, "sibrar_spmm_fwd"):  # older trees: no workspace
         lib.sibrar_spmm_fwd.argtypes = _cuda._SIGNATURES[
             "sibrar_spmm_fwd"][:-1]
+    if hasattr(lib, "sibrar_spmm_bwd_workspace"):
+        lib.sibrar_spmm_bwd_workspace.restype = ctypes.c_longlong
+    elif hasattr(lib, "sibrar_spmm_bwd"):
+        lib.sibrar_spmm_bwd.argtypes = OLD_SPMM_BWD
     return lib
 
 
@@ -147,15 +162,16 @@ def train_batch(dev):
 
 
 def spmm_cases(dev) -> dict:
-    """K6 on the train batch, whole and cut to 64 live slots per row."""
+    """K6 on the train batch, whole and cut to 64 live slots per row; K7 on
+    the whole batch."""
     import torch.nn.functional as F
 
     from sibrar_tpu_torch.ops import spmm
 
     cols, mask, kernel = train_batch(dev)
+    out = spmm_bwd_case(dev, cols, mask, kernel.shape[0], kernel.shape[1])
     b, length = cols.shape
     h = kernel.shape[1]
-    out = {}
     for name, m in (("spmm_fwd", mask),
                     ("spmm_fwd_cut64", mask & (mask.cumsum(1) <= 64))):
         res = torch.empty(b, h, device=dev)
@@ -193,6 +209,78 @@ def spmm_cases(dev) -> dict:
     return out
 
 
+def spmm_bwd_case(dev, cols, mask, n_cols: int, h: int) -> dict:
+    """K7 on the train batch with a random output gradient; an older tree's
+    K7 is timed with its zero-fill."""
+    from sibrar_tpu_torch.ops import spmm
+
+    b, length = cols.shape
+    g = torch.randn(b, h, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    dk = torch.empty(n_cols, h, device=dev)
+    work = {}
+    want = spmm.spmm_bwd_plain(cols.cpu(), mask.cpu(), g.cpu(), n_cols)
+
+    def step(lib):
+        if not hasattr(lib, "sibrar_spmm_bwd_workspace"):
+            dk.zero_()
+            call(lib, "sibrar_spmm_bwd", cols.data_ptr(), mask.data_ptr(),
+                 g.data_ptr(), b, length, h, dk.data_ptr())
+            return
+        if id(lib) not in work:
+            work[id(lib)] = torch.empty(
+                lib.sibrar_spmm_bwd_workspace(b, length, n_cols),
+                dtype=torch.uint8, device=dev)
+        call(lib, "sibrar_spmm_bwd", cols.data_ptr(), mask.data_ptr(),
+             g.data_ptr(), b, length, h, n_cols, dk.data_ptr(),
+             work[id(lib)].data_ptr())
+
+    def check(lib):
+        step(lib)
+        first = dk.clone()
+        step(lib)
+        got = dk.cpu()
+        if hasattr(lib, "sibrar_spmm_bwd_workspace"):
+            if not (torch.equal(first, dk) and torch.equal(
+                    got.view(torch.int32), want.view(torch.int32))):
+                raise AssertionError("spmm_bwd: not the plain version's "
+                                     "bits, or not the same on a second call")
+            return
+        n = torch.bincount(cols[mask].long(), minlength=n_cols)[:, None]
+        tol = 2 * n.cpu() * F32_EPS * spmm.spmm_bwd_plain(
+            cols.cpu(), mask.cpu(), g.abs().cpu(), n_cols)
+        if not bool(((got - want).abs() <= tol).all()):
+            raise AssertionError("spmm_bwd: beyond the f32 sum bound")
+    rows, _ = torch.nonzero(mask, as_tuple=True)
+    dst = cols[mask].long()
+    return {"spmm_bwd": ("sibrar_spmm_bwd", step, check, 20,
+                         lambda: torch.zeros(n_cols, h, device=dev)
+                         .index_add_(0, dst, g.index_select(0, rows)))}
+
+
+def topk_case(dev, u, items) -> dict:
+    """K13 on the K2-shaped scores, k = 100."""
+    from sibrar_tpu_torch.ops import exact_topk
+
+    x = (u @ items.T).contiguous()
+    r, n, k = x.shape[0], x.shape[1], 100
+    vals = torch.empty(r, k, device=dev)
+    idx = torch.empty(r, k, dtype=torch.int64, device=dev)
+    want_v, want_i = exact_topk.exact_topk_plain(x, k)
+
+    def step(lib):
+        call(lib, "sibrar_exact_topk", x.data_ptr(), r, n, k, vals.data_ptr(),
+             idx.data_ptr())
+
+    def check(lib):
+        step(lib)
+        if not (torch.equal(vals.view(torch.int32), want_v.view(torch.int32))
+                and torch.equal(idx, want_i)):
+            raise AssertionError("exact_topk differs from plain")
+    return {"exact_topk": ("sibrar_exact_topk", step, check, 20,
+                           lambda: torch.topk(x, k, dim=1))}
+
+
 def peel_case(dev, u, items) -> dict:
     """K4 on the serving path's gathered windows."""
     from sibrar_tpu_torch.ops import peel
@@ -228,8 +316,9 @@ def cases(dev, only=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
     want = set(only or ("dw_matmul", "score_wmax", "score_full", "spmm_fwd",
-                        "spmm_fwd_cut64", "peel_values"))
-    if want & {"spmm_fwd", "spmm_fwd_cut64"}:
+                        "spmm_fwd_cut64", "spmm_bwd", "peel_values",
+                        "exact_topk"))
+    if want & {"spmm_fwd", "spmm_fwd_cut64", "spmm_bwd"}:
         out.update(spmm_cases(dev))
     if "dw_matmul" in want:
         out.update(dw_case(dev, gen))
@@ -237,10 +326,11 @@ def cases(dev, only=None) -> dict:
     u = torch.randn(b, d, device=dev, generator=gen)
     if want & {"score_wmax", "score_full"}:
         out.update(score_cases(dev, gen, u))
-    if "peel_values" in want:
+    if want & {"peel_values", "exact_topk"}:
         items = torch.randn(SCORE_SHAPE[1], d, device=dev,
                             generator=gen) / d ** 0.5
         out.update(peel_case(dev, u, items))
+        out.update(topk_case(dev, u, items))
         del items
     return {k: v for k, v in out.items() if k in want}
 

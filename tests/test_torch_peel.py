@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from sibrar_tpu.ops import pallas_peel as jpeel
+from sibrar_tpu.ops import pallas_window as jwindow
 from sibrar_tpu.ops.pallas_window import score_native_wmax
 from sibrar_tpu_torch.ops import peel as tpeel
+from sibrar_tpu_torch.ops import window as twindow
 from sibrar_tpu_torch.ops.window import score_wmax
 
 NEG = -1e30
@@ -32,6 +34,125 @@ def test_plain_score_wmax_matches_pallas():
     assert (tw.numpy() == own).all()  # wmax is the max of its own scores
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-5,
                                atol=1e-5)
+
+
+def nan_dot(seed, b, c, d, nan_item=True, nan_user=True):
+    """Integer-valued ``u [b, d]`` and ``items [c, d]`` (exact f32 scores in
+    any summation order) with a NaN in item 300 and in user 3."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(-5, 6, (b, d)).astype(np.float32)
+    items = rng.integers(-5, 6, (c, d)).astype(np.float32)
+    if nan_item:
+        items[300, 5] = np.nan
+    if nan_user:
+        u[3, 7] = np.nan
+    return u, items
+
+
+def nan_score_rows(seed, b, c):
+    """Integer scores with one NaN score and windows of +0.0 and -0.0 in
+    several orders (JAX's max is +0.0 wherever a +0.0 is present)."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(-50, 50, (b, c)).astype(np.float32)
+    s[2, 130] = np.nan
+    s[4] = np.where(np.arange(c) % 2 == 0, 0.0, -0.0)
+    s[5, :128], s[5, 127] = 0.0, -0.0
+    s[6, 128:256], s[6, 200] = -0.0, 0.0
+    s[7, :128] = -0.0
+    return s
+
+
+def assert_same_bits(got, want):
+    """NaN in the same places, the same bits elsewhere (+0.0 is not -0.0)."""
+    got, want = np.asarray(got), np.asarray(want)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.uint32),
+                                  want[~nan].view(np.uint32))
+
+
+def test_plain_score_wmax_nan_matches_pallas():
+    """K2's plain version gives NaN maxima where ``score_native_wmax`` does:
+    the NaN item's window for every user, every window of the NaN user."""
+    u, items = nan_dot(20, 8, 2048, 128)
+    js, jw = score_native_wmax(jnp.asarray(u), jnp.asarray(items),
+                               interpret=True)
+    ts, tw = score_wmax(torch.as_tensor(u), torch.as_tensor(items))
+    assert_same_bits(ts.numpy(), js)
+    assert_same_bits(tw.numpy(), jw)
+    want = np.zeros((8, 16), bool)
+    want[:, 300 // 128], want[3] = True, True
+    np.testing.assert_array_equal(np.isnan(tw.numpy()), want)
+
+
+@pytest.mark.parametrize("kernel", ["window_max", "window_scores_from"])
+def test_plain_maxima_nan_and_signed_zeros_match_pallas(kernel):
+    """K8's and K9's plain versions on a NaN score and on windows of +0.0
+    and -0.0: JAX's bits (NaN where a lane is NaN; +0.0 where a +0.0 is
+    among the zeros, in any order, where ``amax`` may keep -0.0)."""
+    s = nan_score_rows(21, 16, 2048)
+    if kernel == "window_max":
+        want = jpeel.window_max(jnp.asarray(s), interpret=True)
+        got = tpeel.window_max(torch.as_tensor(s))
+    else:
+        jsw, want = jwindow.window_scores_from(jnp.asarray(s), tb=8,
+                                               bc=1024, interpret=True)
+        tsw, got = twindow.window_scores_from(torch.as_tensor(s))
+        assert_same_bits(tsw.numpy(), jsw)
+    assert_same_bits(got.numpy(), want)
+    w = got.numpy()
+    assert np.isnan(w[2, 1]) and np.isnan(w).sum() == 1
+    assert (w[[4, 5, 6], [0, 0, 1]].view(np.uint32) == 0).all()  # +0.0
+    assert w[7, 0].view(np.uint32) == 0x80000000  # -0.0 alone
+
+
+@pytest.mark.parametrize("ranker", ["dot", "scores"])
+@pytest.mark.parametrize("nan", ["item", "user"])
+def test_rankers_follow_a_nan_score_like_jax(ranker, nan):
+    """A NaN item (NaN scores in one catalog column) or a NaN user (a row of
+    NaN scores) through the dot-path and scores-path rankers, against JAX's
+    in interpret mode. Without the redo: the same values (NaN in the same
+    places), ids and ok flags. With it (every flagged row redone densely):
+    the same values, and ids equal up to exact ties (the redo's
+    ``torch.topk`` orders ties its own way; the NaN user's list is one
+    tie): each id distinct, not excluded, and holding its value."""
+    b, c, d, k, e = 16, 4096, 32, 10, 3
+    u, items = nan_dot(22, b, c, d, nan_item=nan == "item",
+                       nan_user=nan == "user")
+    rng = np.random.default_rng(23)
+    cols = np.sort(np.stack([rng.choice(c, e, replace=False)
+                             for _ in range(b)]), axis=1).astype(np.int32)
+    mask = rng.random((b, e)) < 0.9
+    cols[~mask] = 0
+    scores = u @ items.T
+    if ranker == "dot":
+        jargs = (jnp.asarray(u), jnp.asarray(items))
+        targs = (torch.as_tensor(u), torch.as_tensor(items))
+        jfn, tfn = jpeel.peel_masked_topk_dot, tpeel.peel_masked_topk_dot
+    else:
+        jargs, targs = (jnp.asarray(scores),), (torch.as_tensor(scores),)
+        jfn, tfn = jpeel.peel_masked_topk_scores, tpeel.peel_masked_topk_scores
+    jex, tex = (jnp.asarray(cols), jnp.asarray(mask)), (
+        torch.as_tensor(cols), torch.as_tensor(mask))
+    jv, ji, jok = jfn(*jargs, *jex, k, tb=8, interpret=True,
+                      with_fallback=False)
+    tv, ti, tok = tfn(*targs, *tex, k, with_fallback=False)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    assert_same_bits(tv.numpy(), jv)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    jv, ji = jfn(*jargs, *jex, k, tb=8, interpret=True)
+    tv, ti, _ = tfn(*targs, *tex, k)
+    assert_same_bits(tv.numpy(), jv)
+    ti = ti.numpy()
+    assert_same_bits(np.take_along_axis(scores, ti, 1), tv.numpy())
+    for r in range(b):
+        assert len(set(ti[r].tolist())) == k
+        assert not set(ti[r].tolist()) & set(cols[r][mask[r]].tolist())
+    if nan == "user":
+        assert np.isnan(tv.numpy()[3]).all()
+        assert not np.isnan(np.delete(tv.numpy(), 3, 0)).any()
+    else:  # the NaN item heads every list
+        assert (ti[:, 0] == 300).all() and (np.asarray(ji)[:, 0] == 300).all()
 
 
 @pytest.mark.parametrize("with_dead", [False, True])

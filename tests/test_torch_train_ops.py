@@ -20,6 +20,7 @@ from sibrar_tpu.data import sampling as jsampling
 from sibrar_tpu.models import layers as jlayers
 from sibrar_tpu.ops import sparse as jsparse
 from sibrar_tpu.ops.pallas_dw import dw_matmul as jax_dw_matmul
+from sibrar_tpu.ops.pallas_spmm import _spmm_bwd as jax_spmm_bwd
 from sibrar_tpu.ops.pallas_spmm import spmm_onehot as jax_spmm_onehot
 from sibrar_tpu.train import losses as jlosses
 from sibrar_tpu.train.trainer import Trainer as JaxTrainer
@@ -119,6 +120,54 @@ def test_spmm_onehot_forward_and_grad_match_pallas(n_cols):
     np.testing.assert_allclose(
         spmm_bwd(torch.as_tensor(cols), torch.as_tensor(mask),
                  torch.as_tensor(w), n_cols).numpy(), dense.T @ w, **F32)
+
+
+# (B, L, n_cols, H, a column in most rows): B = 21 is no multiple of the
+# row group of 8; n_cols = 5,000 spans three kc = 2,048 tiles
+SPMM_BWD_CASES = {
+    "b21_h16": (21, 12, 300, 16, False),
+    "b21_h13": (21, 12, 300, 13, False),
+    "shared_column_h16": (24, 12, 40, 16, True),
+    "three_tiles_h13": (21, 30, 5000, 13, True),
+}
+
+
+@pytest.mark.parametrize("case", list(SPMM_BWD_CASES))
+def test_plain_spmm_bwd_bit_equal_to_pallas(case):
+    """K7's plain version sums each column in JAX's order, row groups of 8,
+    then slots, then rows (``bwd_order``), so it is bit-equal to
+    ``_spmm_bwd`` in interpret mode: with an empty row, a column that most
+    rows hold at different slots (ties within a group of 8 at different
+    slots), and columns no slot hits (+0.0)."""
+    b, length, n_cols, h, shared = SPMM_BWD_CASES[case]
+    rng = np.random.default_rng(11)
+    cols = np.stack([rng.choice(n_cols, size=length, replace=False)
+                     for _ in range(b)]).astype(np.int32)
+    mask = rng.random((b, length)) < 0.7
+    if shared:  # column 7 in every row but every fifth, at a random slot
+        cols[cols == 7] = n_cols - 1
+        for r in range(b):
+            if r % 5:
+                slot = rng.integers(length)
+                cols[r, slot], mask[r, slot] = 7, True
+    mask[3] = False  # an empty row
+    g = (rng.standard_normal((b, h)) * 10.0 ** rng.integers(
+        -3, 4, (b, 1))).astype(np.float32)
+    safe = np.where(mask, cols, n_cols + 4096).astype(np.int32)
+    want = np.asarray(jax_spmm_bwd(jnp.asarray(safe), jnp.asarray(g), n_cols,
+                                   interpret=True))
+    got = spmm_bwd(torch.as_tensor(cols), torch.as_tensor(mask),
+                   torch.as_tensor(g), n_cols).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    hit = np.zeros(n_cols, bool)
+    hit[cols[mask]] = True
+    assert (got[~hit].view(np.uint32) == 0).all()  # +0.0, not -0.0
+    if shared:  # the row-major slot order gives other bits: the order counts
+        rows, slots = np.nonzero(mask)
+        row_major = torch.zeros(n_cols, h).index_add_(
+            0, torch.as_tensor(cols[rows, slots]).long(),
+            torch.as_tensor(g[rows]))
+        assert not np.array_equal(row_major.numpy()[7], want[7])
 
 
 # ----------------------------------------------------------------- losses

@@ -154,6 +154,41 @@ def test_plain_fused_score_wmax_matches_pallas(window):
         tw.numpy(), ts.numpy().reshape(-1, window, 8).max(1))
 
 
+@pytest.mark.parametrize("kernel", ["score_windows", "fused_64",
+                                    "fused_128"])
+def test_plain_window_maxima_nan_matches_pallas(kernel):
+    """K10's and K12's plain versions give JAX's maxima on a NaN item and a
+    NaN user (integer-valued inputs: exact scores): NaN in the NaN item's
+    window for every user and in every window of the NaN user, the same
+    bits elsewhere."""
+    u, items = _int_dot(np.random.default_rng(24), 16, 2048, 128, -5, 5)
+    items[300, 5], u[3, 7] = np.nan, np.nan
+    if kernel == "score_windows":
+        jsw, jw = jwindow.score_windows(*_j(u, items), tb=8, bc=1024,
+                                        interpret=True)
+        tsw, tw = twindow.score_windows(*_t(u, items))
+        _assert_same_bits(tsw.numpy(), jsw)
+        window, tw, jw = 128, tw.numpy().T, np.asarray(jw).T  # [C/w, B]
+    else:
+        window = int(kernel.split("_")[1])
+        _, jw = jscore.fused_score_wmax(*_j(u, items), window=window, tb=8,
+                                        bc=512, interpret=True)
+        tw = tscore.fused_score_wmax(*_t(u, items), window=window)[1].numpy()
+    _assert_same_bits(tw, jw)
+    want = np.zeros((2048 // window, 16), bool)
+    want[300 // window], want[:, 3] = True, True
+    np.testing.assert_array_equal(np.isnan(tw), want)
+
+
+def _assert_same_bits(got, want):
+    """NaN in the same places, the same bits elsewhere."""
+    got, want = np.asarray(got), np.asarray(want)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.uint32),
+                                  want[~nan].view(np.uint32))
+
+
 @pytest.mark.parametrize("window", [0, 12, 24, 48, 1024])
 def test_fused_score_wmax_refuses_windows_jax_refuses(window):
     """JAX admits a multiple of 8 dividing its 512-row block; so does the
@@ -183,6 +218,20 @@ def _topk_rows(kind, rng):
         x.view(np.uint32)[2] = 0xFFFFFFFF
         x[3, 7] = -np.inf
         return x, 300
+    # the threshold K13 takes (the k-th largest 128-window maximum) passes
+    # more elements than its buffer on these: its exact path
+    if kind == "copies_of_kth":  # 300 copies of the k-th value, 32 windows
+        x = rng.normal(size=(4, 4096)).astype(np.float32) - 10.0
+        for r in range(4):
+            pos = rng.permutation(4096)
+            x[r, pos[:300]], x[r, pos[300:320]] = 2.0, 5.0
+        return x, 37
+    if kind == "constant":
+        return np.full((3, 2048), 1.5, np.float32), 37
+    if kind == "all_neg_inf":
+        return np.full((3, 2048), -np.inf, np.float32), 37
+    if kind == "k_eq_n":
+        return rng.normal(size=(3, 700)).astype(np.float32), 700
     # fewer than k values above -inf, signed zeros among the live ones
     x = np.full((8, 256), -np.inf, np.float32)
     x[0, [130, 5, 7]] = [3.0, 2.0, 1.0]
@@ -192,7 +241,8 @@ def _topk_rows(kind, rng):
 
 
 @pytest.mark.parametrize("kind", ["normal", "ties", "short_rows",
-                                  "all_ones_nan"])
+                                  "all_ones_nan", "copies_of_kth",
+                                  "constant", "all_neg_inf", "k_eq_n"])
 def test_plain_exact_topk_matches_lax_top_k(kind):
     """K13's plain version against ``lax.top_k`` (values bit for bit and
     indices, tie order included) and against the Pallas kernel wherever
@@ -209,7 +259,9 @@ def test_plain_exact_topk_matches_lax_top_k(kind):
     assert int(got_i.max()) < x.shape[1]
     pv, pi = jtopk.exact_topk(jnp.asarray(x), k, min_n=128, interpret=True)
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(pv))
-    if kind != "short_rows":
+    if kind == "all_neg_inf":  # no value above -inf: JAX's kernel repeats
+        assert len(set(np.asarray(pi)[0].tolist())) < k
+    elif kind != "short_rows":
         np.testing.assert_array_equal(got_i.numpy(), np.asarray(pi))
     else:  # the smallest input of the reference-side finding
         assert np.asarray(pi)[0].tolist() == [130, 5, 7, 0, 0]

@@ -29,7 +29,9 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    and at D = 254, K2's bits), JAX's NaN rule in every maximum (a NaN item
    and a NaN user through K2, K10, K12, K14 and K15: NaN maxima where the
    plain versions have them; K8 and K9 on NaN lanes and signed zeros:
-   their plain versions' bits), K5 off its tiles (R = 2,255, H = 500, C =
+   their plain versions' bits), K15's bf16 rounding bit for bit (one-hot
+   users over a depth of rounding ties, subnormals, +-inf and NaN), K5 off
+   its tiles (R = 2,255, H = 500, C =
    50,000 and 49,999, within its f32 bound), K4 on edge rows (ties across
    lanes, +0.0 with -0.0, rows of only -inf, NaN rows, which peel NaN;
    t = 1, 8 and 128; R off its 32 rows per block) and K6 off the train
@@ -73,14 +75,19 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    ``default_rng(1)`` draws. Each K14 epilogue variant
    (``ops/gemm_probe.py``) must hold K2's scores and maxima bit for bit in
    its layout, K15 (the bf16 pass) must stay within the f32 summation bound
-   of the product of the bf16-rounded operands with the maxima of its own
-   scores, K16 (lane moves by a device offset) and K17 (the masked fill)
-   must equal their plain versions bit for bit (width 200, shifts past n,
-   reads past the end, bool and int8 masks at [16, 168, 128] and [1024,
-   168, 128]); then every mode of the three GEMM probes is timed through
-   their ``run`` entry points (CUDA events; the bisect's kernels under
-   ``torch.profiler``), the roll probes and ``try_mask`` must report ok,
-   and ``try_recover`` must find K11 bit-equal to plain at m = 168.
+   of the exact product of the bf16-rounded operands with the maxima of its
+   own scores, there and off its tiles (B in 1, 63, 65, 1,000; D in 4, 12,
+   100, 260; C in 128, 384, 100,352), K16 (lane moves by a device offset)
+   and K17 (the masked fill) must equal their plain versions bit for bit
+   (width 200, shifts past n, reads past the end, bool and int8 masks at
+   [16, 168, 128] and [1024, 168, 128]); the launch path must use PyTorch's
+   current stream inside and outside ``torch.cuda.stream(side)``; K16's
+   device time per launch (profiler) and its events-loop time (also in
+   turns with ``torch.roll``) are logged apart; then every mode of the
+   three GEMM probes is timed through their ``run`` entry points (CUDA
+   events; the bisect's kernels under ``torch.profiler``), the roll probes
+   and ``try_mask`` must report ok, and ``try_recover`` must find K11
+   bit-equal to plain at m = 168.
 
 Each path (default training, spmm training, fit, the four validation
 paths, serving, the five windowed rankers, the probes) runs with every
@@ -174,6 +181,7 @@ SPMM_WARMUP, SPMM_STEPS = 5, 40  # steps with INTERACTION_SPMM on
 FIT_EPOCHS, FIT_BATCHES = 2, 60  # Trainer.fit: epochs, steps per epoch
 LIST_BATCHES = (0, 20, 48)  # validation batches whose lists are checked
 RANKER_BATCHES = 3  # batches of 1,024 test users per windowed ranker
+TURNS, TURN_ITERS = 7, 200  # rounds x calls of a host-bound events loop
 F32_EPS = 2.0 ** -24
 # H100 SXM peaks (NVIDIA data sheet; at 700 W): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores
@@ -208,6 +216,20 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_turns(fns: dict, iters: int = TURN_ITERS,
+                  rounds: int = TURNS) -> dict:
+    """Per function of ``fns``: the median over ``rounds`` of its mean
+    device milliseconds per call over ``iters`` calls (`cuda_ms`), the
+    functions taking turns within each round."""
+    import statistics
+
+    got = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            got[name].append(cuda_ms(fn, iters))
+    return {name: statistics.median(ms) for name, ms in got.items()}
 
 
 def bound(n_bytes: float, n_ops: float = 0.0,
@@ -541,6 +563,7 @@ def check_ranker_kernels(u, items, scores, wmax, m: int) -> dict:
 
     from sibrar_tpu_torch.ops import exact_topk as xtopk
     from sibrar_tpu_torch.ops import peel, score, window
+    from sibrar_tpu_torch.tools import _common
 
     out = {}
     dev = scores.device
@@ -611,8 +634,12 @@ def check_ranker_kernels(u, items, scores, wmax, m: int) -> dict:
                                                             v), 50),
         library_ms=None,
         **bound(b * K * (128 * 4 + 4 + 4 + 4 + 3 * 4)))
+    device = _common.device_ops_ms(
+        lambda: peel.recover_winners(g, widx, slots, v), dev, 50,
+        "recover_winners")
     log(f"K11 recover_winners B={b} m={m} kk={K}: bit-equal (lanes, counts "
-        f"up to {int(got[1].max())}, windows); {out['recover_winners']}")
+        f"up to {int(got[1].max())}, windows); device time per launch "
+        f"(profiler) {device}; {out['recover_winners']}")
     del g, dead, sw_t
     check_plane_peel(u, items, gen)
     check_score_edges(items, gen)
@@ -815,6 +842,46 @@ def check_nan_maxima(items, gen) -> None:
         f"and K15 NaN where their plain versions are, K10, K12 and the six "
         f"K14 variants K2's bits; K8 / K9 with NaN lanes, +-0.0 and -inf "
         f"windows: their plain versions' bits, +0.0 where +0.0 is present")
+    check_bf16_rounding(dev, gen)
+
+
+def check_bf16_rounding(dev, gen) -> None:
+    """K15's rounding bit for bit: every row of ``u`` is 1.0 at depth d0 and
+    0 elsewhere, so its scores are ``items.bfloat16().float()[:, d0]``.
+    Depth d0 of the items holds rounding ties (both directions), values just
+    off a tie, subnormals (f32 ones that round to bf16 subnormals, to the
+    smallest normal and to zero), +-inf and NaN; every other depth stays
+    finite, so no 0 * inf arises. Zeros compare by value, NaN by place."""
+    import torch
+
+    from sibrar_tpu_torch.ops import gemm_probe
+
+    b, c, d, d0 = 65, 384, 100, 37
+    special = torch.tensor(
+        [1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, -(1.0 + 2.0 ** -8),
+         1.0 + 2.0 ** -8 + 2.0 ** -20, 2.0 ** -130, 3 * 2.0 ** -134,
+         2.0 ** -126 - 2.0 ** -149, -(2.0 ** -140), 2.0 ** -149, 2.0 ** -135,
+         math.inf, -math.inf, math.nan, 0.0, -0.0, 3.0e38, -3.4e38],
+        device=dev)
+    items = torch.randn(c, d, device=dev, generator=gen)
+    col = torch.randn(c, device=dev, generator=gen)
+    col[:special.numel()] = special
+    col[c - special.numel():] = special.flip(0)
+    items[:, d0] = col
+    u = torch.zeros(b, d, device=dev)
+    u[:, d0] = 1.0
+    s, wmax_t = gemm_probe.score_bf16(u, items)
+    want = items.bfloat16().float()[:, d0].expand(b, c)
+    if not same_values(s, want):
+        raise AssertionError("K15 one-hot rows: scores are not the items' "
+                             "bf16 rounding at d0")
+    own = s.view(b, c // 128, 128).amax(-1).T
+    if not same_values(wmax_t, own):
+        raise AssertionError("K15 one-hot rows: maxima not those of its "
+                             "scores")
+    log(f"K15 rounding (B = {b}, C = {c}, D = {d}, one-hot u at d{d0}): "
+        f"ties, subnormals, +-inf and NaN as torch's bf16 rounding, NaN in "
+        f"the same places")
 
 
 def check_score_edges(items, gen) -> None:
@@ -1528,17 +1595,87 @@ def check_spmm_bwd(cols, mask, g, n_cols: int, dev) -> float:
     return 0.0
 
 
+def check_bf16_edges(items, gen) -> None:
+    """K15 off its tiles: B in {1, 63, 65, 1,000} (chunks of 64 users), D in
+    {4, 12, 100, 260} (16-deep steps, 64-deep K-blocks, a second 256-deep
+    segment) and C in {128, 384, 100,352} (tiles of 256 items, a last tile
+    of one window) over ``items``' first rows and depths. Each within
+    ``D 2^-24 (|u~| @ |i~|^T)`` of the rounded operands' exact product
+    (`_common.bf16_within`), its maxima those of its own scores."""
+    import torch
+
+    from sibrar_tpu_torch.ops import gemm_probe
+    from sibrar_tpu_torch.tools import _common
+
+    dev = items.device
+    worst = 0.0
+    for c in (128, 384, 100_352):
+        for d in (4, 12, 100, 260):
+            it = (items[:c, :d].contiguous() if d <= items.shape[1]
+                  else torch.cat([items[:c], items[:c, :d - items.shape[1]]],
+                                 dim=1))
+            for b in (1, 63, 65, 1000):
+                u = torch.randn(b, d, device=dev, generator=gen)
+                s, wmax_t = gemm_probe.score_bf16(u, it)
+                if not torch.equal(wmax_t,
+                                   s.view(b, c // 128, 128).amax(-1).T):
+                    raise AssertionError(f"K15 at B={b} C={c} D={d}: maxima "
+                                         "not those of its scores")
+                worst = max(worst, _common.bf16_within(
+                    f"K15 at B={b} C={c} D={d}", s, wmax_t, u, it)[1])
+    log(f"K15 off its tiles (B in 1, 63, 65, 1,000; D in 4, 12, 100, 260; "
+        f"C in 128, 384, 100,352): within the f32 summation bound of the "
+        f"rounded operands' exact product (largest |err| / bound "
+        f"{worst:.3f}), maxima of its own scores")
+
+
+def check_launch_stream(dev) -> None:
+    """Every wrapper launches on PyTorch's current stream: inside and
+    outside ``with torch.cuda.stream(side)``, ``_cuda.current_stream()`` is
+    ``torch.cuda.current_stream().cuda_stream``, and a K16 launch queued
+    behind a ~50 ms sleep and a fill on the current stream reads the
+    filled values."""
+    import torch
+
+    from sibrar_tpu_torch.ops import _cuda, roll
+
+    side = torch.cuda.Stream(device=dev)
+    shift = torch.tensor([5], dtype=torch.int32, device=dev)
+    x = torch.zeros(4, 300, device=dev)
+    torch.cuda.synchronize()
+    for where, ctx in (("outside", None), ("inside", side)):
+        stream = torch.cuda.current_stream() if ctx is None else ctx
+        with torch.cuda.stream(stream):
+            if _cuda.current_stream() != torch.cuda.current_stream() \
+                    .cuda_stream:
+                raise AssertionError(f"_cuda.current_stream() {where} "
+                                     "torch.cuda.stream is not PyTorch's "
+                                     "current stream")
+            torch.cuda._sleep(100_000_000)  # ~50 ms of this stream
+            x.fill_(7.0 if ctx is None else 9.0)
+            got = roll.roll_lanes(x, shift)
+        torch.cuda.synchronize()
+        if not torch.equal(got, roll.roll_lanes_plain(x, shift)):
+            raise AssertionError(f"K16 {where} torch.cuda.stream(side): not "
+                                 "ordered after the stream's earlier work")
+    log("launch stream: _cuda.current_stream() is PyTorch's current stream "
+        "inside and outside torch.cuda.stream(side); K16 queued behind a "
+        "sleep and a fill on it reads the fill")
+
+
 def check_probe_kernels(u, items) -> dict:
     """K14-K17 against K2 and their plain versions: K14 and K15 at the GEMM
-    probes' width (``u [1024, 256]``, ``items [501,760, 256]``), K16 and
-    K17 at the roll and mask probes' shapes (K17 also at [1024, 168, 128])
-    and on a width-200 row, shifts past n and reads past the end; returns
-    name -> row."""
+    probes' width (``u [1024, 256]``, ``items [501,760, 256]``; K15 also
+    off its tiles, `check_bf16_edges`), K16 and K17 at the roll and mask
+    probes' shapes (K17 also at [1024, 168, 128]) and on a width-200 row,
+    shifts past n and reads past the end, the launch stream
+    (`check_launch_stream`) and K16's device and events-loop times apart;
+    returns name -> row."""
     import torch
 
     from sibrar_tpu_torch.ops import gemm_probe, roll, window
     from sibrar_tpu_torch.ops import mask as mask_ops
-    from sibrar_tpu_torch.tools import probe_pred_input, probe_roll
+    from sibrar_tpu_torch.tools import _common, probe_pred_input, probe_roll
 
     out = {}
     b, d = u.shape
@@ -1589,34 +1726,42 @@ def check_probe_kernels(u, items) -> dict:
             f"layout; {out[f'score_{variant}']}")
     log(f"torch.matmul f32 (the xla mode) {matmul_ms:.4f} ms")
 
-    # K15: within D 2^-24 (|u~| @ |i~|^T) of the f32 product of the rounded
-    # operands u~, i~; its maxima those of its own scores
+    # K15: within D 2^-24 (|u~| @ |i~|^T) of the exact product of the
+    # rounded operands u~, i~; its maxima those of its own scores
     s15, w15 = gemm_probe.score_bf16(u, items)
     if not torch.equal(w15, window_max(s15).T):
         raise AssertionError("K15 score_bf16: maxima are not those of its "
                              "scores")
     rel_f32 = float((s15 - scores).abs().max() / scores.abs().max())
     del scores, wmax
-    ps, pw = gemm_probe.score_bf16_plain(u, items)
-    ub, ib = u.bfloat16().float(), items.bfloat16().float()
-    tol = d * F32_EPS * (ub.abs() @ ib.abs().T)
-    err = max(within("K15 score_bf16", s15, ps, tol),
-              within("K15 maxima", w15, pw, window_max(tol).T))
-    del s15, w15, ps, pw, tol, ub, ib
+    err, ratio = _common.bf16_within("K15 score_bf16", s15, w15, u, items)
+    del s15, w15
+    check_bf16_edges(items, torch.Generator(device=u.device)
+                     .manual_seed(SEED + 6))
     u16, i16 = u.bfloat16(), items.bfloat16()
     lib16 = cuda_ms(lambda: torch.matmul(u16, i16.T), 10)
+    try:  # f32 scores of the rounded operands, without the maxima
+        torch.mm(u16[:1], i16[:128].T, out_dtype=torch.float32)
+        lib_f32out = cuda_ms(lambda: torch.mm(u16, i16.T,
+                                              out_dtype=torch.float32), 10)
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        log(f"torch.mm(..., out_dtype=torch.float32) not offered by torch "
+            f"{torch.__version__}: {e}")
+        lib_f32out = None
     del u16, i16
     out["score_bf16"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: gemm_probe.score_bf16(u, items),
                                     10),
         plain_ms=cuda_ms(lambda: gemm_probe.score_bf16_plain(u, items), 5),
-        library_ms=None,
+        library_ms=lib_f32out,
         **bound(operands + 4 * (b * c + b * nw), flops, BF16_FLOPS))
     log(f"K15 score_bf16 B={b} C={c} D={d}: within the f32 summation bound "
-        f"of the rounded operands' product, maxima of its own scores; "
+        f"of the rounded operands' exact product (largest |err| / bound "
+        f"{ratio:.3f}), maxima of its own scores; "
         f"against K2's f32 scores max |diff| / max |s| = {rel_f32:.3e}; "
-        f"bf16-out torch.matmul of the rounded operands {lib16:.4f} ms "
-        f"(a yardstick, not the same function); {out['score_bf16']}")
+        f"library: torch.mm(u~, i~^T, out_dtype=f32) (no maxima); bf16-out "
+        f"torch.matmul of the rounded operands {lib16:.4f} ms (a yardstick, "
+        f"not the same function); {out['score_bf16']}")
     torch.cuda.empty_cache()
 
     # K16 on the probes' inputs, at width 200 with shifts past n and below
@@ -1646,24 +1791,38 @@ def check_probe_kernels(u, items) -> dict:
               [roll.segment_roll_plain(flat, st, probe_roll.SEGMENT_LEN)])
         for st in (starts, torch.tensor([8100, 0, 127, 128, 8191], **i32)))
     n_seg = starts.numel() * probe_roll.SEGMENT_LEN
-    for name, fn, plain_fn, lib, n_bytes in (
-            ("roll_lanes", lambda: roll.roll_lanes(probe_x, probe_s),
-             lambda: roll.roll_lanes_plain(probe_x, probe_s),
-             lambda: torch.roll(probe_x, -37, dims=1), 2 * 4 * 256 + 4),
-            ("lane_slice", lambda: roll.lane_slice(slice_x, probe_s),
-             lambda: roll.lane_slice_plain(slice_x, probe_s), None,
-             2 * 4 * 128 + 4),
-            ("segment_roll", lambda: roll.segment_roll(
-                flat, starts, probe_roll.SEGMENT_LEN),
-             lambda: roll.segment_roll_plain(flat, starts,
-                                             probe_roll.SEGMENT_LEN), None,
-             4 * (2 * n_seg + starts.numel()))):
-        out[name] = dict(max_abs_err=errs[name], ms=cuda_ms(fn, 100),
-                         plain_ms=cuda_ms(plain_fn, 100),
-                         library_ms=None if lib is None else cuda_ms(lib, 100),
-                         **bound(n_bytes))
+    check_launch_stream(dev)
+    k16 = {"roll_lanes": (lambda: roll.roll_lanes(probe_x, probe_s),
+                          lambda: roll.roll_lanes_plain(probe_x, probe_s),
+                          2 * 4 * 256 + 4),
+           "lane_slice": (lambda: roll.lane_slice(slice_x, probe_s),
+                          lambda: roll.lane_slice_plain(slice_x, probe_s),
+                          2 * 4 * 128 + 4),
+           "segment_roll": (lambda: roll.segment_roll(
+               flat, starts, probe_roll.SEGMENT_LEN),
+               lambda: roll.segment_roll_plain(flat, starts,
+                                               probe_roll.SEGMENT_LEN),
+               4 * (2 * n_seg + starts.numel()))}
+    for name, (fn, plain_fn, n_bytes) in k16.items():
+        out[name] = dict(
+            max_abs_err=errs[name], ms=cuda_ms(fn, 100),
+            plain_ms=cuda_ms(plain_fn, 100),
+            library_ms=(cuda_ms(lambda: torch.roll(probe_x, -37, dims=1), 100)
+                        if name == "roll_lanes" else None),
+            **bound(n_bytes))
+    # a diagnostic beside the row's events loop: a call is its host work,
+    # so the three and torch.roll take turns and each keeps its median round
+    loop = cuda_ms_turns({**{k: v[0] for k, v in k16.items()},
+                          "torch.roll": lambda: torch.roll(probe_x, -37,
+                                                           dims=1)})
+    for name, (fn, _, _) in k16.items():
+        device = _common.device_ops_ms(fn, dev, 100, f"{name}_kernel")
         log(f"K16 {name} at the probe's shape: bit-equal (also width 200, "
-            f"shifts 237, -5, 400, reads past the end); {out[name]}")
+            f"shifts 237, -5, 400, reads past the end); device time per "
+            f"launch (profiler) {device}; events loop in turns (median of "
+            f"{TURNS} rounds of {TURN_ITERS} calls, with the other two and "
+            f"torch.roll {loop['torch.roll']:.4f} ms) {loop[name]:.4f} ms; "
+            f"{out[name]}")
 
     # K17: both mask dtypes at the probe's [16, 168, 128] and at
     # [1024, 168, 128]; timed there with the bool mask

@@ -16,9 +16,12 @@
 // roll rotates only power-of-two lane widths correctly; here the rotation is
 // index arithmetic and holds at any width.
 //
-// Bound on the H100: bytes (each element read and written once). The shift
-// and starts are read by the kernel itself, so no host sync sits between
-// the op that computes them and this one. segment_roll follows the probe's
+// Bound on the H100: bytes (each element read and written once), but at the
+// probes' shapes (1-8 KB) a call is its launch: the wrappers do no more
+// host work than the checks and the output's allocation, and the kernels
+// one thread per element with 32-bit lane arithmetic. The shift and starts
+// are read by the kernel itself, so no host sync sits between the op that
+// computes them and this one. segment_roll follows the probe's
 // pattern: a block owns one row, reads the 128-aligned run around it into
 // shared memory (coalesced, in chunks of 1,024 outputs) and writes it back
 // rotated by starts[b] % 128.
@@ -31,33 +34,31 @@ constexpr int THREADS = 256;
 constexpr int CHUNK = 1024;  // outputs of segment_roll per shared stage
 constexpr int ALIGN = 128;
 
+// one thread per element of a row: the row from blockIdx.y (strided past
+// 65,535 rows), the lane in 32 bits; only the row's offset is 64-bit
 __global__ void __launch_bounds__(THREADS)
 roll_lanes_kernel(const uint32_t* __restrict__ x,
                   const int* __restrict__ shift, int64_t rows, int n,
                   uint32_t* __restrict__ out) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
   int s = *shift % n;
   if (s < 0) s += n;
-  const int64_t total = rows * n;
-  for (int64_t idx = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-       idx < total; idx += static_cast<int64_t>(gridDim.x) * THREADS) {
-    const int i = static_cast<int>(idx % n);
-    const int j = i + s < n ? i + s : i + s - n;
-    out[idx] = x[idx - i + j];
-  }
+  const int j = i < n - s ? i + s : i - (n - s);  // (i + s) mod n
+  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y)
+    out[r * n + i] = x[r * n + j];
 }
 
 __global__ void __launch_bounds__(THREADS)
 lane_slice_kernel(const uint32_t* __restrict__ x,
                   const int* __restrict__ start, int64_t rows, int n,
                   int width, uint32_t* __restrict__ out) {
-  const int64_t s = *start;
-  const int64_t total = rows * width;
-  for (int64_t idx = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-       idx < total; idx += static_cast<int64_t>(gridDim.x) * THREADS) {
-    const int64_t r = idx / width;
-    const int64_t p = s + idx % width;
-    out[idx] = (p >= 0 && p < n) ? x[r * n + p] : 0u;
-  }
+  const int j = blockIdx.x * THREADS + threadIdx.x;
+  if (j >= width) return;
+  const int64_t p = static_cast<int64_t>(*start) + j;
+  const bool in = p >= 0 && p < n;
+  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y)
+    out[r * width + j] = in ? x[r * n + p] : 0u;
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -83,9 +84,10 @@ segment_roll_kernel(const uint32_t* __restrict__ flat, int64_t n_flat,
   }
 }
 
-unsigned blocks_for(int64_t total) {
-  const int64_t b = (total + THREADS - 1) / THREADS;
-  return static_cast<unsigned>(b < 65536 ? (b > 0 ? b : 1) : 65536);
+// lanes on x, rows on y (at most 65,535 blocks; the kernels stride past)
+dim3 row_grid(int64_t rows, int lanes) {
+  return dim3(static_cast<unsigned>((lanes + THREADS - 1) / THREADS),
+              static_cast<unsigned>(rows < 65535 ? rows : 65535));
 }
 
 }  // namespace
@@ -95,7 +97,7 @@ extern "C" int sibrar_roll_lanes(const void* x, const void* shift,
                                  long long rows, int n, void* out,
                                  void* stream) {
   if (rows == 0 || n == 0) return 0;
-  roll_lanes_kernel<<<blocks_for(rows * n), THREADS, 0,
+  roll_lanes_kernel<<<row_grid(rows, n), THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<const int*>(shift), rows, n,
       static_cast<uint32_t*>(out));
@@ -107,7 +109,7 @@ extern "C" int sibrar_lane_slice(const void* x, const void* start,
                                  long long rows, int n, int width, void* out,
                                  void* stream) {
   if (rows == 0 || width == 0) return 0;
-  lane_slice_kernel<<<blocks_for(rows * width), THREADS, 0,
+  lane_slice_kernel<<<row_grid(rows, width), THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<const int*>(start), rows, n,
       width, static_cast<uint32_t*>(out));

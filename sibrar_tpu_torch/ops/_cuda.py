@@ -50,7 +50,7 @@ _SIGNATURES = {
     "sibrar_window_max": [_P, _LL, _P, _P],
     "sibrar_window_retile": [_P, _I, _I, _P, _P, _P],
     "sibrar_score_variant": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "sibrar_score_bf16": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "sibrar_score_bf16": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
     "sibrar_roll_lanes": [_P, _P, _LL, _I, _P, _P],
     "sibrar_lane_slice": [_P, _P, _LL, _I, _I, _P, _P],
     "sibrar_segment_roll": [_P, _LL, _P, _I, _I, _P, _P],
@@ -58,9 +58,11 @@ _SIGNATURES = {
 }
 # Size queries: name -> argument types (each returns a byte count)
 _QUERIES = {"sibrar_spmm_fwd_workspace": [_I, _I, _I],
-            "sibrar_spmm_bwd_workspace": [_I, _I, _I]}
+            "sibrar_spmm_bwd_workspace": [_I, _I, _I],
+            "sibrar_score_bf16_workspace": [_I, _I]}
 
 _lib = None
+_fns: dict = {}  # C entry -> its ctypes function, resolved on first launch
 build_info: dict = {}
 
 
@@ -145,12 +147,22 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+def current_stream() -> int:
+    """The raw handle of PyTorch's current stream on the current device
+    (what ``torch.cuda.current_stream().cuda_stream`` gives, without
+    building a ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
 def launch(name: str, *args) -> None:
-    """Call C entry `name` on the current stream; raise on a launch error."""
-    lib = build()
-    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    """Call C entry `name` on the current stream; raise on a launch error.
+    The entry's ctypes function is looked up once per process."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = getattr(build(), name)
+    err = fn(*args, current_stream())
     if err != 0:
-        text = lib.sibrar_error_string(err).decode()
+        text = build().sibrar_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({text})")
 
 
@@ -162,12 +174,22 @@ def query(name: str, *args) -> int:
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """True for CUDA tensors (launch the kernel), False for CPU tensors (take
     the plain version); raises on mixed or other devices."""
-    dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
+    first, *rest = tensors  # loops, not generators: this runs every call
+    if first.is_cuda:
+        index = first.get_device()
+        for t in rest:
+            if not t.is_cuda or t.get_device() != index:
+                break
+        else:
+            return True
+    elif first.is_cpu:
+        for t in rest:
+            if not t.is_cpu:
+                break
+        else:
+            return False
+    devices = {str(t.device) for t in tensors}
+    if len(devices) > 1:
         raise ValueError(f"tensors on different devices: "
                          f"{[str(t.device) for t in tensors]}")
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"no kernel or plain version for device {dev}")
+    raise ValueError(f"no kernel or plain version for device {devices.pop()}")

@@ -27,8 +27,9 @@ and its maxima are K2's in its layout.
 Kernel K15 (``csrc/score_bf16.cu``) is the precision probe's ``default``:
 on the TPU, precision DEFAULT is one bf16 pass of the matrix unit with f32
 sums. K15 rounds ``u`` and ``items`` to bf16 (round to nearest even) and
-multiplies them on the tensor cores with f32 accumulators, returning
-``full``'s ``(s, wmax_t)``.
+multiplies them on the tensor cores (``wgmma``) with f32 accumulators,
+returning ``full``'s ``(s, wmax_t)``; each item is read from device memory
+once.
 
 The precision probe's modes map so: ``default`` is K15; ``highest`` and
 ``asis`` (no precision argument) are K14 ``full``, K2's f32 FFMA loop,
@@ -159,7 +160,9 @@ def score_bf16(u: torch.Tensor, items: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """K15: ``(scores [B, C], wmax_t [C/128, B])`` from one bf16 pass on
     the tensor cores (operands rounded to bf16, f32 accumulators), for f32
-    ``u [B, D]`` and ``items [C, D]`` with C % 128 == 0 and D % 4 == 0."""
+    ``u [B, D]`` and ``items [C, D]`` with C % 128 == 0 and D % 4 == 0.
+    Takes a workspace for ``u`` rounded once (``sibrar_score_bf16_workspace``
+    bytes: 32 KB per 64 users and 256 depths)."""
     b, c, d = _shapes(u, items, "score_bf16")
     if not _cuda.use_kernel(u, items):
         return score_bf16_plain(u, items)
@@ -169,8 +172,10 @@ def score_bf16(u: torch.Tensor, items: torch.Tensor
     scores = torch.empty((b, c), dtype=torch.float32, device=u.device)
     wmax_t = torch.empty((c // WINDOW, b), dtype=torch.float32,
                          device=u.device)
+    work = torch.empty(_cuda.query("sibrar_score_bf16_workspace", b, d),
+                       dtype=torch.uint8, device=u.device)
     _cuda.launch("sibrar_score_bf16", u.data_ptr(), items.data_ptr(), b, c, d,
-                 scores.data_ptr(), wmax_t.data_ptr())
+                 scores.data_ptr(), wmax_t.data_ptr(), work.data_ptr())
     score_bf16.launches += 1
     return scores, wmax_t
 

@@ -24,11 +24,13 @@ import torch
 from sibrar_tpu_torch.ops import _cuda
 
 
-def _scalar(t: torch.Tensor, name: str) -> torch.Tensor:
+def _scalar(t: torch.Tensor, name: str) -> int:
+    """The device address of the one int32 in ``t`` (any shape of one
+    element: its data pointer is the value's)."""
     if t.dtype != torch.int32 or t.numel() != 1:
         raise ValueError(f"{name}: one int32 value, got {t.dtype} "
                          f"{tuple(t.shape)}")
-    return t.reshape(1).contiguous()
+    return t.data_ptr()
 
 
 def _words(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -60,10 +62,11 @@ def roll_lanes(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
                          f"{tuple(x.shape)}")
     if not _cuda.use_kernel(x, shift):
         return roll_lanes_plain(x, shift)
-    x, shift = _words(x, "roll_lanes"), _scalar(shift, "roll_lanes")
+    x, shift_ptr = _words(x, "roll_lanes"), _scalar(shift, "roll_lanes")
+    rows, n = x.shape
     out = torch.empty_like(x)
-    _cuda.launch("sibrar_roll_lanes", x.data_ptr(), shift.data_ptr(),
-                 x.shape[0], x.shape[1], out.data_ptr())
+    _cuda.launch("sibrar_roll_lanes", x.data_ptr(), shift_ptr, rows, n,
+                 out.data_ptr())
     roll_lanes.launches += 1
     return out
 
@@ -89,10 +92,11 @@ def lane_slice(x: torch.Tensor, start: torch.Tensor,
                          f"{tuple(x.shape)}, {width}")
     if not _cuda.use_kernel(x, start):
         return lane_slice_plain(x, start, width)
-    x, start = _words(x, "lane_slice"), _scalar(start, "lane_slice")
-    out = torch.empty((x.shape[0], width), dtype=x.dtype, device=x.device)
-    _cuda.launch("sibrar_lane_slice", x.data_ptr(), start.data_ptr(),
-                 x.shape[0], x.shape[1], width, out.data_ptr())
+    x, start_ptr = _words(x, "lane_slice"), _scalar(start, "lane_slice")
+    rows, n = x.shape
+    out = x.new_empty(rows, width)
+    _cuda.launch("sibrar_lane_slice", x.data_ptr(), start_ptr, rows, n, width,
+                 out.data_ptr())
     lane_slice.launches += 1
     return out
 
@@ -123,10 +127,10 @@ def segment_roll(flat: torch.Tensor, starts: torch.Tensor,
     if starts.dtype != torch.int32:
         raise ValueError(f"segment_roll: int32 starts, got {starts.dtype}")
     flat, starts = _words(flat, "segment_roll"), starts.contiguous()
-    out = torch.empty((starts.shape[0], length), dtype=flat.dtype,
-                      device=flat.device)
+    n_rows = starts.shape[0]
+    out = flat.new_empty(n_rows, length)
     _cuda.launch("sibrar_segment_roll", flat.data_ptr(), flat.numel(),
-                 starts.data_ptr(), starts.shape[0], length, out.data_ptr())
+                 starts.data_ptr(), n_rows, length, out.data_ptr())
     segment_roll.launches += 1
     return out
 

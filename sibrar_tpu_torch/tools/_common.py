@@ -120,3 +120,38 @@ def rel_vs_f32_slice(scores: torch.Tensor, u: torch.Tensor,
     items, ``ref`` the f32 library product of that slice."""
     ref = u[:8] @ items[:1024].T
     return float((scores[:8, :1024] - ref).abs().max() / ref.abs().max())
+
+
+def bf16_within(name: str, s: torch.Tensor, wmax_t: torch.Tensor,
+                u: torch.Tensor, items: torch.Tensor,
+                rows: int = 128) -> tuple[float, float]:
+    """Hold K15's outputs ``s [B, C]`` and ``wmax_t [C/128, B]`` for
+    ``u [B, D]``, ``items [C, D]`` to ``D 2^-24 (|u~| @ |i~|^T)`` of the
+    exact product of the bf16-rounded operands u~, i~ (float64 sums, exact
+    to 2^-53 relative at these depths), the maxima to the window maxima of
+    the bound, over chunks of ``rows`` users; raises AssertionError past it.
+    The plain version, an f32 product, carries its own rounding of up to
+    that bound, so the check does not compare against it. Returns the
+    largest |s - exact| and the largest |s - exact| / bound."""
+    b, c = s.shape
+    d = u.shape[1]
+    ib = items.bfloat16().double()
+    ib_abs = ib.abs()
+    err = ratio = 0.0
+    for r in range(0, b, rows):
+        ub = u[r:r + rows].bfloat16().double()
+        n = ub.shape[0]
+        exact = ub @ ib.T
+        tol = d * 2.0 ** -24 * (ub.abs() @ ib_abs.T)
+        diff = (s[r:r + rows].double() - exact).abs()
+        wdiff = (wmax_t[:, r:r + rows].T.double()
+                 - exact.view(n, c // 128, 128).amax(-1)).abs()
+        if not (bool((diff <= tol).all()) and bool(
+                (wdiff <= tol.view(n, c // 128, 128).amax(-1)).all())):
+            raise AssertionError(
+                f"{name}: past D 2^-24 (|u~| @ |i~|^T) of the rounded "
+                f"operands' exact product by up to "
+                f"{float((diff - tol).max())} (users {r}-{r + n - 1})")
+        err = max(err, float(diff.max()))
+        ratio = max(ratio, float((diff / tol.clamp_min(1e-300)).max()))
+    return err, ratio

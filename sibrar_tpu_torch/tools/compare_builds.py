@@ -1,28 +1,31 @@
 """Time the score GEMM (K2, K14 ``full``), K5 ``dw_matmul``, K6
-``spmm_fwd``, K7 ``spmm_bwd``, K4 ``peel_values`` and K13 ``exact_topk``
+``spmm_fwd``, K7 ``spmm_bwd``, K4 ``peel_values``, K13 ``exact_topk``, K15
+``score_bf16`` and K16 (``roll_lanes``, ``lane_slice``, ``segment_roll``)
 as built from several kernel source trees, in turns on one card.
 
     python3 -m sibrar_tpu_torch.tools.compare_builds DIR [DIR ...]
-        [--only NAME ...]
+        [--only NAME ...] [--sass]
 
 Each DIR holds kernel sources laid out as ``sibrar_tpu_torch/csrc/`` (any
 of ``dw_matmul.cu``, ``score_wmax.cu``, ``score_variants.cu``,
-``spmm_onehot.cu``, ``peel_values.cu``, ``exact_topk.cu`` with the headers
-they include, and ``error_string.cu``), for example the port's own
-``csrc`` and an unpacked older commit's. Each tree is built with the
-port's nvcc flags into its own library under ``sibrar_tpu_torch/_build/``;
-its kernels are checked against the plain versions (K2 and K14 within
-``1e-5 (1 + max |s|)``, K5 within ``2 R eps |vec| . |g|`` per element, K6
-within ``2 n eps`` times the sum of the row's n |kernel rows| and the same
-bits on a second call, K4 equal with NaN in the same places, K7 bit-equal
-to its plain version on the CPU and the same bits on a second call, or,
-for a tree whose K7 sums with atomics (no ``sibrar_spmm_bwd_workspace``),
-within ``2 n eps`` times the sum of the column's n |g rows|, K13 bit-equal),
-then timed with CUDA events at the main paths' shapes in the order DIR1,
-DIR2, ..., DIRn, DIRn, ..., DIR1, so a drift of the card's clock cancels in
-each tree's mean. One PyTorch call for the same
-function is timed beside them where one exists. Prints one JSON line: the
-card, then per kernel each tree's times; each build's registers and spills
+``spmm_onehot.cu``, ``peel_values.cu``, ``exact_topk.cu``,
+``score_bf16.cu``, ``roll.cu`` with the headers they include, and
+``error_string.cu``), for example the port's own ``csrc`` and an unpacked
+older commit's. Each tree is built with the port's nvcc flags into its own
+library under ``sibrar_tpu_torch/_build/``; its kernels are checked against
+the plain versions (K2 and K14 within ``1e-5 (1 + max |s|)``, K5 within
+``2 R eps |vec| . |g|`` per element, K6 within ``2 n eps`` times the sum of
+the row's n |kernel rows| and the same bits on a second call, K4 equal with
+NaN in the same places, K7 bit-equal to its plain version on the CPU and
+the same bits on a second call, or, for a tree whose K7 sums with atomics
+(no ``sibrar_spmm_bwd_workspace``), within ``2 n eps`` times the sum of the
+column's n |g rows|, K13 bit-equal, K15 within ``D eps (|u~| @ |i~|^T)``
+of the exact product of the bf16-rounded operands u~, i~ with maxima
+bit-equal to those of its own scores, K16 bit-equal), then timed with CUDA
+events at the main paths' shapes in the order DIR1, DIR2, ..., DIRn, DIRn,
+..., DIR1, so a drift of the card's clock cancels in each tree's mean. One
+PyTorch call for the same function is timed beside them where one exists.
+Prints one JSON line: the card, then per kernel each tree's times; each build's registers and spills
 (``-Xptxas -v``) go to stderr, and with ``--sass`` each kernel function's
 static SASS instruction count by opcode (``cuobjdump -sass``) too.
 
@@ -35,7 +38,14 @@ gradient; an older tree's K7, which adds into a zeroed gradient, is timed
 with that zero-fill (``torch.Tensor.zero_``) inside its step, so both sides
 write the whole gradient. K4's input is the serving path's: the windows of
 the K2-shaped scores (B = 1,024, C = 100,352) with the 160 largest maxima,
-163,840 rows, t = 8. K13's is those scores, k = 100.
+163,840 rows, t = 8. K13's is those scores, k = 100. K15 runs at the
+precision probe's B = 1,024, C = 501,760, D = 256 (an older tree without
+``sibrar_score_bf16_workspace`` is called without the workspace), beside
+``torch.mm(u~, i~^T, out_dtype=torch.float32)`` where this torch has that
+overload (f32 scores of the rounded operands, no maxima); K16 at the roll
+probes' shapes, beside ``torch.roll`` for ``roll_lanes``. Every kernel
+launches through ``_cuda.current_stream()`` with its C function looked up
+once, as the port's wrappers do.
 """
 from __future__ import annotations
 
@@ -53,12 +63,12 @@ import torch
 
 from sibrar_tpu_torch import full_f32
 from sibrar_tpu_torch.ops import _cuda
-from sibrar_tpu_torch.tools._common import cuda_ms
+from sibrar_tpu_torch.tools._common import bf16_within, cuda_ms
 
 F32_EPS = 2.0 ** -24
 SOURCES = ("dw_matmul.cu", "score_wmax.cu", "score_variants.cu",
            "spmm_onehot.cu", "peel_values.cu", "exact_topk.cu",
-           "error_string.cu")
+           "score_bf16.cu", "roll.cu", "error_string.cu")
 # an older tree's K7 (no workspace, adds into a zeroed gradient)
 OLD_SPMM_BWD = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p,
                                                              ctypes.c_void_p]
@@ -105,7 +115,8 @@ def build_tree(tree: Path, sass: bool = False) -> ctypes.CDLL:
                                     str(s)], o)
                       for s, o in zip(srcs, objs) if not o.exists()])
     for line in log.splitlines():  # registers and spills, to stderr
-        if any(w in line for w in ("Compiling entry", "Used", "spill")):
+        if any(w in line for w in ("Compiling entry", "Used", "spill",
+                                   "Performance Loss")):
             print(f"{tree}: {line.strip()}", file=sys.stderr)
     for obj in objs if sass else ():
         for fn, ops in sass_counts(obj).items():
@@ -130,11 +141,22 @@ def build_tree(tree: Path, sass: bool = False) -> ctypes.CDLL:
         lib.sibrar_spmm_bwd_workspace.restype = ctypes.c_longlong
     elif hasattr(lib, "sibrar_spmm_bwd"):
         lib.sibrar_spmm_bwd.argtypes = OLD_SPMM_BWD
+    if hasattr(lib, "sibrar_score_bf16_workspace"):
+        lib.sibrar_score_bf16_workspace.restype = ctypes.c_longlong
+    elif hasattr(lib, "sibrar_score_bf16"):  # older trees: no workspace
+        lib.sibrar_score_bf16.argtypes = _cuda._SIGNATURES[
+            "sibrar_score_bf16"][:-1]
     return lib
 
 
+_FNS: dict = {}  # (library, entry) -> ctypes function
+
+
 def call(lib, name: str, *args) -> None:
-    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    fn = _FNS.get((id(lib), name))
+    if fn is None:
+        fn = _FNS[id(lib), name] = getattr(lib, name)
+    err = fn(*args, _cuda.current_stream())
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
 
@@ -308,6 +330,88 @@ def peel_case(dev, u, items) -> dict:
     return {"peel_values": ("sibrar_peel_values", step, check, 50, None)}
 
 
+def bf16_case(dev, gen) -> dict:
+    """K15 at the precision probe's shape, beside the library's bf16
+    product with f32 output where this torch has it."""
+    b, c, d = SCORE_SHAPE[0], PROBE_C, SCORE_SHAPE[2]
+    u = torch.randn(b, d, device=dev, generator=gen)
+    items = torch.randn(c, d, device=dev, generator=gen) / d ** 0.5
+    s = torch.empty(b, c, device=dev)
+    wmax_t = torch.empty(c // 128, b, device=dev)
+    work = {}
+
+    def step(lib):
+        if not hasattr(lib, "sibrar_score_bf16_workspace"):
+            call(lib, "sibrar_score_bf16", u.data_ptr(), items.data_ptr(), b,
+                 c, d, s.data_ptr(), wmax_t.data_ptr())
+            return
+        if id(lib) not in work:
+            work[id(lib)] = torch.empty(
+                lib.sibrar_score_bf16_workspace(b, d), dtype=torch.uint8,
+                device=dev)
+        call(lib, "sibrar_score_bf16", u.data_ptr(), items.data_ptr(), b, c,
+             d, s.data_ptr(), wmax_t.data_ptr(), work[id(lib)].data_ptr())
+
+    def check(lib):
+        step(lib)
+        if not torch.equal(wmax_t, s.view(b, -1, 128).amax(-1).T):
+            raise AssertionError("score_bf16: maxima not those of its "
+                                 "scores")
+        bf16_within("score_bf16", s, wmax_t, u, items)
+
+    u16, i16 = u.bfloat16(), items.bfloat16()
+    try:
+        torch.mm(u16[:1], i16[:128].T, out_dtype=torch.float32)
+        lib_call = (lambda: torch.mm(u16, i16.T, out_dtype=torch.float32))
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        print(f"torch.mm(..., out_dtype=torch.float32) not offered by torch "
+              f"{torch.__version__}: {e}", file=sys.stderr)
+        lib_call = None
+    return {"score_bf16": ("sibrar_score_bf16", step, check, 10, lib_call)}
+
+
+def roll_cases(dev) -> dict:
+    """K16's three entries at the roll probes' shapes, bit-equal to their
+    plain versions; ``torch.roll`` beside ``roll_lanes``."""
+    from sibrar_tpu_torch.ops import roll
+    from sibrar_tpu_torch.tools import probe_roll
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    shift = torch.tensor([37], **i32)
+    x = torch.arange(256, dtype=torch.float32, device=dev)[None]
+    x512 = torch.arange(512, dtype=torch.float32, device=dev)[None]
+    flat = torch.arange(probe_roll.SEGMENT_N, **i32)
+    starts = torch.tensor(probe_roll.SEGMENT_STARTS, **i32)
+    n = probe_roll.SEGMENT_LEN
+    outs = {"roll_lanes": torch.empty_like(x),
+            "lane_slice": torch.empty(1, 128, device=dev),
+            "segment_roll": torch.empty(starts.numel(), n, **i32)}
+    args = {"roll_lanes": (x, shift, 1, 256),  # tensors pass as pointers
+            "lane_slice": (x512, shift, 1, 512, 128),
+            "segment_roll": (flat, flat.numel(), starts, starts.numel(), n)}
+    want = {"roll_lanes": roll.roll_lanes_plain(x, shift),
+            "lane_slice": roll.lane_slice_plain(x512, shift),
+            "segment_roll": roll.segment_roll_plain(flat, starts, n)}
+    out = {}
+    for name in outs:
+        entry = f"sibrar_{name}"
+
+        def step(lib, entry=entry, name=name):
+            call(lib, entry, *(a.data_ptr() if torch.is_tensor(a) else a
+                               for a in args[name]), outs[name].data_ptr())
+
+        def check(lib, step=step, name=name):
+            outs[name].fill_(-1)
+            step(lib)
+            if not torch.equal(outs[name].view(torch.int32),
+                               want[name].view(torch.int32)):
+                raise AssertionError(f"{name} differs from plain")
+        out[name] = (entry, step, check, 100,
+                     (lambda: torch.roll(x, -37, dims=1))
+                     if name == "roll_lanes" else None)
+    return out
+
+
 def cases(dev, only=None) -> dict:
     """name -> (C entry, step(lib), check(lib), iters, library call): one
     input set per kernel, shared by every tree. ``check`` raises where the
@@ -317,7 +421,8 @@ def cases(dev, only=None) -> dict:
     out = {}
     want = set(only or ("dw_matmul", "score_wmax", "score_full", "spmm_fwd",
                         "spmm_fwd_cut64", "spmm_bwd", "peel_values",
-                        "exact_topk"))
+                        "exact_topk", "score_bf16", "roll_lanes",
+                        "lane_slice", "segment_roll"))
     if want & {"spmm_fwd", "spmm_fwd_cut64", "spmm_bwd"}:
         out.update(spmm_cases(dev))
     if "dw_matmul" in want:
@@ -332,6 +437,10 @@ def cases(dev, only=None) -> dict:
         out.update(peel_case(dev, u, items))
         out.update(topk_case(dev, u, items))
         del items
+    if "score_bf16" in want:
+        out.update(bf16_case(dev, gen))
+    if want & {"roll_lanes", "lane_slice", "segment_roll"}:
+        out.update(roll_cases(dev))
     return {k: v for k, v in out.items() if k in want}
 
 
@@ -410,7 +519,7 @@ def main(argv=None) -> None:
     for name, (entry, step, check, iters, lib_call) in cases(
             dev, args.only).items():
         have = [hasattr(lib, entry) for lib in libs]
-        for lib, ok in zip(libs, have):
+        for tree, lib, ok in zip(args.trees, libs, have):
             if ok:
                 check(lib)
         times = [[] for _ in libs]

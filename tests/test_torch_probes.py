@@ -195,6 +195,93 @@ def test_bf16_default_precision_rounds(monkeypatch, capsys, pallas_outputs):
     assert set(record) <= set(port) and port["rel_vs_xla_slice"] > 1e-4
 
 
+# f32 values whose bf16 rounding is an edge: ties in both directions, just
+# off a tie, subnormals that stay, round up to the smallest normal or vanish,
+# overflow to -inf, +-inf, NaN and signed zeros
+ROUNDING_EDGES = np.array(
+    [1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, -(1.0 + 2.0 ** -8),
+     1.0 + 2.0 ** -8 + 2.0 ** -20, 2.0 ** -130, 3 * 2.0 ** -134,
+     2.0 ** -126 - 2.0 ** -149, -(2.0 ** -140), 2.0 ** -149, 2.0 ** -135,
+     np.inf, -np.inf, np.nan, 0.0, -0.0, 3.0e38, -3.4e38], np.float32)
+
+
+def _jax_bf16(x: np.ndarray) -> np.ndarray:
+    """JAX's rounding to bf16, back in f32."""
+    return np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def test_bf16_plain_rounds_as_jax():
+    """``score_bf16_plain`` rounds as JAX's ``astype(jnp.bfloat16)``: on the
+    rounding edges as values bit for bit, NaN in the same places (the two
+    give NaN different payloads), and through the product with one-hot
+    users (every row 1.0 at depth d0, the edges at d0 of the items, finite
+    elsewhere), whose scores are the rounded d0 column (zeros by value, NaN
+    by place)."""
+    want = _jax_bf16(ROUNDING_EDGES)
+    got = torch.from_numpy(ROUNDING_EDGES).bfloat16().float().numpy()
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.int32),
+                                  want[~nan].view(np.int32))
+    b, c, d, d0 = 5, 128, 20, 13
+    items = np.random.default_rng(4).normal(size=(c, d)).astype(np.float32)
+    n = ROUNDING_EDGES.size
+    items[:n, d0] = ROUNDING_EDGES
+    items[c - n:, d0] = ROUNDING_EDGES[::-1]
+    u = np.zeros((b, d), np.float32)
+    u[:, d0] = 1.0
+    scores, wmax_t = (t.numpy() for t in gemm_probe.score_bf16_plain(
+        torch.from_numpy(u), torch.from_numpy(items)))
+    np.testing.assert_array_equal(
+        scores, np.broadcast_to(_jax_bf16(items[:, d0]), (b, c)))
+    np.testing.assert_array_equal(wmax_t.T, _window_max(scores))
+
+
+@pytest.mark.parametrize("b,d", [(1, 4), (37, 20), (65, 100), (63, 260)])
+def test_bf16_plain_off_the_tiles_within_bound(b, d):
+    """At ragged B and D (D % 4 == 0, not a multiple of 16) the plain scores
+    lie within ``D 2^-24 (|u~| @ |i~|^T)`` of a float64 product of JAX's
+    rounded operands u~, i~; the maxima are those of the scores."""
+    rng = np.random.default_rng(b * 1000 + d)
+    u = rng.normal(size=(b, d)).astype(np.float32)
+    items = rng.normal(size=(384, d)).astype(np.float32)
+    ub, ib = (_jax_bf16(x).astype(np.float64) for x in (u, items))
+    scores, wmax_t = (t.numpy() for t in gemm_probe.score_bf16_plain(
+        torch.from_numpy(u), torch.from_numpy(items)))
+    bound = d * 2.0 ** -24 * (np.abs(ub) @ np.abs(ib).T)
+    assert scores.shape == (b, 384) and wmax_t.shape == (3, b)
+    assert np.all(np.abs(scores - ub @ ib.T) <= bound)
+    np.testing.assert_array_equal(wmax_t.T, _window_max(scores))
+
+
+@pytest.mark.parametrize("b,d", [(1, 4), (65, 100), (63, 260)])
+def test_bf16_bound_check_holds_plain_and_catches_a_step(b, d):
+    """``_common.bf16_within``, the card checks' hold on K15 (within ``D
+    2^-24 (|u~| @ |i~|^T)`` of the rounded operands' exact product, over
+    chunks of users): the plain version's f32 scores and maxima pass at
+    ragged B and D; a score, or a window maximum, twice its bound off the
+    exact value raises."""
+    rng = np.random.default_rng(7 * b + d)
+    u = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    items = torch.from_numpy(rng.normal(size=(384, d)).astype(np.float32))
+    scores, wmax_t = gemm_probe.score_bf16_plain(u, items)
+    err, ratio = _common.bf16_within("plain", scores, wmax_t, u, items,
+                                     rows=32)
+    assert 0.0 <= ratio <= 1.0 and err >= 0.0
+    ub, ib = u.bfloat16().double(), items.bfloat16().double()
+    exact = ub @ ib.T
+    tol = d * 2.0 ** -24 * (ub.abs() @ ib.abs().T)
+    bad = scores.clone()
+    bad[b - 1, 200] = float(exact[b - 1, 200] + 2 * tol[b - 1, 200])
+    with pytest.raises(AssertionError, match="past D 2"):
+        _common.bf16_within("bad score", bad, wmax_t, u, items, rows=32)
+    bad_w = wmax_t.clone()
+    bad_w[1, b - 1] = float(exact[b - 1, 128:256].max()
+                            + 2 * tol[b - 1, 128:256].max())
+    with pytest.raises(AssertionError, match="past D 2"):
+        _common.bf16_within("bad max", scores, bad_w, u, items, rows=32)
+
+
 @pytest.mark.parametrize("which", ["roll", "unaligned", "segment"])
 def test_roll_probe_matches_jax(which, monkeypatch, pallas_outputs):
     module = _jax_probe("probe_roll", monkeypatch)

@@ -87,12 +87,24 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    three GEMM probes is timed through their ``run`` entry points (CUDA
    events; the bisect's kernels under ``torch.profiler``), the roll probes
    and ``try_mask`` must report ok, and ``try_recover`` must find K11
-   bit-equal to plain at m = 168.
+   bit-equal to plain at m = 168;
+8. runs the port's CLI end to end from artifacts (`cli_phase`): the
+   onion-scale splits written by the port's ``write_reference_artifacts``
+   (~0.9 GB, deleted at the end), each split loaded by ``RecDataset.load``
+   and held bit for bit to the in-memory one, then ``python -m
+   sibrar_tpu_torch.run_experiment -a sbnet -c
+   conf/single/sbnet_onion18_huge_no-user.yml -t train_val_test`` in this
+   process with the onion-scale overrides of ``tests/test_cli_e2e.py`` and
+   2 epochs of 200 steps (``run_settings.device: tpu`` from the YAML: the
+   card): the four run files, JAX's metric keys, finite values,
+   ``metrics_val.yml`` equal to fit's best validation; its times (write,
+   load per split, host ms per train step, validation and test wall,
+   peak memory) are logged beside the card's name and power limit.
 
 Each path (default training, spmm training, fit, the four validation
-paths, serving, the five windowed rankers, the probes) runs with every
-launch count set to 0 just before it and read just after; each of its
-kernels must have launched, and kernels of other paths must not.
+paths, serving, the five windowed rankers, the probes, the CLI) runs with
+every launch count set to 0 just before it and read just after; each of
+its kernels must have launched, and kernels of other paths must not.
 
 Output: progress lines, then one JSON line with a row per kernel, the card's
 name and power limit, and as the last line
@@ -1900,6 +1912,186 @@ def probes_phase(kernels, count_path) -> dict:
     return measured
 
 
+CONF_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf",
+                         "single", "sbnet_onion18_huge_no-user.yml")
+# the CLI run's item features (those of the synthetic data) and budget
+CLI_FEATURES = (("ivec256", "vector"), ("bert", "vector"),
+                ("musicnn", "vector"), ("genres", "tag"))
+CLI_EPOCHS, CLI_BATCHES = 2, 200
+
+
+def same_split(split: str, got, want) -> None:
+    """A loaded split against the in-memory one, bit for bit: the pairs,
+    the split's users and items, every feature table (dtype too), its
+    category count and labels."""
+    import numpy as np
+
+    for field in ("interactions", "train_interactions", "val_interactions",
+                  "users_in_split", "items_in_split"):
+        g, w = getattr(got, field), getattr(want, field)
+        if not ((g is None and w is None) or (
+                g.dtype == w.dtype and np.array_equal(g, w))):
+            raise AssertionError(f"loaded {split}: {field} differs from "
+                                 "the in-memory split")
+    if list(got.item_features) != list(want.item_features):
+        raise AssertionError(f"loaded {split}: features "
+                             f"{list(got.item_features)}")
+    for name, w in want.item_features.items():
+        g = got.item_features[name]
+        if not (g.table.dtype == w.table.dtype
+                and np.array_equal(g.table, w.table) and g.kind == w.kind
+                and g.n_categories == w.n_categories
+                and g.value_map == w.value_map):
+            raise AssertionError(f"loaded {split}: feature {name} differs "
+                                 "from the in-memory table")
+
+
+def cli_phase(splits, kernels, count_path, card: str) -> None:
+    """The port's CLI on the card at full width: the onion-scale splits
+    written as artifacts (the port's ``write_reference_artifacts``) into a
+    temporary directory, each split loaded by ``RecDataset.load`` and held
+    bit for bit to the in-memory one, then ``python -m
+    sibrar_tpu_torch.run_experiment -a sbnet -c <the YAML> -t
+    train_val_test`` run in this process (``main``), with the overrides of
+    ``tests/test_cli_e2e.py``'s onion-scale run and a budget of
+    CLI_EPOCHS epochs of CLI_BATCHES steps; everything else comes from the
+    YAML chain, ``run_settings.device: tpu`` included, which lands on the
+    card. The four run files must exist with JAX's metric keys and finite
+    values, ``metrics_val.yml`` must hold fit's best validation, and K1-K5
+    must launch. The artifacts are deleted at the end."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sibrar_tpu_torch import config_from_dict
+    from sibrar_tpu_torch.config.loader import (
+        get_config,
+        load_split_type,
+        parse_conf_file,
+    )
+    from sibrar_tpu_torch.config.schema import FeatureDefinition
+    from sibrar_tpu_torch.data.dataset import RecDataset
+    from sibrar_tpu_torch.data.synthetic import write_reference_artifacts
+    from sibrar_tpu_torch.run_experiment import main as run_experiment
+    from sibrar_tpu_torch.train.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="sibrar_cli_")
+    data_dir, run_dir = os.path.join(root, "onion18"), os.path.join(root,
+                                                                   "run")
+    try:
+        t0 = time.perf_counter()
+        write_reference_artifacts(data_dir, splits, seed=7)
+        size = sum(os.path.getsize(os.path.join(data_dir, f))
+                   for f in os.listdir(data_dir))
+        log(f"CLI artifacts: {time.perf_counter() - t0:.2f} s to write "
+            f"{size / 2**30:.3f} GiB ({len(os.listdir(data_dir))} files) on "
+            f"{card}")
+        defs = [config_from_dict(FeatureDefinition, {"name": n, "type": t})
+                for n, t in CLI_FEATURES]
+        split_type = load_split_type(data_dir)
+        for split, want in splits.items():
+            t0 = time.perf_counter()
+            got = RecDataset.load(data_dir, split,
+                                  item_feature_definitions=defs,
+                                  split_type=split_type)
+            wall = time.perf_counter() - t0
+            same_split(split, got, want)
+            log(f"CLI load {split}: {wall:.2f} s, bit-equal to the "
+                f"in-memory split ({len(got.interactions)} pairs) on {card}")
+            del got
+
+        walls = {"train": [], "val": [], "test": []}
+        validations = []
+        train_epoch, validate = Trainer.train_epoch, Trainer.validate
+
+        def timed_epoch(self):
+            torch.cuda.synchronize()
+            t1, steps = time.perf_counter(), self.step
+            out = train_epoch(self)
+            torch.cuda.synchronize()
+            walls["train"].append((time.perf_counter() - t1,
+                                   self.step - steps))
+            return out
+
+        def timed_validate(self):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = validate(self)
+            torch.cuda.synchronize()
+            walls[self.val_evaluator.name].append(time.perf_counter() - t1)
+            if self.val_evaluator.name == "val":
+                validations.append(out)
+            return out
+
+        reset_counts(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        Trainer.train_epoch, Trainer.validate = timed_epoch, timed_validate
+        t0 = time.perf_counter()
+        try:
+            val_metrics, test_metrics = run_experiment([
+                "-a", "sbnet", "-c", CONF_PATH, "-d", data_dir,
+                "-n", "onion18", "-t", "train_val_test",
+                "-o", f"results_path={run_dir}",
+                "-o", "dataset.user_features=[]",
+                "-o", "dataset.item_features=[" + ", ".join(
+                    f"{{name: {n}, type: {t}}}" for n, t in CLI_FEATURES)
+                + "]",
+                "-o", "eval.group_metrics=[]",
+                "-o", f"learn.n_epochs={CLI_EPOCHS}",
+                "-o", f"learn.max_batches_per_epoch={CLI_BATCHES}"])
+        finally:
+            Trainer.train_epoch, Trainer.validate = train_epoch, validate
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        count_path("CLI train_val_test", ["segment_gather", "score_wmax",
+                                          "gather_windows", "peel_values",
+                                          "dw_matmul"],
+                   ("spmm_fwd", "spmm_bwd"))
+
+        files = sorted(os.listdir(run_dir))
+        if files != ["conf.yml", "metrics_test.yml", "metrics_val.yml",
+                     "model.pt"]:
+            raise AssertionError(f"CLI run files: {files}")
+        conf = get_config(os.path.join(run_dir, "conf.yml"))
+        if conf.run_settings.device != "tpu":
+            raise AssertionError(f"the CLI run's device is "
+                                 f"{conf.run_settings.device!r}, not the "
+                                 f"YAML's 'tpu'")
+        for name, returned in (("val", val_metrics), ("test", test_metrics)):
+            metrics = parse_conf_file(os.path.join(run_dir,
+                                                   f"metrics_{name}.yml"))
+            if set(metrics) != expected_keys(conf.eval, name):
+                raise AssertionError(
+                    f"metrics_{name}.yml: keys differ from JAX's: "
+                    f"{sorted(set(metrics) ^ expected_keys(conf.eval, name))}")
+            if metrics != returned or not all(
+                    np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"metrics_{name}.yml: not finite or not "
+                                     f"what the run returned")
+        best = validations[0]
+        for m in validations[1:]:  # fit keeps the first strictly better
+            if m["val/ndcg@10"] > best["val/ndcg@10"]:
+                best = m
+        if val_metrics != best:
+            raise AssertionError("metrics_val.yml does not hold fit's best "
+                                 "validation")
+        steps = sum(n for _, n in walls["train"])
+        train_s = sum(w for w, _ in walls["train"])
+        log(f"CLI train_val_test: {total:.2f} s on {card}; train "
+            f"{1e3 * train_s / steps:.3f} ms/step (host, synchronized; "
+            f"{steps} steps in {len(walls['train'])} epochs); validations "
+            f"{', '.join(f'{w:.3f}' for w in walls['val'])} s; test "
+            f"{', '.join(f'{w:.3f}' for w in walls['test'])} s; "
+            f"max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; val "
+            f"ndcg@10 {val_metrics['val/ndcg@10']:.6f} (best of "
+            f"{len(validations)}), test ndcg@10 "
+            f"{test_metrics['test/ndcg@10']:.6f}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def reset_counts(kernels) -> None:
     for _, fn, _, _ in kernels:
         fn.launches = 0
@@ -2275,6 +2467,9 @@ def main() -> int:
 
     # ------------------ the ported tools/ probes, at their full width
     measured.update(probes_phase(kernels, count_path))
+
+    # --------- the CLI, train_val_test from artifacts, at full width
+    cli_phase(splits, kernels, count_path, card)
 
     rows_json = [dict(name=name, route="cuda", source=src, replaces=rep,
                       launches=launches[name], **measured[name])

@@ -1,16 +1,97 @@
-"""Onion-scale synthetic data (port of
-``sibrar_tpu/data/synthetic.py:make_onion_scale_splits``).
+"""Onion-scale synthetic data and the artifact writer (port of
+``sibrar_tpu/data/synthetic.py``: ``make_onion_scale_splits``,
+``write_reference_artifacts``).
 
-Numpy only. The generator draws from the rng in exactly the JAX package's
-order, so one seed gives bit-identical pairs and feature tables in both.
+Numpy and the ``csv`` module only. The generator draws from the rng in
+exactly the JAX package's order, so one seed gives bit-identical pairs and
+feature tables in both.
 """
 from __future__ import annotations
 
+import csv
+import os
 from typing import Optional
 
 import numpy as np
 
-from sibrar_tpu_torch.data.dataset import FeatureTable
+from sibrar_tpu_torch.data.dataset import RecDataset
+from sibrar_tpu_torch.data.feature import FeatureTable
+
+USED_CONFIG = """interactions:
+  k_core: 0
+  min_n_interactions: 0
+item_features: []
+split:
+{split}user_features: []
+"""
+
+
+def write_reference_artifacts(out_dir: str, splits: dict[str, RecDataset],
+                              seed: int = 0) -> str:
+    """Write ``splits`` (`data.dataset.make_splits`) to ``out_dir`` in the
+    artifact layout the JAX package's writer uses: ``user_idxs.csv``,
+    ``item_idxs.csv``, ``used_config.yaml`` (the splits' split type, with
+    the same keys, as the text ``yaml.safe_dump`` gives), per split
+    ``listening_history_{split}.csv``,
+    ``{entity}_features_{split}.csv`` (categorical labels, tags joined by
+    ``|``, 1-D numeric columns) and ``{entity}_{name}_{split}.npz``
+    (tables of rank 2 and more: ``indices``, ``values``), each over the
+    split's users or items. The feature tables need the labels of their
+    codes (``value_map``)."""
+    os.makedirs(out_dir, exist_ok=True)
+    any_split = next(iter(splits.values()))
+
+    def write(name, header, rows):
+        with open(os.path.join(out_dir, name), "w", newline="") as fh:
+            w = csv.writer(fh, lineterminator="\n")
+            w.writerow(header)
+            w.writerows(rows)
+
+    for entity, n in (("user", any_split.n_users),
+                      ("item", any_split.n_items)):
+        ids = np.arange(n).tolist()
+        write(f"{entity}_idxs.csv", [entity, f"{entity}_idx"],
+              zip(ids, ids))
+
+    st = any_split.split_type
+    if st.startswith("cold_start_"):
+        split = (f"  cold_start_type: {st[len('cold_start_'):]}\n"
+                 f"  ratios:\n  - 0.7\n  - 0.15\n  - 0.15\n"
+                 f"  seed: {seed}\n  split_type: coldstart\n")
+    else:
+        split = (f"  ratios:\n  - 0.6\n  - 0.2\n  - 0.2\n"
+                 f"  seed: {seed}\n  split_type: {st}\n")
+    with open(os.path.join(out_dir, "used_config.yaml"), "w") as fh:
+        fh.write(USED_CONFIG.format(split=split))
+
+    for name, ds in splits.items():
+        write(f"listening_history_{name}.csv", ["user_idx", "item_idx"],
+              ds.interactions.tolist())
+        for entity, feats, in_split in (
+                ("user", ds.user_features, ds.users_in_split),
+                ("item", ds.item_features, ds.items_in_split)):
+            cols = {}
+            for fname, feat in feats.items():
+                rows = feat.table[in_split]
+                if feat.kind == "numeric" and rows.ndim > 1:
+                    np.savez(os.path.join(
+                        out_dir, f"{entity}_{fname}_{name}.npz"),
+                        indices=in_split, values=rows)
+                    continue
+                if feat.kind == "numeric":
+                    cols[fname] = rows.tolist()
+                    continue
+                label = {v: k for k, v in feat.value_map.items()}
+                cols[fname] = (
+                    [label[int(c)] for c in rows] if feat.kind ==
+                    "categorical" else
+                    ["|".join(str(label[int(t)]) for t in row
+                              if t != feat.n_categories) for row in rows])
+            if cols:
+                write(f"{entity}_features_{name}.csv",
+                      [f"{entity}_idx", *cols],
+                      zip(in_split.tolist(), *cols.values()))
+    return out_dir
 
 
 def make_onion_scale_splits(
@@ -84,7 +165,8 @@ def make_onion_scale_splits(
 def _tag_table(tag_ids: np.ndarray) -> FeatureTable:
     """Padded tag-code table of the tags ``g{id}``. Codes follow the SORTED
     STRING order of the tag names that occur ("g10" sorts before "g2"), each
-    row holds its distinct codes ascending, and the pad code is n_tags."""
+    row holds its distinct codes ascending, and the pad code is n_tags;
+    ``value_map`` maps each name to its code."""
     present = np.unique(tag_ids)
     names = [f"g{t}" for t in present]
     order = sorted(range(len(names)), key=names.__getitem__)
@@ -96,4 +178,5 @@ def _tag_table(tag_ids: np.ndarray) -> FeatureTable:
     rows = np.sort(rows, axis=1)
     width = max(int((rows != pad).sum(axis=1).max()), 1)
     return FeatureTable(np.ascontiguousarray(rows[:, :width]), "tag",
-                        n_categories=pad)
+                        n_categories=pad,
+                        value_map={names[i]: c for c, i in enumerate(order)})

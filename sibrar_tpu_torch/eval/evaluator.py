@@ -21,8 +21,8 @@ The peel flags rows it cannot prove exact; only those rows are redone
 densely (JAX redoes whole batches), and ``redo_rows`` records how many per
 batch. Everything runs eagerly, one batch after the other.
 
-Not in this slice: the item-sharded ``mesh`` (ROADMAP.md queue 1, item 10)
-and ``score_dtype: bfloat16`` (queue 1, item 1; `EvalConfig.validate`
+Not in this slice: the item-sharded ``mesh`` (ROADMAP.md queue 1, item 8)
+and ``score_dtype: bfloat16`` (queue 1, item 5; `EvalConfig.validate`
 raises).
 """
 from __future__ import annotations
@@ -33,6 +33,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from sibrar_tpu_torch.config.schema import NOT_PORTED
 from sibrar_tpu_torch.data.dataset import DeviceData, RecDataset
 from sibrar_tpu_torch.eval.metrics import (
     DISTRIBUTION_METRICS,
@@ -61,8 +62,7 @@ class FullEvaluator:
                  device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
-                "the item-sharded evaluator is not ported yet (ROADMAP.md "
-                "queue 1, item 10)")
+                f"the item-sharded evaluator is {NOT_PORTED.format(8)}")
         config.validate()
         self.config = config
         self.name = evaluator_name

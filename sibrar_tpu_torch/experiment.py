@@ -1,0 +1,221 @@
+"""Experiment orchestration: config -> data -> model -> fit -> evaluation ->
+run files (port of ``sibrar_tpu/experiment.py``: ``run_train_val``,
+``run_test``, ``run_train_val_test`` for the ``sgd`` family).
+
+A run reads its splits from ``conf.dataset.dataset_path`` (the split type
+from the directory's ``used_config.yaml``) and writes into
+``results/{dataset}/{split_dir}/{algorithm}/{run_id}`` unless
+``results_path`` is set: ``conf.yml`` before training, ``model.pt``
+whenever the best validation improves, ``metrics_val.yml`` (fit's best
+validation) and ``metrics_test.yml``. ``profile_training`` writes a
+``torch.profiler`` trace of the first epoch under ``profile/``.
+
+``run_settings.device``: ``cuda`` and ``tpu`` run on the card and raise
+when there is none, ``cpu`` runs on the CPU. Not ported (each raises,
+naming its ``ROADMAP.md`` queue 1 item): several devices (item 8), the
+matrix family (item 7), the other SGD models (item 6), ``debug_nans``
+(item 4).
+"""
+from __future__ import annotations
+
+import logging
+import os
+
+import torch
+
+from sibrar_tpu_torch.config.loader import load_split_type, yaml_save
+from sibrar_tpu_torch.config.schema import (
+    NOT_PORTED,
+    DatasetSplitType,
+    ExperimentConfig,
+    as_dict,
+)
+from sibrar_tpu_torch.data.dataset import RecDataset
+from sibrar_tpu_torch.eval.evaluator import FullEvaluator
+from sibrar_tpu_torch.models.registry import AlgorithmSpec, get_algorithm
+from sibrar_tpu_torch.train.trainer import Trainer
+from sibrar_tpu_torch.utils.misc import (
+    generate_id,
+    log_info_results,
+    reproducible,
+)
+
+logger = logging.getLogger(__name__)
+
+
+def resolve_device(conf: ExperimentConfig) -> torch.device:
+    """The device ``run_settings.device`` names: ``cuda`` or ``tpu`` the
+    card (raises without one), ``cpu`` the CPU."""
+    name = conf.run_settings.device
+    if name == "cpu":
+        return torch.device("cpu")
+    if name not in ("cuda", "tpu"):
+        raise ValueError(f"unsupported device {name!r} (use 'cuda', 'tpu' "
+                         f"for the card, or 'cpu')")
+    if name == "tpu":
+        logger.info("run_settings.device 'tpu' runs on the CUDA card")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"run_settings.device={name!r} asks for the "
+                           f"card, and torch.cuda.is_available() is false; "
+                           f"pass -o run_settings.device=cpu for the CPU")
+    return torch.device("cuda")
+
+
+def _check_ported(conf: ExperimentConfig, spec: AlgorithmSpec) -> None:
+    par = conf.parallel
+    if par.enabled or (par.n_devices or 1) > 1:
+        raise NotImplementedError(f"runs on several devices are "
+                                  f"{NOT_PORTED.format(8)}")
+    if spec.kind != "sgd":
+        raise NotImplementedError(f"the matrix algorithms ({spec.name!r}) "
+                                  f"are {NOT_PORTED.format(7)}")
+    if conf.run_settings.debug_nans:
+        raise NotImplementedError(f"debug_nans is {NOT_PORTED.format(4)}")
+
+
+def _load_split(conf: ExperimentConfig, split_set: str,
+                split_type: DatasetSplitType) -> RecDataset:
+    return RecDataset.load(
+        conf.dataset.dataset_path, split_set,
+        user_feature_definitions=conf.dataset.user_features or None,
+        item_feature_definitions=conf.dataset.item_features or None,
+        split_type=split_type)
+
+
+def _results_path(conf: ExperimentConfig) -> str:
+    if not conf.results_path:
+        conf.results_path = os.path.join(
+            "results", conf.dataset_name, conf.split_type.dir_name,
+            conf.algorithm, conf.run_id or generate_id())
+    os.makedirs(conf.results_path, exist_ok=True)
+    return conf.results_path
+
+
+def _maybe_wandb(conf: ExperimentConfig):
+    """A live wandb run, or None when it is not asked for or wandb is not
+    installed (with a warning)."""
+    if not (conf.wandb.use_wandb or conf.run_settings.use_wandb):
+        return None
+    try:
+        import wandb
+    except ImportError:
+        logging.warning("wandb requested but not installed; logging "
+                        "disabled")
+        return None
+    if getattr(wandb, "run", None) is not None:
+        return wandb.run  # a sweep agent's run: it owns the lifecycle
+    run = wandb.init(
+        project=conf.wandb.project, entity=conf.wandb.entity,
+        name=conf.run_id or None, tags=list(conf.wandb.tags) or None,
+        config=as_dict(conf), reinit=True)
+    if run is not None:
+        run._sibrar_owned = True  # only runs opened here are finished here
+    return run
+
+
+def _make_log_fn(conf: ExperimentConfig, wandb_run):
+    """Per-epoch metric sink: one console line per epoch, plus W&B and Ray
+    Tune (``in_tune``) where they are on."""
+    sinks = [wandb_run.log] if wandb_run else []
+    if conf.run_settings.in_tune:
+        try:
+            from ray.air import session
+
+            sinks.append(lambda d: session.report(
+                {k: v for k, v in d.items() if isinstance(v, (int, float))}))
+        except ImportError:
+            logging.warning("in_tune requested but ray is not installed")
+    console = logging.getLogger("sibrar_tpu_torch.train")
+    opt = conf.learn.optimizing_metric
+
+    def log(d: dict) -> None:
+        keys = ("epoch", "train/loss", "train/epoch_wall_s", "val/wall_s",
+                f"val/{opt}", f"train/{opt}")
+        console.info("%s", " ".join(
+            f"{k}={d[k]:.5g}" if isinstance(d[k], float) else f"{k}={d[k]}"
+            for k in keys if k in d))
+        for sink in sinks:
+            sink(d)
+
+    return log
+
+
+def _finish(wandb_run) -> None:
+    if wandb_run and getattr(wandb_run, "_sibrar_owned", False):
+        wandb_run.finish()
+
+
+def run_train_val(conf: ExperimentConfig, log_fn=None) -> dict:
+    """Train on the train split, validating on val; returns (and writes)
+    the best validation metrics."""
+    reproducible(conf.run_settings.seed)
+    device = resolve_device(conf)
+    spec = get_algorithm(conf.algorithm)
+    _check_ported(conf, spec)
+    results_path = _results_path(conf)
+    yaml_save(os.path.join(results_path, "conf.yml"), as_dict(conf))
+    split_type = load_split_type(conf.dataset.dataset_path)
+    train_ds = _load_split(conf, "train", split_type)
+    val_ds = _load_split(conf, "val", split_type)
+    train_data = train_ds.to_device(device)
+    evaluator = FullEvaluator(conf.eval, val_ds, device=device,
+                              evaluator_name="val")
+    wandb_run = _maybe_wandb(conf)
+    model = spec.build(conf.model, train_ds, train_data,
+                       conf.run_settings.seed)
+    trainer = Trainer(
+        model, train_ds, conf.learn, conf.dataset,
+        batch_size=conf.loader.batch_size, seed=conf.run_settings.seed,
+        device_data=train_data, val_evaluator=evaluator,
+        eval_batch_size=conf.loader.eval_batch_size,
+        results_path=results_path,
+        log_fn=log_fn or _make_log_fn(conf, wandb_run),
+        train_evaluator=(FullEvaluator(conf.eval, train_ds, train_data,
+                                       evaluator_name="train")
+                         if conf.train_eval else None),
+        profile_dir=(os.path.join(results_path, "profile")
+                     if conf.profile_training else None))
+    metrics = trainer.fit()
+    yaml_save(os.path.join(results_path, "metrics_val.yml"), metrics)
+    log_info_results(metrics)
+    _finish(wandb_run)
+    return metrics
+
+
+def run_test(conf: ExperimentConfig, log_fn=None) -> dict:
+    """Evaluate the run's saved best model (``model.pt``) on the test
+    split, with no training step; returns (and writes) the metrics."""
+    reproducible(conf.run_settings.seed)
+    device = resolve_device(conf)
+    spec = get_algorithm(conf.algorithm)
+    _check_ported(conf, spec)
+    results_path = _results_path(conf)
+    split_type = load_split_type(conf.dataset.dataset_path)
+    train_ds = _load_split(conf, "train", split_type)
+    test_ds = _load_split(conf, "test", split_type)
+    train_data = train_ds.to_device(device)
+    evaluator = FullEvaluator(conf.eval, test_ds, device=device,
+                              evaluator_name="test")
+    wandb_run = _maybe_wandb(conf)
+    if wandb_run is not None and hasattr(wandb_run, "define_metric"):
+        # a running W&B run rejects test/* at step 0 without its own axis
+        wandb_run.define_metric("test/step")
+        wandb_run.define_metric("test/*", step_metric="test/step")
+    model = spec.build(conf.model, train_ds, train_data,
+                       conf.run_settings.seed)
+    trainer = Trainer(
+        model, train_ds, conf.learn, conf.dataset,
+        batch_size=conf.loader.batch_size, seed=conf.run_settings.seed,
+        device_data=train_data, val_evaluator=evaluator,
+        eval_batch_size=conf.loader.eval_batch_size)
+    trainer.load(results_path)
+    metrics = trainer.validate()
+    (log_fn or _make_log_fn(conf, wandb_run))(metrics)
+    yaml_save(os.path.join(results_path, "metrics_test.yml"), metrics)
+    log_info_results(metrics)
+    _finish(wandb_run)
+    return metrics
+
+
+def run_train_val_test(conf: ExperimentConfig) -> tuple[dict, dict]:
+    return run_train_val(conf), run_test(conf)

@@ -1,0 +1,54 @@
+"""Algorithm registry: name -> build function (port of
+``sibrar_tpu/models/registry.py``).
+
+The names and families are the JAX registry's, so the CLI offers the same
+``-a`` choices: ``sgd`` models train with `train.trainer.Trainer`,
+``matrix`` algorithms fit once over the train CSR. An ``sgd`` build takes
+``(model_conf, dataset, device_data, seed)``. Only ``sbnet`` is ported;
+building any other name raises, naming the queue item that owes it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+from sibrar_tpu_torch.config.schema import NOT_PORTED
+from sibrar_tpu_torch.models.sbnet import SingleBranchNet
+
+
+@dataclass(frozen=True)
+class AlgorithmSpec:
+    name: str
+    kind: str  # 'sgd' | 'matrix'
+    build: Callable
+
+
+def _sbnet(conf: dict, dataset, device_data, seed: int) -> SingleBranchNet:
+    return SingleBranchNet.build_from_conf(conf, dataset, device_data,
+                                           seed=seed)
+
+
+def _unported(name: str, item: int) -> Callable:
+    def build(*args, **kwargs):
+        raise NotImplementedError(f"algorithm {name!r} is "
+                                  f"{NOT_PORTED.format(item)}")
+    return build
+
+
+SGD = ("sgdbias", "mf", "acf", "uprotomf", "iprotomf", "uiprotomf",
+       "uprotomfs", "iprotomfs", "uiprotomfs", "ecf", "dmf", "ifeatmf",
+       "ufeatmf", "dropoutnet", "sbnet")
+MATRIX = ("uknn", "iknn", "ifknn", "svd", "als", "rbmf", "slim", "ease",
+          "p3alpha", "rand", "pop")
+ALGORITHMS: dict[str, AlgorithmSpec] = {
+    **{n: AlgorithmSpec(n, "sgd", _sbnet if n == "sbnet"
+                        else _unported(n, 6)) for n in SGD},
+    **{n: AlgorithmSpec(n, "matrix", _unported(n, 7)) for n in MATRIX},
+}
+
+
+def get_algorithm(name: str) -> AlgorithmSpec:
+    if name not in ALGORITHMS:
+        raise ValueError(
+            f"unknown algorithm {name!r}; choose from {sorted(ALGORITHMS)}")
+    return ALGORITHMS[name]

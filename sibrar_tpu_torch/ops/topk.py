@@ -21,6 +21,7 @@ import logging
 import torch
 import torch.nn.functional as F
 
+from sibrar_tpu_torch.config.schema import TOPK_METHODS as METHODS
 from sibrar_tpu_torch.ops.sparse import (
     DeviceCSR,
     csr_contains,
@@ -29,7 +30,6 @@ from sibrar_tpu_torch.ops.sparse import (
 )
 
 NEG = -1e30
-METHODS = ("auto", "full", "scatter", "noscatter", "peel", "pallas")
 
 
 def topk_excluding(scores: torch.Tensor, cols: torch.Tensor,

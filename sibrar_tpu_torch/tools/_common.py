@@ -59,28 +59,36 @@ def cuda_ms(fn, iters: int, device: torch.device) -> float | None:
     return start.elapsed_time(end) / iters
 
 
-def profiled(fn) -> tuple[dict, float, float]:
-    """Run ``fn()`` once under ``torch.profiler``: device microseconds by
-    kernel name, host wall microseconds around ``fn()`` and the sync after
-    it, and the seconds the kept session idled before ``fn()``.
+def profiled(fn, trace_path: str | None = None,
+             idles: tuple = (0.0, 2.0, 6.0, 15.0)
+             ) -> tuple[dict, float, float]:
+    """Run ``fn()`` under ``torch.profiler``: device microseconds by kernel
+    name, host wall microseconds around ``fn()`` and the sync after it, and
+    the seconds the kept session idled before ``fn()``. ``trace_path``
+    receives the kept session's Chrome trace.
 
     Late in a long process the profiler can begin recording device activity
     seconds after a session opens and then drops the kernels launched
     before (seen on an H100 under torch 2.11, where 2-6 s of idling
     sufficed). So each session is held to its own record, as many kernels
     on the device as kernel launches on the host, and opened again, idle
-    for longer before ``fn()``, until it holds. Raises if it never does."""
+    for the next of ``idles`` seconds before ``fn()``, until it holds: a
+    caller whose ``fn`` must run once passes one idle. Raises if it never
+    holds. Without a card the session records the host only."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
-    for idle_s in (0.0, 2.0, 6.0, 15.0):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    on_card = torch.cuda.is_available()
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if on_card else [])
+    for idle_s in idles:
+        sync()
+        with profile(activities=activities) as prof:
             time.sleep(idle_s)
             t0 = time.perf_counter()
             fn()
-            torch.cuda.synchronize()
+            sync()
             wall_us = (time.perf_counter() - t0) * 1e6
         events = prof.events()
         launched = sum(e.device_type != cuda and "LaunchKernel" in e.name
@@ -92,6 +100,8 @@ def profiled(fn) -> tuple[dict, float, float]:
     else:
         raise RuntimeError(f"torch.profiler recorded {len(kernels)} of "
                            f"{launched} kernels launched")
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
     by_name: dict = {}
     for evt in events:
         if evt.device_type == cuda:

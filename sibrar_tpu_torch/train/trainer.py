@@ -1,8 +1,9 @@
 """Optimizers, the training loop and validation (port of
 ``sibrar_tpu/train/trainer.py``: ``build_optimizer``, the dense-optimizer
 train step, ``epoch_batch_plan``, ``train_epoch``, ``make_score_fn``,
-``validate``, ``fit`` with best-model tracking, ``save`` / ``load``; and of
-the ``EvalConfig`` of ``sibrar_tpu/config/schema.py``).
+``validate``, ``fit`` with best-model tracking and its profiled first
+epoch, ``save`` / ``load``). Its configs (``LearningConfig``,
+``EvalConfig``, ``DatasetConfig``) live in ``config/schema.py``.
 
 A train step samples negatives on the device, runs the model's train
 forward (logits and regularization loss), adds the rec loss, and steps the
@@ -14,121 +15,32 @@ trainer's ``torch.Generator`` on the device. Validation runs the model in
 eval mode without autograd (``train/scoring.py``); the next train step
 switches it back.
 
-Not ported yet (``ROADMAP.md`` queue 1, item 2): full-state checkpoints and
-resume, ``profile_dir``, the row-sparse table optimizer (``sparse_tables``)
-and bf16 Adam moments (``moment_dtype``).
+Not ported yet (``ROADMAP.md`` queue 1, item 4): full-state checkpoints and
+resume, the row-sparse table optimizer (``sparse_tables``) and bf16 Adam
+moments (``moment_dtype``).
 """
 from __future__ import annotations
 
 import math
 import os
 import time
-from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Optional
 
 import torch
 
+from sibrar_tpu_torch.config.schema import (  # noqa: F401 (re-exported)
+    NOT_PORTED,
+    DatasetConfig,
+    EvalConfig,
+    LearningConfig,
+)
 from sibrar_tpu_torch.data.dataset import DeviceData, RecDataset
 from sibrar_tpu_torch.data.sampling import sample_negatives
 from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
-from sibrar_tpu_torch.ops.topk import METHODS
 from sibrar_tpu_torch.train import scoring
 from sibrar_tpu_torch.train.losses import build_rec_loss
 
-NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 2)"
-
-
-@dataclass
-class LearningConfig:
-    """The ``learn:`` fields of the JAX config. ``epoch_scan_chunk`` is
-    accepted and ignored: it bounds the JAX package's scanned programs for
-    a TPU runtime, and the port runs its steps eagerly. ``n_epochs``,
-    ``max_patience`` and ``optimizing_metric`` belong to ``fit``."""
-
-    n_epochs: int = 50
-    lr: float = 1e-3
-    wd: float = 0.0
-    optimizer: str = "adam"
-    rec_loss: str = "bce"
-    loss_aggregator: str = "mean"
-    max_patience: int = 10
-    optimizing_metric: str = "ndcg@10"
-    max_batches_per_epoch: Optional[int] = None
-    moment_dtype: Optional[str] = None
-    sparse_tables: bool = False
-    sparse_table_min_rows: int = 16384
-    epoch_scan_chunk: Optional[int] = 512
-
-    def validate(self) -> None:
-        if self.epoch_scan_chunk is not None and self.epoch_scan_chunk < 1:
-            raise ValueError("epoch_scan_chunk must be >= 1 or null")
-        if self.optimizer not in ("adam", "adagrad", "adamw"):
-            raise ValueError(f"unsupported optimizer {self.optimizer!r}")
-        if self.sparse_tables and self.optimizer != "adam":
-            raise ValueError(
-                "sparse_tables requires optimizer='adam' (SparseAdam "
-                f"semantics); got {self.optimizer!r}")
-        if self.sparse_table_min_rows < 1:
-            raise ValueError("sparse_table_min_rows must be >= 1")
-        if self.moment_dtype not in (None, "float32", "bfloat16"):
-            raise ValueError(
-                f"unsupported moment_dtype {self.moment_dtype!r}")
-        if self.rec_loss not in ("bce", "bpr", "sampled_softmax"):
-            raise ValueError(f"unsupported rec_loss {self.rec_loss!r}")
-        if self.loss_aggregator not in ("mean", "sum"):
-            raise ValueError(
-                f"unsupported loss aggregator {self.loss_aggregator!r}")
-        if not self.lr > 0:
-            raise ValueError("lr must be > 0")
-        if self.wd < 0:
-            raise ValueError("wd must be >= 0")
-
-
-@dataclass
-class EvalConfig:
-    """The ``eval:`` fields of the JAX config (defaults: the reference's
-    metric surface). ``topk_method`` is one of ``ops/topk.py``'s methods;
-    ``score_dtype`` other than f32 is not ported yet."""
-
-    top_k: list[int] = field(
-        default_factory=lambda: [1, 3, 5, 10, 20, 50, 100])
-    metrics: list[str] = field(default_factory=lambda: [
-        "ndcg", "recall", "precision", "f_score", "hitrate", "ap",
-        "coverage"])
-    group_metrics: list[str] = field(default_factory=list)
-    compute_std: bool = True
-    topk_method: str = "auto"
-    score_dtype: Optional[str] = None
-
-    def validate(self) -> None:
-        if any(k <= 0 for k in self.top_k):
-            raise ValueError("top_k cut-offs must be positive")
-        if self.topk_method not in METHODS:
-            raise ValueError(f"unsupported topk_method {self.topk_method!r}")
-        if self.score_dtype == "bfloat16":
-            raise NotImplementedError(
-                "score_dtype='bfloat16' is not ported yet (ROADMAP.md queue "
-                "1, item 1)")
-        if self.score_dtype not in (None, "float32"):
-            raise ValueError(
-                f"unsupported score_dtype {self.score_dtype!r} (use "
-                "'float32')")
-
-
-@dataclass
-class DatasetConfig:
-    """The sampling fields of the JAX ``dataset:`` config."""
-
-    n_negative_samples: int = 4
-    negative_sampling_strategy: str = "uniform"
-    popularity_squashing_factor: float = 1.0
-
-    def validate(self) -> None:
-        if self.negative_sampling_strategy not in ("uniform",
-                                                   "uniform_recbole",
-                                                   "popular"):
-            raise ValueError(f"unsupported sampling strategy "
-                             f"{self.negative_sampling_strategy!r}")
+UNPORTED = NOT_PORTED.format(4)
 
 
 class Optimizer:
@@ -191,7 +103,7 @@ def build_optimizer(learn: LearningConfig,
     """adam / adagrad / adamw as the JAX package chains them."""
     if learn.moment_dtype not in (None, "float32"):
         raise NotImplementedError(f"moment_dtype={learn.moment_dtype!r} is "
-                                  f"{NOT_PORTED}")
+                                  f"{UNPORTED}")
     return Optimizer(params, learn.optimizer, learn.lr, learn.wd)
 
 
@@ -217,9 +129,7 @@ class Trainer:
                  post_val_fn: Optional[Callable[[Any, int], dict]] = None,
                  profile_dir: Optional[str] = None):
         if learn.sparse_tables:
-            raise NotImplementedError(f"sparse_tables is {NOT_PORTED}")
-        if profile_dir is not None:
-            raise NotImplementedError(f"profile_dir is {NOT_PORTED}")
+            raise NotImplementedError(f"sparse_tables is {UNPORTED}")
         self.model = model
         self.train_dataset = train_data
         self.data = (device_data if device_data is not None
@@ -246,6 +156,7 @@ class Trainer:
         self.best_state: Optional[dict] = None
         self.best_value = -math.inf
         self.best_epoch = -1
+        self.profile_dir = profile_dir
 
     def train_step(self, idxs: torch.Tensor) -> torch.Tensor:
         """One optimizer step on the pairs ``idxs``; returns the device
@@ -355,7 +266,9 @@ class Trainer:
         patience = 0
         for epoch in range(self.learn.n_epochs):
             t0 = time.perf_counter()
-            train_metrics = self.train_epoch()
+            train_metrics = (self._profiled_epoch()
+                             if epoch == 0 and self.profile_dir
+                             else self.train_epoch())
             train_wall = time.perf_counter() - t0
             metrics = self.validate()
             if self.train_evaluator is not None:
@@ -378,6 +291,21 @@ class Trainer:
         if self.best_state is not None:
             self.model.load_state_dict(self.best_state)
         return best_metrics
+
+    def _profiled_epoch(self) -> dict:
+        """The first epoch of `fit` under ``torch.profiler``, its Chrome
+        trace written to ``profile_dir/train_epoch0.json``: the same epoch,
+        steps and draws as an unprofiled run (the JAX package traces its
+        first epoch the same way). One session, opened after 2 s of idling
+        (`tools._common.profiled`), so the epoch runs once."""
+        from sibrar_tpu_torch.tools._common import profiled
+
+        os.makedirs(self.profile_dir, exist_ok=True)
+        out = {}
+        profiled(lambda: out.update(self.train_epoch()),
+                 os.path.join(self.profile_dir, "train_epoch0.json"),
+                 idles=(2.0,))
+        return out
 
     def _maybe_update_best(self, value: float, epoch: int) -> None:
         if value > self.best_value:
@@ -405,7 +333,7 @@ class Trainer:
         self.model.load_state_dict(state)
 
     def save_checkpoint(self, path: str) -> None:
-        raise NotImplementedError(f"full-state checkpoints are {NOT_PORTED}")
+        raise NotImplementedError(f"full-state checkpoints are {UNPORTED}")
 
     def load_checkpoint(self, path: str) -> None:
-        raise NotImplementedError(f"full-state checkpoints are {NOT_PORTED}")
+        raise NotImplementedError(f"full-state checkpoints are {UNPORTED}")

@@ -237,11 +237,11 @@ def test_forced_exactness_trip_takes_the_redo():
 
 
 def test_evaluator_refuses_unported_options(slice_):
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         _port_evaluator(slice_, dict(score_dtype="bfloat16"))
     with pytest.raises(ValueError, match="topk_method"):
         _port_evaluator(slice_, dict(topk_method="approx"))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
         FullEvaluator(EvalConfig(), slice_["tval"], slice_["tdata"],
                       mesh=object())
     feats = slice_["tval"].user_features

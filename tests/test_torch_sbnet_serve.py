@@ -205,7 +205,11 @@ for name in ("jax", "flax", "optax", "yaml", "pandas", "sibrar_tpu"):
     sys.modules[name] = None  # any import of these now fails
 import copy, numpy as np, torch
 import sibrar_tpu_torch
+from sibrar_tpu_torch.config import schema
+from sibrar_tpu_torch.data import feature
 from sibrar_tpu_torch.data.dataset import make_splits
+from sibrar_tpu_torch.models import registry
+from sibrar_tpu_torch.utils import misc
 from sibrar_tpu_torch.data.synthetic import make_onion_scale_splits
 from sibrar_tpu_torch.models.sbnet import SingleBranchNet
 from sibrar_tpu_torch.serve import Recommender
@@ -251,6 +255,11 @@ ids = rec.recommend(np.arange(70))
 assert ids.shape == (70, 5)
 excl = test.exclude_matrix().tocsr()
 assert not np.asarray(excl[np.repeat(np.arange(70), 5), ids.reshape(-1)]).any()
+assert registry.get_algorithm("sbnet").kind == "sgd"
+misc.reproducible(3)
+assert schema.DatasetSplitType("cold_start_item").is_cold_start
+assert feature.build_feature(schema.FeatureDefinition(
+    "g", schema.FeatureType.TAG), ["a|b", "b"], 3).n_categories == 2
 assert probe_roll.PROBES["segment"]("cpu")
 assert probe_pred_input.try_mask("int8", device="cpu")
 probe_gemm_bisect.main(["wmax_lanes", "1024", "--device", "cpu"])

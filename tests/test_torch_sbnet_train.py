@@ -247,5 +247,6 @@ def test_chip_smoke_train_confs_match_yaml():
     learn = config_from_dict(LearningConfig, smoke.LEARN_CONF)
     assert dataclasses.asdict(learn) == smoke.LEARN_CONF
     dataset = config_from_dict(DatasetConfig, smoke.DATASET_CONF)
-    assert dataclasses.asdict(dataset) == smoke.DATASET_CONF
+    assert {k: getattr(dataset, k) for k in smoke.DATASET_CONF} == \
+        smoke.DATASET_CONF
     assert copy.deepcopy(smoke.MODEL_CONF) == resolved.model

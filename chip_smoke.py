@@ -42,11 +42,28 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    1 and 2,255, no live slot, a column in every row once and three times,
    H = 500, 511 and 512, unhit rows +0.0), twice bit for bit; with times,
    bounds and library yardsticks;
-2. trains with ``Trainer.train_epoch`` (the config's learn / dataset /
-   loader settings): a warm-up, then a few hundred timed steps on the
-   default first layer (densify + matmul, K5 backward), whose losses must be
-   finite and fall; a profiled window; then a few dozen steps with
-   ``INTERACTION_SPMM`` on (K6 / K7) and a profiled window of them;
+2. logs the user tower's bag rows on the train batch, holds K6 and K7 to
+   their plain versions on them (within the f32 sum bound; bit-equal to
+   the CPU's), and times their first layer as it ran before K6 / K7 took
+   it (gather and masked sum) and as it runs now (K6 / K7); holds K6 / K7
+   to their plain versions on one-slot rows (an `Embedding` lookup of a
+   train batch's 5,632 items, H = 1, 256, 512) and ``coalesce_rows`` on
+   the card bit-equal to the CPU's; records the inputs K6 and K7 get in
+   one default train step (the user bag rows, the genres tag rows, with
+   the output gradients autograd hands K7) and holds each to its plain
+   version; trains with ``Trainer.train_epoch`` (the config's learn /
+   dataset / loader settings): a warm-up, then a few hundred timed steps
+   on the default first layer (the item tower's densify + matmul with K5
+   backward, the user tower's bag path and the embeddings on K6 / K7),
+   whose losses must be finite and fall; a profiled window; then a few
+   dozen steps with ``INTERACTION_SPMM`` on (K6 / K7 for the item tower
+   too) and a profiled window of them; then, on fresh trainers:
+   ``determinism`` (two trainings of one seed must end bit-equal in
+   parameters, batch-norm statistics and optimizer state, on each
+   first-layer path; K6 / K7 launches logged), ``resume`` (train,
+   ``save_checkpoint``, train on; a fresh trainer that loads the
+   checkpoint and trains the same steps must end bit-equal) and
+   ``bf16_moments`` (bf16 first moments, finite);
 3. times the item tower's first layer and the catalog encode both ways;
 4. from the default training's weights, runs ``Trainer.fit`` (the YAML's
    learn / eval settings, 2 epochs of 60 steps, each validation over the
@@ -99,10 +116,21 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    card): the four run files, JAX's metric keys, finite values,
    ``metrics_val.yml`` equal to fit's best validation; its times (write,
    load per split, host ms per train step, validation and test wall,
-   peak memory) are logged beside the card's name and power limit.
+   peak memory) are logged beside the card's name and power limit; then
+   ``mf_sparse``: ``-a mf -c conf/single/mf_onion18.yml -t train_val`` on
+   the same artifacts with ``learn.sparse_tables=true
+   learn.optimizer=adam``, both id tables row-sparse, every row no step
+   touched holding its initial bits and zero moments, its ms per step and
+   peak memory logged, and K7 at ``coalesce_rows``' [M, 1] calls of both
+   tables (K6 at the run's one-slot lookups) held to the plain versions on
+   the inputs the run gave them;
+9. ``quality``: SBNet seed 0 of the trained-quality run at mid scale
+   (``sibrar_tpu_torch/tools/trained_parity.py``) must score above 0.03
+   and within 0.015 of JAX's seed 0 (``trained_parity_jax.json``).
 
-Each path (default training, spmm training, fit, the four validation
-paths, serving, the five windowed rankers, the probes, the CLI) runs with
+Each path (default training, spmm training, the determinism run, fit, the
+four validation paths, serving, the five windowed rankers, the probes, the
+CLI, row-sparse MF) runs with
 every launch count set to 0 just before it and read just after; each of
 its kernels must have launched, and kernels of other paths must not.
 
@@ -114,6 +142,7 @@ no CPU mode: without a CUDA device it exits with code 1.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import math
@@ -453,8 +482,6 @@ def check_spmm_edges(kernel, dev) -> None:
     the f32 sum bound ``2 n eps sum |kernel rows|`` per row."""
     import torch
 
-    from sibrar_tpu_torch.ops import spmm
-
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     n_cols = kernel.shape[0]
     cases = []
@@ -470,17 +497,8 @@ def check_spmm_edges(kernel, dev) -> None:
         cases.append((f"B={b} L={length}", cols, mask))
     for label, cols, mask in cases:
         for h in (500, 511, 512):
-            kh = kernel[:, :h].contiguous()
-            got = spmm.spmm_fwd(cols, mask, kh)
-            want = spmm.spmm_fwd_plain(cols, mask, kh)
-            tol = (2 * mask.sum(1, keepdim=True) * F32_EPS
-                   * spmm.spmm_fwd_plain(cols, mask, kh.abs()))
-            if not bool(((got - want).abs() <= tol).all()):
-                raise AssertionError(f"K6 spmm_fwd beyond the f32 sum bound "
-                                     f"at {label} H={h}: max abs err "
-                                     f"{max_abs_err(got, want)}")
-    log("K6 spmm_fwd edges (holes, empty rows, a row longer than any run, "
-        "B = 1; H = 500, 511 and 512): within the f32 sum bound")
+            check_spmm_case(f"K6 edge {label}", cols, mask, n_cols,
+                            kernel[:, :h].contiguous())
 
 
 def check_eval_kernels(scores, e_val: int) -> dict:
@@ -1246,7 +1264,7 @@ def fit_phase(model, train, tdata, val, vdata, kernels, count_path):
     total = time.perf_counter() - t0
     count_path("fit (train steps, dot-path validations)",
                ["segment_gather", "score_wmax", "gather_windows",
-                "peel_values", "dw_matmul"],
+                "peel_values", "dw_matmul", "spmm_fwd", "spmm_bwd"],
                ("window_max", "window_scores_from", "gather_windows_tiled"))
     n_users = int(vdata.users_in_split.shape[0])
     for rec, wall in zip(records, walls):
@@ -1918,6 +1936,12 @@ CONF_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf",
 CLI_FEATURES = (("ivec256", "vector"), ("bert", "vector"),
                 ("musicnn", "vector"), ("genres", "tag"))
 CLI_EPOCHS, CLI_BATCHES = 2, 200
+DETERMINISM_STEPS = 30  # steps of each of the two same-seed trainings
+RESUME_STEPS = 10  # steps before the checkpoint, and after it
+BF16_STEPS = 20  # steps with bf16 first moments
+QUALITY_FLOOR, QUALITY_SEED_NOISE = 0.03, 0.015  # ndcg@10
+MF_CONF_PATH = os.path.join(os.path.dirname(CONF_PATH), "mf_onion18.yml")
+MF_STEPS = 60  # the mf_sparse run's steps: some rows of each table stay cold
 
 
 def same_split(split: str, got, want) -> None:
@@ -1957,7 +1981,7 @@ def cli_phase(splits, kernels, count_path, card: str) -> None:
     CLI_EPOCHS epochs of CLI_BATCHES steps; everything else comes from the
     YAML chain, ``run_settings.device: tpu`` included, which lands on the
     card. The four run files must exist with JAX's metric keys and finite
-    values, ``metrics_val.yml`` must hold fit's best validation, and K1-K5
+    values, ``metrics_val.yml`` must hold fit's best validation, and K1-K7
     must launch. The artifacts are deleted at the end."""
     import tempfile
 
@@ -2046,8 +2070,8 @@ def cli_phase(splits, kernels, count_path, card: str) -> None:
         total = time.perf_counter() - t0
         count_path("CLI train_val_test", ["segment_gather", "score_wmax",
                                           "gather_windows", "peel_values",
-                                          "dw_matmul"],
-                   ("spmm_fwd", "spmm_bwd"))
+                                          "dw_matmul", "spmm_fwd",
+                                          "spmm_bwd"])
 
         files = sorted(os.listdir(run_dir))
         if files != ["conf.yml", "metrics_test.yml", "metrics_val.yml",
@@ -2088,8 +2112,117 @@ def cli_phase(splits, kernels, count_path, card: str) -> None:
             f"ndcg@10 {val_metrics['val/ndcg@10']:.6f} (best of "
             f"{len(validations)}), test ndcg@10 "
             f"{test_metrics['test/ndcg@10']:.6f}")
+        mf_sparse_phase(data_dir, os.path.join(root, "mf_run"), kernels,
+                        count_path, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def mf_sparse_phase(data_dir: str, run_dir: str, kernels, count_path,
+                    card: str) -> None:
+    """``python -m sibrar_tpu_torch.run_experiment -a mf -c
+    conf/single/mf_onion18.yml -t train_val`` on the CLI phase's onion-scale
+    artifacts, with ``learn.sparse_tables=true learn.optimizer=adam`` and
+    one epoch of MF_STEPS steps: both id tables (50,000 and 100,352 rows x
+    256) must be sparse, every row no step touched must keep its initial
+    bits with zero moments, the touched rows' moments must not all be zero,
+    and the metric files must hold JAX's keys with finite values. Logs the
+    host ms per step and ``max_memory_allocated``."""
+    import numpy as np
+    import torch
+
+    from sibrar_tpu_torch.config.loader import get_config
+    from sibrar_tpu_torch.models.registry import get_algorithm
+    from sibrar_tpu_torch.run_experiment import main as run_experiment
+    from sibrar_tpu_torch.train import trainer as trainer_mod
+
+    made, walls, touched = [], [], {}
+    train_epoch, update = trainer_mod.Trainer.train_epoch, \
+        trainer_mod.row_adam_update
+
+    def timed_epoch(self):
+        made.append(self)
+        torch.cuda.synchronize()
+        t1, steps = time.perf_counter(), self.step
+        out = train_epoch(self)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1, self.step - steps))
+        return out
+
+    def recorded_update(table, opt, idx, g, step, **kw):
+        mask = touched.setdefault(table.data_ptr(), torch.zeros(
+            table.shape[0], dtype=torch.bool, device=table.device))
+        mask[idx.reshape(-1).long()] = True
+        return update(table, opt, idx, g, step, **kw)
+
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    trainer_mod.Trainer.train_epoch = timed_epoch
+    trainer_mod.row_adam_update = recorded_update
+    t0 = time.perf_counter()
+    try:
+        with recorded_spmm({}) as calls:
+            metrics = run_experiment([
+                "-a", "mf", "-c", MF_CONF_PATH, "-d", data_dir,
+                "-n", "onion18", "-t", "train_val",
+                "-o", f"results_path={run_dir}",
+                "-o", "dataset.user_features=[]",
+                "-o", "dataset.item_features=[]",
+                "-o", "eval.group_metrics=[]",
+                "-o", "learn.sparse_tables=true",
+                "-o", "learn.optimizer=adam", "-o", "learn.n_epochs=1",
+                "-o", f"learn.max_batches_per_epoch={MF_STEPS}"])
+    finally:
+        trainer_mod.Trainer.train_epoch = train_epoch
+        trainer_mod.row_adam_update = update
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    count_path("mf_sparse CLI train_val",
+               ["segment_gather", "score_wmax", "spmm_fwd", "spmm_bwd"])
+    # K7 at coalesce_rows' [M, 1] calls of both tables (and K6 at the
+    # run's one-slot lookups) against their plain versions, outside the
+    # counted run
+    if sum(k.startswith("coalesce_rows") for k in calls) < 2:
+        raise AssertionError(f"mf_sparse: coalesce_rows of both tables not "
+                             f"recorded ({sorted(calls)})")
+    check_recorded("mf_sparse", calls, ("coalesce_rows",))
+    del calls
+    trainer = made[0]
+    if sorted(trainer.sparse) != ["item_embeddings", "user_embeddings"]:
+        raise AssertionError(f"mf_sparse: sparse tables {trainer.sparse}")
+    conf = get_config(os.path.join(run_dir, "conf.yml"))
+    if set(metrics) != expected_keys(conf.eval, "val") or not all(
+            np.isfinite(v) for v in metrics.values()):
+        raise AssertionError("mf_sparse: val metrics not JAX's keys or not "
+                             "finite")
+    initial = get_algorithm("mf").build(conf.model, trainer.train_dataset,
+                                        trainer.data, conf.run_settings.seed)
+    for name, table in trainer.tables.items():
+        hit = touched[table.weight.data_ptr()]
+        cold = ~hit
+        rows = trainer.row_state[name]
+        n_cold = int(cold.sum())
+        if n_cold == 0 or not torch.equal(
+                table.weight.detach()[cold],
+                getattr(initial, name).weight.detach()[cold]):
+            raise AssertionError(f"mf_sparse {name}: {n_cold} untouched "
+                                 f"rows, or they changed")
+        if bool(rows["mu"][cold].any()) or bool(rows["nu"][cold].any()):
+            raise AssertionError(f"mf_sparse {name}: moments of untouched "
+                                 f"rows not zero")
+        if not bool(rows["nu"][hit].any()):
+            raise AssertionError(f"mf_sparse {name}: no touched row moved "
+                                 f"its moments")
+        log(f"mf_sparse {name} {tuple(table.weight.shape)}: {n_cold} rows "
+            f"untouched, their bits and zero moments kept; "
+            f"{int(hit.sum())} rows stepped")
+    steps = sum(n for _, n in walls)
+    log(f"mf_sparse CLI train_val: {total:.2f} s on {card}; train "
+        f"{1e3 * sum(w for w, _ in walls) / steps:.3f} ms/step (host, "
+        f"synchronized; {steps} steps, batch {trainer.batch_size}); "
+        f"max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; val ndcg@10 "
+        f"{metrics['val/ndcg@10']:.6f}")
 
 
 def reset_counts(kernels) -> None:
@@ -2192,6 +2325,351 @@ def first_layer_chains(tower, rows, catalog, model, dev) -> None:
                 f"layer: {time.perf_counter() - t0:.4f} s")
     finally:
         layers.INTERACTION_SPMM = flag
+
+
+def bits_differ(a: dict, b: dict) -> dict:
+    """``{name: (n_differing, max_abs_err)}`` over the tensors of two
+    snapshots whose bits differ (floats through their integer view)."""
+    import torch
+
+    out = {}
+    for name, x in a.items():
+        y = b[name]
+        if x.is_floating_point():
+            ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+            xi = x.contiguous().view(ints[x.element_size()])
+            yi = y.contiguous().view(ints[y.element_size()])
+        else:
+            xi, yi = x, y
+        n = int((xi != yi).sum())
+        if n:
+            out[name] = (n, max_abs_err(x.float(), y.float()))
+    return out
+
+
+def parent_bag(kernel, cols, mask):
+    """The user tower's bag branch before it ran on K6 / K7: a gather of
+    kernel rows and a masked sum, with autograd's backward."""
+    return (kernel[cols.long()] * mask.unsqueeze(-1)).sum(-2)
+
+
+def check_spmm_case(label: str, cols, mask, n_cols: int, kernel=None,
+                    g=None) -> None:
+    """On one call's inputs: K6 (when ``kernel`` is given) within the f32
+    sum bound ``2 n eps sum |kernel rows|`` per row of its plain version,
+    and K7 (when ``g`` is given) bit-equal to its plain version run on the
+    CPU copies (JAX's order of the sums). Raises when either fails."""
+    import torch
+
+    from sibrar_tpu_torch.ops import spmm
+
+    done = []
+    if kernel is not None:
+        got = spmm.spmm_fwd(cols, mask, kernel)
+        want = spmm.spmm_fwd_plain(cols, mask, kernel)
+        tol = (2 * mask.sum(1, keepdim=True) * F32_EPS
+               * spmm.spmm_fwd_plain(cols, mask, kernel.abs()))
+        err = max_abs_err(got, want)
+        if not bool(((got - want).abs() <= tol).all()):
+            raise AssertionError(f"K6 spmm_fwd beyond the f32 sum bound on "
+                                 f"{label}: max abs err {err}")
+        done.append(f"K6 max abs err {err:.3e}, within the f32 sum bound")
+    if g is not None:
+        got = spmm.spmm_bwd(cols, mask, g, n_cols).cpu()
+        want = spmm.spmm_bwd_plain(cols.cpu(), mask.cpu(), g.cpu(), n_cols)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"K7 spmm_bwd differs from its plain "
+                                 f"version on the CPU on {label}: max abs "
+                                 f"err {max_abs_err(got, want)}")
+        done.append("K7 bit-equal to its plain version on the CPU")
+    h = (kernel if kernel is not None else g).shape[1]
+    log(f"{label}, [{cols.shape[0]} x {cols.shape[1]}] rows, "
+        f"{int(mask.sum())} live, {n_cols} columns, H = {h}: "
+        f"{'; '.join(done)}")
+
+
+@contextlib.contextmanager
+def recorded_spmm(calls: dict):
+    """While open, keeps the inputs of the first K6 / K7 call of each call
+    site and shape class (``calls[label]``): every `spmm_onehot` of
+    ``models/layers.py`` (`Embedding` lookups, `TagEmbeddingBag` sums, the
+    interaction towers' bag rows) with its table and, once autograd hands
+    it back, its output gradient (K7's input); and every `spmm_bwd` of
+    ``train/row_adam.coalesce_rows`` with its gradient rows."""
+    from sibrar_tpu_torch.models import layers
+    from sibrar_tpu_torch.train import row_adam
+
+    onehot, bwd = layers.spmm_onehot, row_adam.spmm_bwd
+
+    def spmm_onehot(cols, mask, kernel):
+        out = onehot(cols, mask, kernel)
+        owner = type(sys._getframe(1).f_locals.get("self")).__name__
+        n, h = kernel.shape
+        label = f"{owner} L={cols.shape[1]} table [{n} x {h}]"
+        if label not in calls:
+            case = calls[label] = dict(cols=cols, mask=mask, n_cols=n,
+                                       kernel=kernel.detach())
+            if out.requires_grad:
+                out.register_hook(lambda g: case.__setitem__(
+                    "g", g.detach().contiguous().clone()))
+        return out
+
+    def spmm_bwd(cols, mask, g, n_cols):
+        calls.setdefault(f"coalesce_rows M={n_cols} d={g.shape[1]}",
+                         dict(cols=cols, mask=mask, n_cols=n_cols, g=g))
+        return bwd(cols, mask, g, n_cols)
+
+    layers.spmm_onehot, row_adam.spmm_bwd = spmm_onehot, spmm_bwd
+    try:
+        yield calls
+    finally:
+        layers.spmm_onehot, row_adam.spmm_bwd = onehot, bwd
+
+
+def check_recorded(path: str, calls: dict, needed: tuple) -> None:
+    """`check_spmm_case` on every call `recorded_spmm` kept on ``path``;
+    each label prefix in ``needed`` must have been recorded with its
+    gradient (its K7 input)."""
+    for prefix in needed:
+        if not any(k.startswith(prefix) and "g" in c
+                   for k, c in calls.items()):
+            raise AssertionError(f"{path}: no K7 call of {prefix} recorded "
+                                 f"({sorted(calls)})")
+    for label, case in calls.items():
+        check_spmm_case(f"{path}, {label}", case["cols"], case["mask"],
+                        case["n_cols"], case.get("kernel"), case.get("g"))
+
+
+def check_one_slot(n_cols: int, dev) -> None:
+    """K6 / K7 on rows of one live slot, as `layers.Embedding` looks up a
+    train batch's items (B (1 + n) = 5,632 ids, an eighth of them one hot
+    id) in a random table of ``n_cols`` rows, at H = 1, 256 and 512; and
+    `row_adam.coalesce_rows` (K7 on its [M, 1] run ids) on the card
+    bit-equal to itself on the CPU copies, at the same ids, d = 256."""
+    import torch
+
+    from sibrar_tpu_torch.train.row_adam import coalesce_rows
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    m = LOADER_CONF["batch_size"] * (1 + DATASET_CONF["n_negative_samples"])
+    kernel = torch.randn(n_cols, 512, device=dev, generator=gen)
+    ids = torch.randint(0, n_cols, (m, 1), device=dev, generator=gen,
+                        dtype=torch.int32)
+    ids[::8] = n_cols // 3
+    mask = torch.ones_like(ids, dtype=torch.bool)
+    for h in (1, 256, 512):
+        g = torch.randn(m, h, device=dev, generator=gen)
+        check_spmm_case("one-slot Embedding lookup", ids, mask, n_cols,
+                        kernel[:, :h].contiguous(), g)
+    g = torch.randn(m, 256, device=dev, generator=gen)
+    got = coalesce_rows(ids.reshape(-1), g)
+    want = coalesce_rows(ids.reshape(-1).cpu(), g.cpu())
+    if not (torch.equal(got[0].cpu(), want[0]) and torch.equal(
+            got[1].cpu().view(torch.int32), want[1].view(torch.int32))):
+        raise AssertionError("coalesce_rows on the card differs from the "
+                             "CPU")
+    log(f"coalesce_rows, M={m} d=256: ids and rows bit-equal to the CPU's")
+
+
+def user_bag_profile(tower, users) -> None:
+    """The user tower's bag rows on the train batch (live slots per row,
+    rows past K6's 32-slot limit); K6 and K7 held to their plain versions
+    on them (`check_spmm_case`); and the first layer's forward + backward
+    time on them by `parent_bag` (gather and masked sum, autograd's
+    backward) and as it runs now (K6 / K7)."""
+    import torch
+
+    from sibrar_tpu_torch.ops.sparse import csr_row_gather
+    from sibrar_tpu_torch.ops.spmm import spmm_onehot
+
+    cols, mask = csr_row_gather(tower.csr, users)
+    lens = mask.sum(1)
+    log(f"user bag rows, train batch: {users.shape[0]} rows of width "
+        f"{cols.shape[1]}, live slots min {int(lens.min())} mean "
+        f"{float(lens.float().mean()):.1f} max {int(lens.max())}, "
+        f"{int((lens > 32).sum())} rows over 32 (summed by runs), "
+        f"{int(lens.sum())} live in all")
+    g = torch.randn(users.shape[0], tower.kernel.shape[1],
+                    device=users.device, generator=torch.Generator(
+                        device=users.device).manual_seed(SEED))
+    check_spmm_case("user bag rows, train batch", cols, mask,
+                    tower.kernel.shape[0], tower.kernel.detach(), g)
+    kernel = tower.kernel.detach().clone().requires_grad_()
+
+    def parent():
+        parent_bag(kernel, cols, mask).backward(g)
+
+    def spmm():
+        spmm_onehot(cols, mask, kernel).backward(g)
+
+    times = cuda_ms_turns({"gather + sum, autograd": parent,
+                           "K6 / K7": spmm}, iters=20, rounds=3)
+    log("user bag first layer, forward + backward: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in times.items()))
+
+
+def sbnet_trainer(train, tdata, seed: int = SEED, **learn):
+    """SBNet at the YAML's widths, random weights from ``seed``, and its
+    `Trainer` with the YAML's learn / dataset / loader settings (``learn``
+    overrides), the trainer's generator seeded with ``seed``."""
+    from sibrar_tpu_torch import config_from_dict
+    from sibrar_tpu_torch.models.sbnet import SingleBranchNet
+    from sibrar_tpu_torch.train.trainer import (
+        DatasetConfig,
+        LearningConfig,
+        Trainer,
+    )
+
+    model = SingleBranchNet.build_from_conf(MODEL_CONF, train, tdata,
+                                            seed=seed)
+    return Trainer(model, train,
+                   config_from_dict(LearningConfig, {**LEARN_CONF, **learn}),
+                   config_from_dict(DatasetConfig, DATASET_CONF),
+                   batch_size=LOADER_CONF["batch_size"], seed=seed,
+                   device_data=tdata)
+
+
+def trainer_state(trainer) -> dict:
+    """The trainer's state (`Trainer.state_dict`: parameters, batch-norm
+    statistics, optimizer and row moments, its generator, the step, the
+    best state) flattened to cloned tensors."""
+    import torch
+
+    flat = {}
+
+    def walk(prefix, x):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(f"{prefix}.{k}" if prefix else str(k), v)
+        elif isinstance(x, torch.Tensor):
+            flat[prefix] = x.detach().clone()
+        elif x is not None:
+            flat[prefix] = torch.tensor(x)
+
+    walk("", trainer.state_dict())
+    return flat
+
+
+def determinism_phase(train, tdata, kernels, count_path) -> None:
+    """Two SBNet trainings of DETERMINISM_STEPS steps from one seed, at the
+    YAML's widths, must end in bit-equal parameters, batch-norm statistics
+    and optimizer state: once with the default first layer (the user
+    tower's bag path on K6 / K7, the item tower's dense path on K5), once
+    with ``INTERACTION_SPMM`` on. Logs K6 and K7 launches on the default
+    path."""
+    from sibrar_tpu_torch.models import layers
+
+    flag = layers.INTERACTION_SPMM
+    try:
+        for spmm_on in (False, True):
+            layers.INTERACTION_SPMM = spmm_on
+            runs = []
+            for run in range(2):
+                trainer = sbnet_trainer(train, tdata)
+                if run == 0 and not spmm_on:
+                    reset_counts(kernels)
+                train_window(trainer, DETERMINISM_STEPS)
+                if run == 0 and not spmm_on:
+                    counts = count_path(
+                        "determinism, default first layer",
+                        ["segment_gather", "dw_matmul", "spmm_fwd",
+                         "spmm_bwd"])
+                    log(f"determinism: K6 spmm_fwd {counts['spmm_fwd']}, "
+                        f"K7 spmm_bwd {counts['spmm_bwd']} launches in "
+                        f"{DETERMINISM_STEPS} default-path steps")
+                runs.append(trainer_state(trainer))
+                del trainer
+            diff = bits_differ(*runs)
+            if diff:
+                raise AssertionError(
+                    f"determinism, INTERACTION_SPMM {spmm_on}: {len(diff)} "
+                    f"tensors differ between two runs of one seed: "
+                    f"{sorted(diff.items())[:8]}")
+            log(f"determinism, INTERACTION_SPMM {spmm_on}: two trainings "
+                f"of {DETERMINISM_STEPS} steps from seed {SEED} end "
+                f"bit-equal ({len(runs[0])} tensors: parameters, batch-norm "
+                f"statistics, optimizer moments, generator, step)")
+    finally:
+        layers.INTERACTION_SPMM = flag
+
+
+def resume_phase(train, tdata) -> None:
+    """At the YAML's widths: train RESUME_STEPS steps, ``save_checkpoint``,
+    train RESUME_STEPS more; a fresh trainer (another seed) runs
+    ``load_checkpoint`` and the same RESUME_STEPS steps, and must end
+    bit-equal to the first."""
+    import tempfile
+
+    a = sbnet_trainer(train, tdata)
+    train_window(a, RESUME_STEPS)
+    path = tempfile.mkdtemp(prefix="sibrar_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        a.save_checkpoint(path)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        train_window(a, RESUME_STEPS)
+        want = trainer_state(a)
+        del a
+        b = sbnet_trainer(train, tdata, seed=SEED + 1)
+        t0 = time.perf_counter()
+        b.load_checkpoint(path)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    if b.step != RESUME_STEPS:
+        raise AssertionError(f"resume: step {b.step} after load")
+    train_window(b, RESUME_STEPS)
+    diff = bits_differ(want, trainer_state(b))
+    if diff:
+        raise AssertionError(f"resume: {len(diff)} tensors differ from the "
+                             f"run that went on: {sorted(diff.items())[:8]}")
+    log(f"resume: save {save_s:.2f} s ({size / 2**30:.3f} GiB), load "
+        f"{load_s:.2f} s; after {RESUME_STEPS} more steps the resumed "
+        f"trainer is bit-equal to the one that went on ({len(want)} "
+        f"tensors)")
+
+
+def bf16_moments_phase(train, tdata) -> None:
+    """A short SBNet run with ``moment_dtype: bfloat16``: finite losses,
+    every first moment stored in bf16 and finite, second moments f32."""
+    import numpy as np
+    import torch
+
+    trainer = sbnet_trainer(train, tdata, moment_dtype="bfloat16")
+    run = train_window(trainer, BF16_STEPS)
+    states = list(trainer.optimizer.state.values())
+    if not np.isfinite(run["losses"]).all():
+        raise AssertionError("bf16 moments: losses not finite")
+    if not all(st["mu"].dtype == torch.bfloat16
+               and st["nu"].dtype == torch.float32
+               and bool(torch.isfinite(st["mu"]).all()) for st in states):
+        raise AssertionError("bf16 moments: a first moment is not bf16 or "
+                             "not finite")
+    log(f"bf16 moments: {BF16_STEPS} steps, losses finite (last "
+        f"{float(run['losses'][-1]):.5f}), {len(states)} first moments "
+        f"stored in bf16; host {run['host_ms']:.3f} ms/step")
+
+
+def quality_phase(card: str) -> None:
+    """Seed 0 of the ``sbnet`` family of the trained-quality run at mid
+    scale on the card (`tools.trained_parity`): its best validation
+    ndcg@10 must exceed QUALITY_FLOOR and lie within QUALITY_SEED_NOISE of
+    JAX's seed 0 (``tools/trained_parity_jax.json``)."""
+    from sibrar_tpu_torch.tools import trained_parity
+
+    t0 = time.perf_counter()
+    got = trained_parity.run(["sbnet"], [0], "mid", DEVICE, log=log)
+    got = got["families"]["sbnet"]["runs"]["0"]
+    with open(trained_parity.JAX_RUNS) as fh:
+        want = json.load(fh)["families"]["sbnet"]["runs"]["0"]
+    if not (got > QUALITY_FLOOR and abs(got - want) <= QUALITY_SEED_NOISE):
+        raise AssertionError(f"quality: sbnet seed 0 ndcg@10 {got:.6f}, "
+                             f"JAX {want:.6f}")
+    log(f"quality: sbnet seed 0 at mid scale, best val ndcg@10 {got:.6f} "
+        f"(JAX {want:.6f}, apart {got - want:+.6f}) in "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
 
 
 def main() -> int:
@@ -2341,6 +2819,8 @@ def main() -> int:
     users, rows = first_layer_rows(tdata, model, torch.Generator(
         device=dev).manual_seed(SEED + 2), train.n_items_in_split)
     measured.update(check_train_kernels(tower, rows, users, tdata, dev))
+    user_bag_profile(model.user_module.net, users)
+    check_one_slot(train.n_items, dev)
     launches = {name: 0 for name, _, _, _ in kernels}
 
     def count_path(path: str, needed: list, absent: tuple = ()) -> dict:
@@ -2358,12 +2838,20 @@ def main() -> int:
         return counts
 
     # -------------------------------------- training, default first layer
+    # K6 / K7 against their plain versions on the inputs one default train
+    # step gives them (the user tower's bag rows, the genres tag rows),
+    # before the counted run
+    with recorded_spmm({}) as calls:
+        train_window(trainer, 1)
+    check_recorded("default train step", calls,
+                   ("InteractionTower", "TagEmbeddingBag"))
+    del calls
     warm = train_window(trainer, TRAIN_WARMUP)
     reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
     run = train_window(trainer, TRAIN_STEPS)
-    count_path("default train path", ["segment_gather", "dw_matmul"],
-               ("spmm_fwd", "spmm_bwd"))
+    count_path("default train path", ["segment_gather", "dw_matmul",
+                                      "spmm_fwd", "spmm_bwd"])
     losses = np.concatenate([warm["losses"], run["losses"]])
     first = float(run["losses"][:LOSS_WINDOW].mean())
     last = float(run["losses"][-LOSS_WINDOW:].mean())
@@ -2402,6 +2890,11 @@ def main() -> int:
         f"warm-up: host {run['host_ms']:.3f} ms/step, CUDA events "
         f"{run['event_ms']:.3f} ms/step, {run['steps_per_s']:.2f} steps/s; "
         f"loss {run['summary']}")
+
+    # ----- repeatability, resume and bf16 moments, on fresh trainers
+    determinism_phase(train, tdata, kernels, count_path)
+    resume_phase(train, tdata)
+    bf16_moments_phase(train, tdata)
 
     # --------------------------------------- the first layer, both ways
     first_layer_chains(tower, rows, data.catalog, model, dev)
@@ -2468,8 +2961,12 @@ def main() -> int:
     # ------------------ the ported tools/ probes, at their full width
     measured.update(probes_phase(kernels, count_path))
 
-    # --------- the CLI, train_val_test from artifacts, at full width
+    # --------- the CLI, train_val_test from artifacts, at full width,
+    # then MF with row-sparse tables on the same artifacts
     cli_phase(splits, kernels, count_path, card)
+
+    # ------------------ trained quality against JAX's committed seed 0
+    quality_phase(card)
 
     rows_json = [dict(name=name, route="cuda", source=src, replaces=rep,
                       launches=launches[name], **measured[name])

@@ -68,7 +68,8 @@ def as_dict(obj: Any) -> Any:
 @dataclass
 class RunSettings:
     """``device``: ``tpu`` or ``cuda`` run on the card, ``cpu`` on the
-    CPU. ``debug_nans`` is not ported."""
+    CPU. ``debug_nans`` raises at the first train step with a NaN
+    (``train/trainer.py``)."""
 
     seed: int = 64
     device: str = "tpu"

@@ -112,6 +112,30 @@ def sample_negatives(gen: Optional[torch.Generator], users: torch.Tensor,
     raise ValueError(f"unknown negative sampling strategy {strategy!r}")
 
 
+def sample_user_positives(gen: Optional[torch.Generator],
+                          users: torch.Tensor, pos_csr: DeviceCSR,
+                          n_pos: int, draws: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """``n_pos`` positives per user, catalog positions ``[B, n_pos]``
+    int32 (JAX ``sample_user_positives``): offsets drawn with replacement
+    modulo the user's row length, positions clamped to ``nnz - 1``, and -1
+    in every slot of a user with no positives. ``draws`` (int ``[B,
+    n_pos]`` in ``[0, 2^30)``) replaces the offsets drawn from ``gen``."""
+    users = users.long()
+    starts = pos_csr.indptr[users].long()
+    lens = pos_csr.indptr[users + 1].long() - starts
+    if draws is None:
+        draws = torch.randint(0, 1 << 30, (users.shape[0], n_pos),
+                              generator=gen, device=users.device)
+    if pos_csr.nnz == 0:
+        return torch.full(draws.shape, -1, dtype=torch.int32,
+                          device=users.device)
+    offs = draws.long() % lens.clamp(min=1).unsqueeze(1)
+    pos = (starts.unsqueeze(1) + offs).clamp(max=pos_csr.nnz - 1)
+    out = pos_csr.indices[pos].to(torch.int32)
+    return torch.where((lens > 0).unsqueeze(1), out, -1)
+
+
 def sample_k_modalities(gen: Optional[torch.Generator], shape: tuple,
                         n_modalities: int, k: int,
                         central: Optional[int] = None,

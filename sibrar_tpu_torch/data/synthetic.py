@@ -1,6 +1,6 @@
-"""Onion-scale synthetic data and the artifact writer (port of
-``sibrar_tpu/data/synthetic.py``: ``make_onion_scale_splits``,
-``write_reference_artifacts``).
+"""Synthetic data and the artifact writer (port of
+``sibrar_tpu/data/synthetic.py``: ``make_synthetic_splits``,
+``make_onion_scale_splits``, ``write_reference_artifacts``).
 
 Numpy and the ``csv`` module only. The generator draws from the rng in
 exactly the JAX package's order, so one seed gives bit-identical pairs and
@@ -14,8 +14,13 @@ from typing import Optional
 
 import numpy as np
 
+from sibrar_tpu_torch.config.schema import (
+    DatasetSplitType,
+    FeatureDefinition,
+    FeatureType,
+)
 from sibrar_tpu_torch.data.dataset import RecDataset
-from sibrar_tpu_torch.data.feature import FeatureTable
+from sibrar_tpu_torch.data.feature import FeatureTable, build_feature
 
 USED_CONFIG = """interactions:
   k_core: 0
@@ -24,6 +29,129 @@ item_features: []
 split:
 {split}user_features: []
 """
+
+
+def make_synthetic_splits(
+    n_users: int = 60,
+    n_items: int = 80,
+    n_interactions: int = 1500,
+    split_type: DatasetSplitType = DatasetSplitType.RANDOM,
+    seed: int = 0,
+    with_features: bool = True,
+    feature_dim: int = 12,
+    latent_dim: int = 6,
+    popularity_alpha: float = 0.0,
+) -> dict[str, RecDataset]:
+    """Train / val / test `RecDataset`s with planted low-rank preferences:
+    unique (user, item) pairs drawn with probability ``exp(score / 2)``,
+    ``score = u_lat @ i_lat + noise`` (minus ``2 alpha ln(rank + 1)`` per
+    item with ``popularity_alpha``, a Zipf tail); per-user 0.6 / 0.2 / 0.2
+    splits, or disjoint entity groups for the cold-start split types; item
+    features ``audio`` / ``text`` (vectors from the item latents) and
+    ``genres`` (tags), user features ``gender`` and ``profile_vec``. The
+    rng draws in the JAX package's order, so one seed gives the same
+    arrays and tables bit for bit."""
+    split_type = DatasetSplitType(split_type)
+    rng = np.random.default_rng(seed)
+    u_lat = rng.normal(size=(n_users, latent_dim)).astype(np.float32)
+    i_lat = rng.normal(size=(n_items, latent_dim)).astype(np.float32)
+    scores = u_lat @ i_lat.T + 0.5 * rng.normal(size=(n_users, n_items))
+    if popularity_alpha > 0.0:
+        ranks = rng.permutation(n_items).astype(np.float32)
+        scores = scores - 2.0 * popularity_alpha * np.log1p(ranks)[None, :]
+    flat_p = np.exp(scores.ravel() / 2.0)
+    flat_p /= flat_p.sum()
+    n_pairs = min(n_interactions, n_users * n_items // 2)
+    chosen = rng.choice(n_users * n_items, size=n_pairs, replace=False,
+                        p=flat_p)
+    users, items = np.divmod(chosen, n_items)
+    order = rng.permutation(n_pairs)
+    inter = np.stack([users[order], items[order]], axis=1).astype(np.int64)
+
+    if not split_type.is_cold_start:
+        tr, va, te = [], [], []
+        for u in range(n_users):
+            rows = inter[inter[:, 0] == u]
+            if len(rows) == 0:
+                continue
+            n = len(rows)
+            n_tr = max(int(n * 0.6), 1)
+            n_va = (max(int(n * 0.2), 1) if n - n_tr >= 2
+                    else max(n - n_tr - 1, 0))
+            tr.append(rows[:n_tr])
+            if n_va:
+                va.append(rows[n_tr:n_tr + n_va])
+            if n - n_tr - n_va > 0:
+                te.append(rows[n_tr + n_va:])
+        tr_i, va_i, te_i = (np.concatenate(x) if x
+                            else np.zeros((0, 2), np.int64)
+                            for x in (tr, va, te))
+    else:
+        def cold_groups(n_entities):
+            perm = rng.permutation(n_entities)
+            n_tr = int(n_entities * 0.7)
+            n_va = int(n_entities * 0.15)
+            return (set(perm[:n_tr]), set(perm[n_tr:n_tr + n_va]),
+                    set(perm[n_tr + n_va:]))
+
+        cold_user = split_type in (DatasetSplitType.COLD_START_USER,
+                                   DatasetSplitType.COLD_START_BOTH)
+        cold_item = split_type in (DatasetSplitType.COLD_START_ITEM,
+                                   DatasetSplitType.COLD_START_BOTH)
+        u_groups = cold_groups(n_users) if cold_user else (None,) * 3
+        i_groups = cold_groups(n_items) if cold_item else (None,) * 3
+        names = ("train", "val", "test")
+        buckets = {name: [] for name in names}
+        for row in inter:
+            u, i = row
+            for name, ug, ig in zip(names, u_groups, i_groups):
+                if (not cold_user or u in ug) and (not cold_item or i in ig):
+                    buckets[name].append(row)
+                    break
+        tr_i, va_i, te_i = (np.array(buckets[name], np.int64).reshape(-1, 2)
+                            for name in names)
+
+    user_features, item_features = {}, {}
+    if with_features:
+        def feature(name, kind, values, n):
+            return build_feature(FeatureDefinition(name, kind), values, n)
+
+        proj_a = rng.normal(size=(latent_dim, feature_dim)).astype(np.float32)
+        proj_b = rng.normal(size=(latent_dim, feature_dim * 2)).astype(
+            np.float32)
+        item_features["audio"] = feature(
+            "audio", FeatureType.VECTOR,
+            (i_lat @ proj_a + 0.1 * rng.normal(size=(n_items, feature_dim))
+             ).astype(np.float32), n_items)
+        item_features["text"] = feature(
+            "text", FeatureType.VECTOR,
+            (i_lat @ proj_b + 0.1 * rng.normal(
+                size=(n_items, feature_dim * 2))).astype(np.float32),
+            n_items)
+        genres = ["action", "comedy", "drama", "horror", "scifi"]
+        item_features["genres"] = feature(
+            "genres", FeatureType.TAG,
+            ["|".join(rng.choice(genres, size=rng.integers(1, 4),
+                                 replace=False)) for _ in range(n_items)],
+            n_items)
+        user_features["gender"] = feature(
+            "gender", FeatureType.CATEGORICAL,
+            list(rng.choice(["m", "f", "x"], size=n_users)), n_users)
+        uproj = rng.normal(size=(latent_dim, feature_dim)).astype(np.float32)
+        user_features["profile_vec"] = feature(
+            "profile_vec", FeatureType.VECTOR,
+            (u_lat @ uproj).astype(np.float32), n_users)
+
+    def split(name, inter_s):
+        return RecDataset(
+            split_set=name, n_users=n_users, n_items=n_items,
+            interactions=inter_s, train_interactions=tr_i,
+            val_interactions=va_i if name == "test" else None,
+            split_type=split_type, user_features=dict(user_features),
+            item_features=dict(item_features))
+
+    return {"train": split("train", tr_i), "val": split("val", va_i),
+            "test": split("test", te_i)}
 
 
 def write_reference_artifacts(out_dir: str, splits: dict[str, RecDataset],

@@ -11,10 +11,13 @@ validation) and ``metrics_test.yml``. ``profile_training`` writes a
 ``torch.profiler`` trace of the first epoch under ``profile/``.
 
 ``run_settings.device``: ``cuda`` and ``tpu`` run on the card and raise
-when there is none, ``cpu`` runs on the CPU. Not ported (each raises,
-naming its ``ROADMAP.md`` queue 1 item): several devices (item 8), the
-matrix family (item 7), the other SGD models (item 6), ``debug_nans``
-(item 4).
+when there is none, ``cpu`` runs on the CPU. ``run_settings.debug_nans``
+makes the trainer raise ``FloatingPointError`` at the first train step
+with a NaN in its loss, gradients or updated parameters (JAX's
+``jax_debug_nans`` traps the operation that made it; see
+``train/trainer.py``). Not ported (each raises, naming its ``ROADMAP.md``
+queue 1 item): several devices (item 8), the matrix family (item 7), the
+SGD models besides ``sbnet``, ``sgdbias``, ``mf`` and ``acf`` (item 6).
 """
 from __future__ import annotations
 
@@ -69,8 +72,6 @@ def _check_ported(conf: ExperimentConfig, spec: AlgorithmSpec) -> None:
     if spec.kind != "sgd":
         raise NotImplementedError(f"the matrix algorithms ({spec.name!r}) "
                                   f"are {NOT_PORTED.format(7)}")
-    if conf.run_settings.debug_nans:
-        raise NotImplementedError(f"debug_nans is {NOT_PORTED.format(4)}")
 
 
 def _load_split(conf: ExperimentConfig, split_set: str,
@@ -174,7 +175,8 @@ def run_train_val(conf: ExperimentConfig, log_fn=None) -> dict:
                                        evaluator_name="train")
                          if conf.train_eval else None),
         profile_dir=(os.path.join(results_path, "profile")
-                     if conf.profile_training else None))
+                     if conf.profile_training else None),
+        debug_nans=conf.run_settings.debug_nans)
     metrics = trainer.fit()
     yaml_save(os.path.join(results_path, "metrics_val.yml"), metrics)
     log_info_results(metrics)

@@ -63,12 +63,41 @@ def linear(d_in: int, d_out: int, gen: torch.Generator, *,
 
 
 class Embedding(nn.Embedding):
-    """``nn.Embedding`` with the reference's N(0, 0.1 / dim) init."""
+    """``nn.Embedding`` with the reference's N(0, 0.1 / dim) init, looked
+    up as `spmm_onehot` over rows of one live slot: K6 forward, K7 backward
+    on the card. Autograd's own backward of an embedding gather
+    (``embedding_dense_backward``) adds duplicate ids in another order on
+    each call on the card; K7 sums each row in a fixed order, so a train
+    step repeats bit for bit.
+
+    Row injection (sparse-table training, ``train/row_adam.py``): while
+    ``rows`` is set (the trainer gathers ``weight[idxs]`` without autograd
+    and sets the rows as a leaf that requires grad), the call returns the
+    injected rows instead of gathering, so the backward never builds a
+    dense ``[n, d]`` gradient. The rows must be the gather of exactly the
+    ``idxs`` the call receives; a shape that differs raises (JAX's
+    ``Embedding`` check)."""
 
     def __init__(self, num: int, dim: int, gen: torch.Generator):
         super().__init__(num, dim)
+        self.rows: Optional[torch.Tensor] = None
         with torch.no_grad():
             self.weight.normal_(0.0, 0.1 / dim, generator=gen)
+
+    def forward(self, idxs: torch.Tensor) -> torch.Tensor:
+        if self.rows is None:
+            flat = idxs.reshape(-1, 1).to(torch.int32)
+            mask = torch.ones(flat.shape, dtype=torch.bool,
+                              device=flat.device)
+            out = spmm_onehot(flat, mask, self.weight)
+            return out.reshape(*idxs.shape, self.embedding_dim)
+        expect = (*idxs.shape, self.embedding_dim)
+        if tuple(self.rows.shape) != expect:
+            raise ValueError(
+                f"injected rows {tuple(self.rows.shape)} do not match the "
+                f"gather {expect} for a table of {self.num_embeddings} rows: "
+                f"table_index_map source mismatch")
+        return self.rows
 
 
 class BatchNorm(nn.Module):
@@ -166,7 +195,8 @@ class PolyLinear(nn.Module):
 
 class TagEmbeddingBag(nn.Module):
     """Masked-mean embedding of padded tag id rows (pad id == n_tags), i.e.
-    ``nn.EmbeddingBag(mode="mean")`` that skips the padding."""
+    ``nn.EmbeddingBag(mode="mean")`` that skips the padding; the masked sum
+    is `spmm_onehot` (K6 / K7), so its gradient repeats bit for bit."""
 
     def __init__(self, n_tags: int, dim: int, gen: torch.Generator):
         super().__init__()
@@ -174,10 +204,13 @@ class TagEmbeddingBag(nn.Module):
         self.embedding = Embedding(n_tags, dim, gen)
 
     def forward(self, tags: torch.Tensor) -> torch.Tensor:
-        mask = (tags < self.n_tags).unsqueeze(-1)
-        emb = self.embedding(tags.clamp(max=self.n_tags - 1))
-        summed = torch.where(mask, emb, 0.0).sum(dim=-2)
-        return summed / mask.sum(dim=-2).clamp(min=1)
+        mask = tags < self.n_tags
+        width = tags.shape[-1]
+        summed = spmm_onehot(
+            tags.clamp(max=self.n_tags - 1).reshape(-1, width).to(
+                torch.int32), mask.reshape(-1, width), self.embedding.weight)
+        summed = summed.reshape(*tags.shape[:-1], summed.shape[-1])
+        return summed / mask.sum(dim=-1, keepdim=True).clamp(min=1)
 
 
 class FeatureEmbeddingModule(nn.Module):
@@ -253,14 +286,16 @@ class InteractionTower(nn.Module):
     """MLP over an entity's train-interaction row with a sparse first layer.
 
     The first layer is ``row @ kernel + bias`` over the 0/1 row of the train
-    CSR. The bag path gathers the row's kernel rows and sums them (K1 row
-    gather, then a masked sum; its backward is autograd's scatter-add); the
-    dense path densifies the rows (K1, then a scatter into zeros) and
-    multiplies, with K5 for the kernel's gradient; with `INTERACTION_SPMM`
-    the non-bag path runs K1 then K6, with K7 for the gradient. Which one
-    runs follows the JAX package's static gate, with the break-even factor
-    a parameter. The JAX tower's ``normalize``, ``scale`` and torch-default
-    init serve DMF and DropoutNet, not SBNet, and come with those models."""
+    CSR. The bag path sums the row's kernel rows: K1 row gather, then K6,
+    with K7 for the kernel's gradient (JAX gathers and sums, the same
+    function; K6 sums a row of more than 32 live slots by runs, within the
+    f32 sum bound of a serial sum). The dense path densifies the rows (K1,
+    then a scatter into zeros) and multiplies, with K5 for the kernel's
+    gradient; with `INTERACTION_SPMM` the non-bag path takes the bag
+    path's K1, K6 and K7. Which one runs follows the JAX package's static
+    gate, with the break-even factor a parameter. The JAX tower's
+    ``normalize``, ``scale`` and torch-default init serve DMF and
+    DropoutNet, not SBNet, and come with those models."""
 
     def __init__(self, csr: DeviceCSR, layer_sizes: Sequence[int],
                  gen: torch.Generator, *, activation_fn: str = "relu",
@@ -297,10 +332,7 @@ class InteractionTower(nn.Module):
 
     def forward(self, idxs: torch.Tensor) -> torch.Tensor:
         h = self.kernel.shape[1]
-        if self.use_bag(idxs.numel()):
-            cols, mask = csr_row_gather(self.csr, idxs)  # [..., L]
-            pre = (self.kernel[cols.long()] * mask.unsqueeze(-1)).sum(dim=-2)
-        elif INTERACTION_SPMM:
+        if self.use_bag(idxs.numel()) or INTERACTION_SPMM:
             cols, mask = csr_row_gather(self.csr, idxs.reshape(-1))
             pre = spmm_onehot(cols, mask, self.kernel).reshape(*idxs.shape, h)
         else:

@@ -4,15 +4,20 @@
 The names and families are the JAX registry's, so the CLI offers the same
 ``-a`` choices: ``sgd`` models train with `train.trainer.Trainer`,
 ``matrix`` algorithms fit once over the train CSR. An ``sgd`` build takes
-``(model_conf, dataset, device_data, seed)``. Only ``sbnet`` is ported;
-building any other name raises, naming the queue item that owes it.
+``(model_conf, dataset, device_data, seed)`` and returns the model on the
+device of ``device_data``, in eval mode. Ported: ``sbnet``, ``sgdbias``,
+``mf`` and ``acf``; building any other name raises, naming the queue item
+that owes it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
 
+import torch
+
 from sibrar_tpu_torch.config.schema import NOT_PORTED
+from sibrar_tpu_torch.models.mf import ACF, SGDBaseline, SGDMatrixFactorization
 from sibrar_tpu_torch.models.sbnet import SingleBranchNet
 
 
@@ -28,6 +33,29 @@ def _sbnet(conf: dict, dataset, device_data, seed: int) -> SingleBranchNet:
                                            seed=seed)
 
 
+def _on_device(build: Callable) -> Callable:
+    """A build of the MF family: weights from a CPU generator of ``seed``,
+    then the model moved to ``device_data``'s device, in eval mode."""
+    def wrapped(conf: dict, dataset, device_data, seed: int):
+        model = build(conf, dataset, torch.Generator().manual_seed(seed))
+        return model.to(device_data.catalog.device).eval()
+    return wrapped
+
+
+BUILDS: dict[str, Callable] = {
+    "sbnet": _sbnet,
+    "sgdbias": _on_device(lambda c, d, gen: SGDBaseline(
+        d.n_users, d.n_items, gen)),
+    "mf": _on_device(SGDMatrixFactorization.build_from_conf),
+    "acf": _on_device(lambda c, d, gen: ACF(
+        d.n_users, d.n_items, gen,
+        embedding_dim=c.get("embedding_dim", 100),
+        n_anchors=c.get("n_anchors", 20),
+        delta_exc=c.get("delta_exc", 1e-1),
+        delta_inc=c.get("delta_inc", 1e-2))),
+}
+
+
 def _unported(name: str, item: int) -> Callable:
     def build(*args, **kwargs):
         raise NotImplementedError(f"algorithm {name!r} is "
@@ -41,8 +69,8 @@ SGD = ("sgdbias", "mf", "acf", "uprotomf", "iprotomf", "uiprotomf",
 MATRIX = ("uknn", "iknn", "ifknn", "svd", "als", "rbmf", "slim", "ease",
           "p3alpha", "rand", "pop")
 ALGORITHMS: dict[str, AlgorithmSpec] = {
-    **{n: AlgorithmSpec(n, "sgd", _sbnet if n == "sbnet"
-                        else _unported(n, 6)) for n in SGD},
+    **{n: AlgorithmSpec(n, "sgd", BUILDS.get(n) or _unported(n, 6))
+       for n in SGD},
     **{n: AlgorithmSpec(n, "matrix", _unported(n, 7)) for n in MATRIX},
 }
 

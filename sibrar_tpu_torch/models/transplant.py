@@ -1,4 +1,5 @@
-"""Load the flax variables of a JAX ``SingleBranchNet`` into the port.
+"""Load the flax variables of a JAX ``SingleBranchNet``, ``SGDBaseline``,
+``SGDMatrixFactorization`` or ``ACF`` into the port.
 
 ``variables`` is ``{"params": ..., "batch_stats": ...}`` as nested dicts of
 arrays (anything ``numpy.asarray`` takes), the layout the JAX package's
@@ -8,7 +9,9 @@ arrays (anything ``numpy.asarray`` takes), the layout the JAX package's
   ``[out, in]``, so it is transposed. The interaction towers keep the flax
   ``[n_cols, h]`` layout and copy as they are;
 - flax BatchNorm ``scale`` / ``bias`` are the affine weight / bias, and its
-  ``batch_stats`` ``mean`` / ``var`` become the running statistics.
+  ``batch_stats`` ``mean`` / ``var`` become the running statistics;
+- in the MF family each id table ``name`` is ``params[name]["embedding"]``
+  and each bare parameter (``global_bias``, ``anchors``) ``params[name]``.
 
 `transplant_opt_state` carries an optax ``adam`` / ``adamw`` state (``count``,
 ``mu``, ``nu``; trees shaped like ``params``) or an ``adagrad`` state
@@ -37,10 +40,16 @@ from sibrar_tpu_torch.models.sbnet import (
 )
 
 
-def _pairs(model: SingleBranchNet, params: dict, stats: Optional[dict]
+def _pairs(model: nn.Module, params: dict, stats: Optional[dict]
            ) -> list[tuple[torch.Tensor, object, bool]]:
     """``(port tensor, flax leaf, transpose)`` for every parameter, and for
     every batch-norm statistic unless ``stats`` is None."""
+    if not isinstance(model, SingleBranchNet):  # the MF family
+        out = [(child.weight, params[name]["embedding"], False)
+               for name, child in model.named_children()
+               if isinstance(child, nn.Embedding)]
+        return out + [(p, params[name], False)
+                      for name, p in model.named_parameters(recurse=False)]
     out = []
 
     def put(dst, src, transpose=False):
@@ -114,8 +123,8 @@ def _array(dst: torch.Tensor, src, transpose: bool) -> torch.Tensor:
     return torch.tensor(arr, device=dst.device)
 
 
-def transplant(model: SingleBranchNet, variables: dict) -> SingleBranchNet:
-    """Copy JAX ``SingleBranchNet`` variables into ``model`` in place."""
+def transplant(model: nn.Module, variables: dict) -> nn.Module:
+    """Copy the JAX model's variables into ``model`` in place."""
     stats = variables.get("batch_stats", {})
     with torch.no_grad():
         for dst, src, transpose in _pairs(model, variables["params"], stats):
@@ -135,7 +144,7 @@ def _find_state(opt_state, fields: tuple[str, ...]):
     return None
 
 
-def transplant_opt_state(model: SingleBranchNet, optimizer,
+def transplant_opt_state(model: nn.Module, optimizer,
                          opt_state) -> None:
     """Load an optax state of ``build_optimizer`` into ``optimizer`` (a
     `train.trainer.Optimizer` over ``model``'s parameters) in place."""

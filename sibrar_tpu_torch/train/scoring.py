@@ -31,13 +31,16 @@ def encode_catalog(model, catalog: torch.Tensor,
                    item_chunk: int = 8192) -> torch.Tensor:
     """Item representations of the whole catalog, in ``item_chunk`` pieces
     (the last one edge-padded) so per-item intermediates, such as the dense
-    [chunk, n_users] interaction rows, never exist for the whole catalog."""
+    [chunk, n_users] interaction rows, never exist for the whole catalog;
+    a model whose item representation is a tuple gets a tuple."""
     c = catalog.shape[0]
     if c <= item_chunk:
         return model.item_repr(catalog)
     pad = (-c) % item_chunk
     cat_p = torch.cat([catalog, catalog[-1:].expand(pad)])
     out = [model.item_repr(chunk) for chunk in cat_p.split(item_chunk)]
+    if isinstance(out[0], tuple):  # several item representations (MF, ACF)
+        return tuple(torch.cat(parts)[:c] for parts in zip(*out))
     return torch.cat(out)[:c]
 
 

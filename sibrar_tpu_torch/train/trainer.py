@@ -1,9 +1,11 @@
 """Optimizers, the training loop and validation (port of
-``sibrar_tpu/train/trainer.py``: ``build_optimizer``, the dense-optimizer
-train step, ``epoch_batch_plan``, ``train_epoch``, ``make_score_fn``,
-``validate``, ``fit`` with best-model tracking and its profiled first
-epoch, ``save`` / ``load``). Its configs (``LearningConfig``,
-``EvalConfig``, ``DatasetConfig``) live in ``config/schema.py``.
+``sibrar_tpu/train/trainer.py``: ``build_optimizer`` with bf16 first
+moments, the train step with dense optimizers and row-sparse tables,
+``epoch_batch_plan``, ``train_epoch``, ``make_score_fn``, ``validate``,
+``fit`` with best-model tracking and its profiled first epoch, ``save`` /
+``load`` and the full-state ``save_checkpoint`` / ``load_checkpoint``). Its
+configs (``LearningConfig``, ``EvalConfig``, ``DatasetConfig``) live in
+``config/schema.py``.
 
 A train step samples negatives on the device, runs the model's train
 forward (logits and regularization loss), adds the rec loss, and steps the
@@ -15,9 +17,17 @@ trainer's ``torch.Generator`` on the device. Validation runs the model in
 eval mode without autograd (``train/scoring.py``); the next train step
 switches it back.
 
-Not ported yet (``ROADMAP.md`` queue 1, item 4): full-state checkpoints and
-resume, the row-sparse table optimizer (``sparse_tables``) and bf16 Adam
-moments (``moment_dtype``).
+With ``learn.sparse_tables`` the id tables a model declares in its
+``table_index_map`` (`train.row_adam.find_sparse_tables`) leave the dense
+optimizer: their rows are injected into the forward and stepped by
+`train.row_adam.row_adam_update`. ``debug_nans`` checks every step and
+raises ``FloatingPointError`` at the first step whose loss, gradients or
+updated parameters hold a NaN, naming the step and the tensor. JAX's
+``jax_debug_nans`` traps the first operation that makes a NaN; this check
+runs after the step's forward and backward (and again after its update),
+so it names the first tensor of the step that holds one, not the
+operation that made it, and it waits for the device twice per step (one
+read of all the NaN flags after the backward, one after the update).
 """
 from __future__ import annotations
 
@@ -29,7 +39,6 @@ from typing import Any, Callable, Iterable, Optional
 import torch
 
 from sibrar_tpu_torch.config.schema import (  # noqa: F401 (re-exported)
-    NOT_PORTED,
     DatasetConfig,
     EvalConfig,
     LearningConfig,
@@ -39,8 +48,13 @@ from sibrar_tpu_torch.data.sampling import sample_negatives
 from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
 from sibrar_tpu_torch.train import scoring
 from sibrar_tpu_torch.train.losses import build_rec_loss
+from sibrar_tpu_torch.train.row_adam import (
+    find_sparse_tables,
+    row_adam_init,
+    row_adam_update,
+)
 
-UNPORTED = NOT_PORTED.format(4)
+CHECKPOINT = "train_state.pt"
 
 
 class Optimizer:
@@ -55,21 +69,33 @@ class Optimizer:
     each followed by ``-lr``. A parameter without a gradient steps with a
     zero gradient, as every parameter does in the JAX package.
 
+    ``mu_dtype=torch.bfloat16`` stores Adam's first moment in bf16, as
+    optax's ``scale_by_adam(mu_dtype=bfloat16)``: the new moment is
+    ``(1 - b1) g`` in f32 plus ``b1`` times the stored moment (a bf16
+    product with ``b1`` rounded to bf16, as optax's weak-typed ``b1 *
+    mu``), the update uses that f32 moment, and only the stored copy is
+    rounded (to nearest even).
+
     ``state[p]`` holds ``mu`` / ``nu`` (Adam) or ``sum_of_squares``
     (adagrad); ``count`` is the number of steps taken."""
 
     B1, B2, EPS, RSS_EPS = 0.9, 0.999, 1e-8, 1e-7
 
     def __init__(self, params: Iterable[torch.nn.Parameter], kind: str,
-                 lr: float, wd: float = 0.0):
+                 lr: float, wd: float = 0.0,
+                 mu_dtype: Optional[torch.dtype] = None):
         if kind not in ("adam", "adagrad", "adamw"):
             raise ValueError(f"unsupported optimizer {kind!r}")
         self.kind, self.lr, self.wd = kind, lr, wd
         self.params = [p for p in params if p.requires_grad]
         self.count = 0
-        names = ("sum_of_squares",) if kind == "adagrad" else ("mu", "nu")
-        self.state = {p: {n: torch.zeros_like(p) for n in names}
-                      for p in self.params}
+        if kind == "adagrad":
+            self.state = {p: {"sum_of_squares": torch.zeros_like(p)}
+                          for p in self.params}
+        else:
+            self.state = {p: {"mu": torch.zeros_like(p, dtype=mu_dtype),
+                              "nu": torch.zeros_like(p)}
+                          for p in self.params}
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -88,7 +114,12 @@ class Optimizer:
                 upd = torch.where(ss > 0, torch.rsqrt(ss + self.RSS_EPS),
                                   0.0) * g
             else:
-                mu = st["mu"].mul_(self.B1).add_(g, alpha=1 - self.B1)
+                if st["mu"].dtype == p.dtype:
+                    mu = st["mu"].mul_(self.B1).add_(g, alpha=1 - self.B1)
+                else:  # bf16 storage, as optax: b1 * mu in bf16
+                    b1 = torch.tensor(self.B1, dtype=st["mu"].dtype)
+                    mu = (1 - self.B1) * g + (b1 * st["mu"]).to(p.dtype)
+                    st["mu"] = mu.to(st["mu"].dtype)
                 nu = st["nu"].mul_(self.B2).addcmul_(g, g, value=1 - self.B2)
                 mu_hat = mu / (1 - self.B1 ** self.count)
                 nu_hat = nu / (1 - self.B2 ** self.count)
@@ -100,11 +131,11 @@ class Optimizer:
 
 def build_optimizer(learn: LearningConfig,
                     params: Iterable[torch.nn.Parameter]) -> Optimizer:
-    """adam / adagrad / adamw as the JAX package chains them."""
-    if learn.moment_dtype not in (None, "float32"):
-        raise NotImplementedError(f"moment_dtype={learn.moment_dtype!r} is "
-                                  f"{UNPORTED}")
-    return Optimizer(params, learn.optimizer, learn.lr, learn.wd)
+    """adam / adagrad / adamw as the JAX package chains them, with the
+    first moment stored in bf16 when ``learn.moment_dtype`` says so."""
+    mu_dtype = (torch.bfloat16 if learn.moment_dtype == "bfloat16"
+                else None)
+    return Optimizer(params, learn.optimizer, learn.lr, learn.wd, mu_dtype)
 
 
 class Trainer:
@@ -115,7 +146,9 @@ class Trainer:
     ``log_fn`` receives each epoch's record; ``post_val_fn(model, epoch)``
     may add metrics after each validation (JAX passes the params where this
     passes the model); ``results_path`` receives ``model.pt`` whenever the
-    best model changes."""
+    best model changes. ``debug_nans`` raises ``FloatingPointError`` at the
+    first step with a NaN in its loss, gradients or updated parameters
+    (``run_settings.debug_nans``)."""
 
     def __init__(self, model, train_data: RecDataset, learn: LearningConfig,
                  dataset_conf: DatasetConfig, batch_size: int = 128,
@@ -127,9 +160,8 @@ class Trainer:
                  log_fn: Optional[Callable[[dict], None]] = None,
                  train_evaluator: Optional[FullEvaluator] = None,
                  post_val_fn: Optional[Callable[[Any, int], dict]] = None,
-                 profile_dir: Optional[str] = None):
-        if learn.sparse_tables:
-            raise NotImplementedError(f"sparse_tables is {UNPORTED}")
+                 profile_dir: Optional[str] = None,
+                 debug_nans: bool = False):
         self.model = model
         self.train_dataset = train_data
         self.data = (device_data if device_data is not None
@@ -143,7 +175,18 @@ class Trainer:
             learn.rec_loss, n_items=train_data.n_items_in_split,
             n_neg=self.n_neg, aggregator=learn.loss_aggregator,
             train_neg_strategy=dataset_conf.negative_sampling_strategy)
-        self.optimizer = build_optimizer(learn, model.parameters())
+        # row-sparse tables: {module name: "user" | "item"}, their modules
+        # and their row moments; every other parameter is the dense
+        # optimizer's
+        self.sparse = (find_sparse_tables(model, learn.sparse_table_min_rows)
+                       if learn.sparse_tables else {})
+        self.tables = {name: getattr(model, name) for name in self.sparse}
+        self.row_state = {name: row_adam_init(t.weight.detach())
+                          for name, t in self.tables.items()}
+        sparse_ids = {id(t.weight) for t in self.tables.values()}
+        self.optimizer = build_optimizer(
+            learn, [p for p in model.parameters()
+                    if id(p) not in sparse_ids])
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.step = 0
         self.epoch_losses: Optional[torch.Tensor] = None
@@ -157,10 +200,40 @@ class Trainer:
         self.best_value = -math.inf
         self.best_epoch = -1
         self.profile_dir = profile_dir
+        self.debug_nans = debug_nans
+        self._rows: dict = {}  # this step's injected rows: name -> (ids, rows)
 
     def train_step(self, idxs: torch.Tensor) -> torch.Tensor:
         """One optimizer step on the pairs ``idxs``; returns the device
         tensor ``[total, rec_loss, reg_loss]``."""
+        self.optimizer.zero_grad()
+        out = self.forward_backward(idxs)
+        if self.debug_nans:
+            self._check_nans({
+                ("loss", "total, rec, reg"): out,
+                **{("gradient", n): p.grad
+                   for n, p in self.model.named_parameters()
+                   if p.grad is not None},
+                **{("gradient", n): r.grad
+                   for n, (_, r) in self._rows.items()
+                   if r.grad is not None}})
+        self.optimizer.step()
+        for name, (ids, rows) in self._rows.items():
+            g = rows.grad if rows.grad is not None else torch.zeros_like(rows)
+            row_adam_update(self.tables[name].weight.data,
+                            self.row_state[name], ids, g, self.step + 1,
+                            lr=self.learn.lr, wd=self.learn.wd)
+        self._rows = {}
+        if self.debug_nans:
+            self._check_nans({("updated parameter", n): p
+                              for n, p in self.model.named_parameters()})
+        self.step += 1
+        return out
+
+    def forward_backward(self, idxs: torch.Tensor) -> torch.Tensor:
+        """The train step up to its gradients: draws, train forward, loss,
+        backward into ``.grad`` (and, for row-sparse tables, into the
+        injected rows' ``.grad``); returns ``[total, rec_loss, reg_loss]``."""
         data = self.data
         u = data.train_users[idxs]
         pos = data.train_items_cat[idxs]
@@ -174,14 +247,33 @@ class Trainer:
         labels = torch.zeros(i_cat.shape, device=self.device)
         labels[:, 0] = 1.0
         self.model.train()
-        logits, reg = self.model(u, i_global, gen=self.gen)
+        source = {"user": u, "item": i_global}
+        self._rows = {}
+        for name, src in self.sparse.items():
+            ids = source[src]
+            rows = self.tables[name].weight.detach()[ids.long()]
+            self._rows[name] = (ids, rows.requires_grad_())
+            self.tables[name].rows = rows
+        try:
+            logits, reg = self.model(u, i_global, gen=self.gen)
+        finally:
+            for table in self.tables.values():
+                table.rows = None
         loss = self.rec_loss(logits, labels)
         total = loss + reg
-        self.optimizer.zero_grad()
         total.backward()
-        self.optimizer.step()
-        self.step += 1
         return torch.stack([total, loss, reg]).detach()
+
+    def _check_nans(self, tensors: dict) -> None:
+        """Raise at the first of ``tensors`` (keyed ``(what, name)``)
+        holding a NaN, naming it and this step (counted from 0). The
+        tensors' flags are read from the device at once."""
+        flags = torch.stack([torch.isnan(t).any()
+                             for t in tensors.values()]).cpu()
+        if bool(flags.any()):
+            what, name = list(tensors)[int(flags.nonzero()[0])]
+            raise FloatingPointError(
+                f"NaN in the {what} {name!r} at train step {self.step}")
 
     @staticmethod
     def epoch_batch_plan(n_inter: int, batch_size: int,
@@ -332,8 +424,60 @@ class Trainer:
                            map_location=self.device, weights_only=True)
         self.model.load_state_dict(state)
 
+    def state_dict(self) -> dict:
+        """The whole training state, as tensors and numbers: parameters
+        and batch-norm statistics, the optimizer's step count and moments
+        (by parameter name), the row moments of sparse tables, the state
+        of the trainer's generator (on its device: every draw of training
+        comes from it), the step, and the best state (None before the
+        first validation), value and epoch."""
+        names = {p: n for n, p in self.model.named_parameters()}
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": {"count": self.optimizer.count,
+                          "state": {names[p]: st for p, st in
+                                    self.optimizer.state.items()}},
+            "rows": self.row_state,
+            "generator": self.gen.get_state(),
+            "step": self.step,
+            "best": {"state": self.best_state, "value": self.best_value,
+                     "epoch": self.best_epoch}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore `state_dict`'s state in place (tensors keep their
+        dtype and move to this trainer's device)."""
+        self.model.load_state_dict(state["model"])
+        params = dict(self.model.named_parameters())
+        self.optimizer.count = int(state["optimizer"]["count"])
+        for name, st in state["optimizer"]["state"].items():
+            for key, t in st.items():
+                self.optimizer.state[params[name]][key] = t.to(self.device)
+        for name, st in state["rows"].items():
+            for key, t in st.items():
+                self.row_state[name][key].copy_(t)
+        self.gen.set_state(state["generator"])
+        self.step = int(state["step"])
+        best = state["best"]
+        self.best_state = (None if best["state"] is None else
+                           {k: v.to(self.device)
+                            for k, v in best["state"].items()})
+        self.best_value = float(best["value"])
+        self.best_epoch = int(best["epoch"])
+
     def save_checkpoint(self, path: str) -> None:
-        raise NotImplementedError(f"full-state checkpoints are {UNPORTED}")
+        """The full training state (`state_dict`) as
+        ``path/train_state.pt``, for resuming mid-training: the JAX
+        package's ``save_checkpoint`` state in a torch format that
+        ``torch.load(..., weights_only=True)`` reads."""
+        os.makedirs(path, exist_ok=True)
+        torch.save(self.state_dict(), os.path.join(path, CHECKPOINT))
 
     def load_checkpoint(self, path: str) -> None:
-        raise NotImplementedError(f"full-state checkpoints are {UNPORTED}")
+        """Resume from `save_checkpoint`'s file; raises
+        ``FileNotFoundError`` when ``path`` holds none."""
+        file = os.path.join(path, CHECKPOINT)
+        if not os.path.exists(file):
+            raise FileNotFoundError(f"no train-state checkpoint in {path!r}")
+        self.load_state_dict(torch.load(file, map_location="cpu",
+                                        weights_only=True))

@@ -104,7 +104,7 @@ def test_registry_names_and_kinds_match_jax():
         assert (ALGORITHMS[name].name, ALGORITHMS[name].kind) == (
             spec.name, spec.kind)
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        get_algorithm("mf").build({}, None, None, 0)
+        get_algorithm("dmf").build({}, None, None, 0)
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         get_algorithm("ease").build({}, None, None, 0)
     with pytest.raises(ValueError, match="unknown algorithm"):
@@ -230,6 +230,37 @@ def test_run_train_val_profiles_the_first_epoch(onion_dir, tmp_path):
     with open(os.path.join(run, "conf.yml")) as fh:
         assert yaml.safe_load(fh) == as_dict(conf)
     assert os.path.exists(os.path.join(run, "model.pt"))
+
+
+def test_cli_runs_mf_with_sparse_tables_and_debug_nans(onion_dir, tmp_path,
+                                                       monkeypatch):
+    """``-a mf -c conf/single/mf_onion18.yml`` trains and tests on the CPU
+    with row-sparse tables and ``debug_nans`` on; the trainer gets both."""
+    made = []
+    init = Trainer.__init__
+
+    def recording(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    monkeypatch.setattr(Trainer, "__init__", recording)
+    val, test = main([
+        "-a", "mf", "-c", os.path.join(ROOT, "conf/single/mf_onion18.yml"),
+        "-d", onion_dir, "-n", "onion18", "-t", "train_val_test",
+        "-o", f"results_path={tmp_path}/r", "-o", "run_settings.device=cpu",
+        "-o", "run_settings.debug_nans=true", "-o", "learn.optimizer=adam",
+        "-o", "learn.sparse_tables=true",
+        "-o", "learn.sparse_table_min_rows=100", "-o", "learn.n_epochs=1",
+        "-o", "learn.max_batches_per_epoch=2", "-o", "dataset.user_features=[]",
+        "-o", "dataset.item_features=[]", "-o", "eval.group_metrics=[]",
+        "-o", "loader.eval_batch_size=64", "-o", "eval.top_k=[10]"])
+    assert made[0].debug_nans and made[0].step == 2
+    assert made[0].sparse == {"user_embeddings": "user",
+                              "item_embeddings": "item"}
+    assert np.isfinite(val["val/ndcg@10"]) and np.isfinite(
+        test["test/ndcg@10"])
+    assert sorted(os.listdir(f"{tmp_path}/r")) == [
+        "conf.yml", "metrics_test.yml", "metrics_val.yml", "model.pt"]
 
 
 def test_cli_refuses_what_is_not_ported(onion_dir, tmp_path):

@@ -222,9 +222,12 @@ from sibrar_tpu_torch.ops import (dw, gemm_probe, mask, peel, roll, spmm,
 from sibrar_tpu_torch.tools import (probe_gemm_bisect, probe_gemm_precision,
                                     probe_gemm_variants, probe_pred_input,
                                     probe_roll)
-from sibrar_tpu_torch.train import losses
+from sibrar_tpu_torch.train import losses, row_adam
 from sibrar_tpu_torch.train.trainer import (DatasetConfig, EvalConfig,
                                             LearningConfig, Trainer)
+from sibrar_tpu_torch.models import mf
+from sibrar_tpu_torch.data.synthetic import make_synthetic_splits
+from sibrar_tpu_torch.tools import trained_parity
 conf = copy.deepcopy(MODEL_CONF)
 conf["shared_common_dim"] = 8
 conf["user"]["embedding_dim"] = 8
@@ -256,6 +259,22 @@ assert ids.shape == (70, 5)
 excl = test.exclude_matrix().tocsr()
 assert not np.asarray(excl[np.repeat(np.arange(70), 5), ids.reshape(-1)]).any()
 assert registry.get_algorithm("sbnet").kind == "sgd"
+mf_splits = make_synthetic_splits(n_users=30, n_items=40,
+                                  n_interactions=300, with_features=False)
+mf_data = mf_splits["train"].to_device("cpu")
+mf_model = registry.get_algorithm("mf").build({"embedding_dim": 8},
+                                              mf_splits["train"], mf_data, 0)
+assert isinstance(mf_model, mf.SGDMatrixFactorization)
+mf_trainer = Trainer(mf_model, mf_splits["train"], LearningConfig(
+    sparse_tables=True, sparse_table_min_rows=1, max_batches_per_epoch=2),
+    DatasetConfig(n_negative_samples=4), batch_size=32,
+    device_data=mf_data, debug_nans=True)
+assert mf_trainer.sparse == row_adam.find_sparse_tables(mf_model, 1)
+assert np.isfinite(mf_trainer.train_epoch()["train/loss"])
+assert sampling.sample_user_positives(
+    torch.Generator(), mf_data.train_users[:4], mf_data.pos_csr,
+    3).shape == (4, 3)
+assert trained_parity.hparams_for("mf", "mid")["embedding_dim"] == 32
 misc.reproducible(3)
 assert schema.DatasetSplitType("cold_start_item").is_cold_start
 assert feature.build_feature(schema.FeatureDefinition(

@@ -81,8 +81,11 @@ def _random_adamw_state(tx, params, rng):
 
 @pytest.mark.parametrize("first_layer,reg_type", [
     ("dense", "pairwise_single"), ("spmm", "pairwise_single"),
-    ("dense", "central_modality")])
+    ("dense", "central_modality"), ("bag", "pairwise_single")])
 def test_sbnet_train_step_matches_jax(first_layer, reg_type, monkeypatch):
+    """``bag`` forces both towers of both packages onto the bag path (JAX:
+    ``jnp.take`` and a masked sum; the port: K6's plain version, K7's for
+    the kernel gradient), within the f32 sum bound."""
     js, ts = _both(n_users=300, n_items=400, n_interactions=8000)
     conf = _narrow_conf()
     conf["item"]["single_branch_input_dropout"] = None
@@ -92,6 +95,14 @@ def test_sbnet_train_step_matches_jax(first_layer, reg_type, monkeypatch):
     if first_layer == "spmm":
         monkeypatch.setattr(jlayers, "INTERACTION_SPMM", "interpret")
         monkeypatch.setattr(tlayers, "INTERACTION_SPMM", True)
+    elif first_layer == "bag":
+        monkeypatch.setattr(jlayers, "BAG_BREAK_EVEN_FACTOR", 0)
+        towers = [m for m in tm.modules()
+                  if isinstance(m, tlayers.InteractionTower)]
+        assert len(towers) == 2
+        for tower in towers:
+            tower.bag_break_even_factor = 0
+            assert tower.use_bag(B * (1 + N_NEG))
     else:
         monkeypatch.setattr(jlayers, "DW_KERNEL", "interpret")
     users, items, labels = _step_inputs(ts)
@@ -228,10 +239,18 @@ def test_trainer_caps_batches_and_refuses_unported_options():
     trainer = _tiny_trainer(max_batches_per_epoch=2)
     trainer.train_epoch()
     assert trainer.step == 2 and trainer.epoch_losses.shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _tiny_trainer(sparse_tables=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _tiny_trainer(moment_dtype="bfloat16")
+    # SBNet declares no id tables: sparse_tables trains every parameter
+    # with the dense optimizer, as in JAX (find_sparse_tables -> {})
+    sparse = _tiny_trainer(sparse_tables=True, sparse_table_min_rows=1,
+                           max_batches_per_epoch=1)
+    assert sparse.sparse == {} and len(sparse.optimizer.params) == len(
+        list(sparse.model.parameters()))
+    assert np.isfinite(sparse.train_epoch()["train/loss"])
+    bf16 = _tiny_trainer(moment_dtype="bfloat16", max_batches_per_epoch=1)
+    bf16.train_epoch()
+    assert all(st["mu"].dtype == torch.bfloat16
+               and st["nu"].dtype == torch.float32
+               for st in bf16.optimizer.state.values())
 
 
 def test_chip_smoke_train_confs_match_yaml():

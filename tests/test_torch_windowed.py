@@ -500,6 +500,7 @@ for name in ("jax", "flax", "optax", "yaml", "pandas", "sibrar_tpu"):
     sys.modules[name] = None  # any import of these now fails
 import torch
 import chip_smoke
+import torch_step_probe
 from sibrar_tpu_torch.ops import exact_topk, peel, score, window
 g = torch.Generator().manual_seed(0)
 u, items = torch.randn(6, 20, generator=g), torch.randn(3000, 20, generator=g)
@@ -520,8 +521,8 @@ print("rankers ok")
 
 
 def test_rankers_and_chip_smoke_import_no_jax():
-    """The new modules and `chip_smoke.py` run with jax, flax, optax, yaml,
-    pandas and the JAX package unimportable."""
+    """The new modules, `chip_smoke.py` and `torch_step_probe.py` run with
+    jax, flax, optax, yaml, pandas and the JAX package unimportable."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", BLOCKED_RANKERS],
                           capture_output=True, text=True, cwd=root,

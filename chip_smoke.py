@@ -86,7 +86,15 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    after the exclusion fill (K13), and holds each list to the
    ``Recommender``'s for the same users: values bit-equal, ids equal up to
    exact ties, no excluded item; then profiles the plane peel's device time
-   per batch with each winner recovery;
+   per batch with each winner recovery; then the ``Recommender``'s other
+   modes at B = 256 and 1,024 (`serving_modes`): ``dtype="bfloat16"`` (K15
+   and the peel; K15 within ``D 2^-24 (|u~| @ |i~|^T)`` of the rounded
+   operands' exact product at the serving shapes, lists the exact top-k of
+   its own masked scores), ``dtype="int8"`` (``torch._int_mm``, K8 and the
+   peel; ``q``, ``s`` and the int32 products bit-equal to the CPU's, lists
+   exact for the dequantized scores) and ``selection="approx"`` in f32 and
+   int8 (K13; the exact recommender's lists), with latency, recall against
+   the f32 lists, redo rows and the item table's bytes;
 7. runs the ported ``tools/`` probes (``sibrar_tpu_torch/tools/``) at
    their full width: B = 1,024, C = 501,760, D = 256 on the probes'
    ``default_rng(1)`` draws. Each K14 epilogue variant
@@ -117,6 +125,12 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    ``metrics_val.yml`` equal to fit's best validation; its times (write,
    load per split, host ms per train step, validation and test wall,
    peak memory) are logged beside the card's name and power limit; then
+   serving from that run directory (`reload_phase`):
+   ``Recommender.from_run_dir`` serves 1,024 test users, equal to a
+   ``Recommender`` built here from the same ``model.pt``;
+   ``sibrar_tpu_torch.serve_recs`` writes their bf16 lists as JSONL, equal
+   to the in-process bf16 lists; one test evaluation with ``score_dtype:
+   bfloat16`` gives JAX's keys, finite, beside the f32 test metrics; then
    ``mf_sparse``: ``-a mf -c conf/single/mf_onion18.yml -t train_val`` on
    the same artifacts with ``learn.sparse_tables=true
    learn.optimizer=adam``, both id tables row-sparse, every row no step
@@ -129,8 +143,9 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    and within 0.015 of JAX's seed 0 (``trained_parity_jax.json``).
 
 Each path (default training, spmm training, the determinism run, fit, the
-four validation paths, serving, the five windowed rankers, the probes, the
-CLI, row-sparse MF) runs with
+four validation paths, serving, the five windowed rankers, the four serving
+modes at each batch size, the probes, the CLI, the reload, ``serve_recs``,
+the bf16 test evaluation, row-sparse MF) runs with
 every launch count set to 0 just before it and read just after; each of
 its kernels must have launched, and kernels of other paths must not.
 
@@ -222,13 +237,18 @@ SPMM_WARMUP, SPMM_STEPS = 5, 40  # steps with INTERACTION_SPMM on
 FIT_EPOCHS, FIT_BATCHES = 2, 60  # Trainer.fit: epochs, steps per epoch
 LIST_BATCHES = (0, 20, 48)  # validation batches whose lists are checked
 RANKER_BATCHES = 3  # batches of 1,024 test users per windowed ranker
+MODE_BATCHES = 4  # timed request batches per serving mode and batch size
+INT8_CPU_USERS = 64  # users whose int8 product is checked against the CPU's
+RELOAD_USERS = 1024  # test users served from the CLI's run directory
 TURNS, TURN_ITERS = 7, 200  # rounds x calls of a host-bound events loop
 F32_EPS = 2.0 ** -24
 # H100 SXM peaks (NVIDIA data sheet; at 700 W): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores, dense bf16 FLOP/s on the tensor cores
+# outside the tensor cores, dense bf16 FLOP/s and int8 OP/s on the tensor
+# cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12  # dense int8 on the tensor cores
 
 
 def log(*parts) -> None:
@@ -1044,6 +1064,226 @@ def check_lists(split, data, score_fn, users, ids, vals) -> int:
             if (tie > 2 * bound[r]).any():
                 raise AssertionError(f"row {r}: id sets differ beyond ties")
     return differ
+
+
+def same_as_oracle(label: str, split, users, ids, vals, scores, csr,
+                   catalog_items) -> None:
+    """Served lists against the exact top-k of the masked ``scores`` the
+    mode ranks ([B, C], catalog positions): sorted, no seen item, values
+    bit-equal, ids equal up to exact ties."""
+    import numpy as np
+    import torch
+
+    from sibrar_tpu_torch.ops.sparse import csr_row_gather
+    from sibrar_tpu_torch.ops.topk import topk_excluding
+
+    if (np.diff(vals, axis=1) > 0).any():
+        raise AssertionError(f"{label}: lists are not sorted descending")
+    check_excluded(split, users, ids)
+    cols, mask = csr_row_gather(csr, torch.as_tensor(users,
+                                                     device=scores.device))
+    ov, oi = (t.cpu().numpy() for t in topk_excluding(scores, cols, mask, K))
+    if not np.array_equal(vals, ov):
+        raise AssertionError(f"{label}: values are not the exact top-k of "
+                             f"its own masked scores")
+    position = np.zeros(int(catalog_items.max()) + 1, dtype=np.int64)
+    position[catalog_items] = np.arange(len(catalog_items))
+    pos = position[ids]
+    for r in np.nonzero((np.sort(pos, 1) != np.sort(oi, 1)).any(1))[0]:
+        extra = sorted(set(pos[r].tolist()) ^ set(oi[r].tolist()))
+        if not bool((scores[r, extra] == float(ov[r, -1])).all()):
+            raise AssertionError(f"{label}: row {r} differs from the exact "
+                                 f"top-k beyond ties")
+
+
+def serving_modes(f32_recs, score_fn, split, data, kernels, count_path,
+                  users_all, card: str) -> None:
+    """The ``Recommender``'s other modes on the served weights, at B = 256
+    and 1,024 (one warm-up batch, then MODE_BATCHES timed ones, the same
+    users for every mode), each run gated by its launches:
+
+    - ``bf16`` (K15 + the peel): K15's scores within ``D 2^-24 (|u~| @
+      |i~|^T)`` of the rounded operands' float64 product at these shapes
+      (`_common.bf16_within`), `score_bf16_wmax` K15's maxima in K2's
+      layout, the lists the exact top-k of K15's own masked scores;
+    - ``int8`` (``torch._int_mm``, K8 + the peel): ``q`` and ``s`` of the
+      table and of a batch bit-equal to the CPU's on copies, the int32
+      products of INT8_CPU_USERS users bit-equal to the CPU's, the lists
+      the exact top-k of the dequantized scores;
+    - ``approx`` in f32 and int8 (exclusion fill + K13): the lists equal
+      the exact recommender's of the same dtype (values bit-equal, ids up
+      to exact ties).
+
+    Logs per mode and batch size the p50 request latency (host clock),
+    CUDA-event time per batch, the share of the f32 lists' items each
+    list holds (recall@100 against f32), redo rows and the item table's
+    bytes; and K15 / K2 / ``torch._int_mm`` at B = 1,024 on the catalog."""
+    import numpy as np
+    import torch
+
+    from sibrar_tpu_torch.ops import gemm_probe, window
+    from sibrar_tpu_torch.serve import (
+        Recommender,
+        _pad_int8,
+        int8_scores,
+        quantize_rows_int8,
+    )
+    from sibrar_tpu_torch.tools import _common
+
+    user_fn, items = score_fn.dot_parts
+    c = items.shape[0]
+    csr = data.exclude_csr
+    catalog_items = np.asarray(split.items_in_split)
+    peel_k = ["segment_gather", "gather_windows", "peel_values", "spmm_fwd"]
+    modes = (
+        ("bf16", dict(dtype="bfloat16"), peel_k + ["score_bf16"],
+         ("score_wmax", "window_max", "exact_topk")),
+        ("int8", dict(dtype="int8"), peel_k + ["window_max"],
+         ("score_wmax", "score_bf16", "exact_topk")),
+        ("approx", dict(selection="approx"),
+         ["segment_gather", "score_wmax", "exact_topk", "spmm_fwd"],
+         ("score_bf16", "window_max", "gather_windows", "peel_values")),
+        ("approx int8", dict(dtype="int8", selection="approx"),
+         ["segment_gather", "exact_topk", "spmm_fwd"],
+         ("score_wmax", "score_bf16", "window_max", "gather_windows",
+          "peel_values")))
+    exact_recs = {("f32", bs): rec for bs, rec in f32_recs.items()}
+    t_phase = time.perf_counter()
+    for bs in BATCHES:
+        users = users_all[:(MODE_BATCHES + 1) * bs]
+        batches = [users[i:i + bs] for i in range(0, len(users), bs)]
+        f32_ids = [f32_recs[bs].recommend(u) for u in batches]
+        for name, kw, needed, absent in modes:
+            rec = Recommender(score_fn, split, data, k=K, batch_size=bs,
+                              **kw)
+            if rec.use_dot != (name == "bf16"):
+                raise AssertionError(f"serving mode {name}: use_dot "
+                                     f"{rec.use_dot}")
+            reset_counts(kernels)
+            lat, event_ms, served = [], [], []
+            for u in batches:
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ev0.record()
+                ids, vals = rec.recommend(u, return_scores=True)
+                ev1.record()
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t1)
+                event_ms.append(ev0.elapsed_time(ev1))
+                served.append((u, ids, vals))
+            count_path(f"serving mode {name}, B={bs}", needed, absent)
+
+            dtype = "int8" if "int8" in name else (
+                "bf16" if name == "bf16" else "f32")
+            exact_recs.setdefault((dtype, bs), rec)
+            with torch.no_grad():
+                for bi, (u, ids, vals) in enumerate(served):
+                    u_t = torch.as_tensor(u, device=data.catalog.device)
+                    ur = user_fn(u_t)
+                    if dtype == "bf16":
+                        scores, wmax_t = gemm_probe.score_bf16(ur, rec.items)
+                        _common.bf16_within(f"K15 serving B={bs}", scores,
+                                            wmax_t, ur, rec.items)
+                        if bi == 0 and not torch.equal(
+                                gemm_probe.score_bf16_wmax(ur, rec.items)[1],
+                                wmax_t.T):
+                            raise AssertionError("score_bf16_wmax: not "
+                                                 "K15's maxima in K2's "
+                                                 "layout")
+                        scores = scores[:, :c]
+                    elif dtype == "int8":
+                        scores = int8_scores(ur, rec.q_items, rec.s_items)
+                    else:
+                        scores = window.score_wmax(ur, rec.items)[0][:, :c]
+                    label = f"serving mode {name}, B={bs}, batch {bi}"
+                    same_as_oracle(label, split, u, ids, vals, scores, csr,
+                                   catalog_items)
+                    if name.startswith("approx"):
+                        wids, wvals = exact_recs[(dtype, bs)].recommend(
+                            u, return_scores=True)
+                        if not np.array_equal(vals, wvals):
+                            raise AssertionError(f"{label}: values differ "
+                                                 f"from the exact "
+                                                 f"recommender's")
+                        same_as_oracle(label + " (exact)", split, u, wids,
+                                       wvals, scores, csr, catalog_items)
+                    if dtype == "int8" and bi == 0:
+                        check_int8_on_cpu(items, ur, rec)
+            table = (rec.q_items.numel() + 4 * rec.s_items.numel()
+                     if dtype == "int8" else 4 * items.numel())
+            recall = np.mean([len(set(a) & set(b)) / K
+                              for (_, ids, _), f in zip(served, f32_ids)
+                              for a, b in zip(ids.tolist(), f.tolist())])
+            log(f"serving mode {name}, B={bs}: p50 "
+                f"{1e3 * np.median(lat[1:]):.3f} ms per request batch "
+                f"(host clock, {MODE_BATCHES} batches after one warm-up), "
+                f"CUDA events {np.median(event_ms[1:]):.3f} ms per batch; "
+                f"recall@{K} against the f32 lists {recall:.6f}; redo rows "
+                f"{rec.redo_rows}; item table {table / 1e6:.3f} MB; on "
+                f"{card}; checks passed")
+            if bs == max(BATCHES):
+                profile_window(lambda: [rec.recommend(u) for u in batches[1:]],
+                               MODE_BATCHES,
+                               f"request batches of {bs}, serving mode {name}")
+
+    bs = max(BATCHES)
+    with torch.no_grad():  # the score GEMMs at B = 1,024 on the catalog
+        u_t = torch.as_tensor(users_all[:bs], device=data.catalog.device)
+        ur = user_fn(u_t)
+        rec = exact_recs[("int8", bs)]
+        q_u = _pad_int8(quantize_rows_int8(ur)[0], 0)
+        items_p = window.pad_catalog(items)
+        times = dict(
+            score_bf16=cuda_ms(lambda: gemm_probe.score_bf16(ur, items_p),
+                               20),
+            score_wmax=cuda_ms(lambda: window.score_wmax(ur, items_p), 20),
+            int_mm=cuda_ms(lambda: torch._int_mm(q_u, rec.q_items.T), 20),
+            int8_scores=cuda_ms(lambda: int8_scores(ur, rec.q_items,
+                                                    rec.s_items), 20))
+    cp, d = items_p.shape
+    ops = 2 * bs * cp * d
+    stores = 4 * bs * cp + 4 * bs * (cp // 128)  # scores, window maxima
+    bounds = dict(
+        score_bf16=bound(4 * (bs * d + cp * d) + stores, ops, BF16_FLOPS),
+        score_wmax=bound(4 * (bs * d + cp * d) + stores, ops),
+        int_mm=bound(q_u.numel() + rec.q_items.numel() + 4 * bs * cp, ops,
+                     INT8_OPS),
+        int8_scores=bound(4 * bs * d + rec.q_items.numel()
+                          + 4 * rec.s_items.numel() + 4 * bs * c, ops,
+                          INT8_OPS))
+    log(f"score GEMMs at B={bs}, C={c}, D={d} (CUDA events, ms per call) "
+        f"on {card}: {times}; bounds {bounds}")
+    log(f"serving modes: {time.perf_counter() - t_phase:.2f} s")
+
+
+def check_int8_on_cpu(items, ur, rec) -> None:
+    """The int8 mode on the card against the CPU on copies: the table's and
+    a batch's ``q`` and ``s`` bit for bit (the Recommender's table too),
+    and the int32 products of the first INT8_CPU_USERS users."""
+    import torch
+
+    from sibrar_tpu_torch.serve import _pad_int8, quantize_rows_int8
+
+    c, d = items.shape
+    for label, x in (("table", items), ("users", ur)):
+        q, s = quantize_rows_int8(x)
+        qc, sc = quantize_rows_int8(x.cpu())
+        if not (torch.equal(q.cpu(), qc) and torch.equal(
+                s.cpu().view(torch.int32), sc.view(torch.int32))):
+            raise AssertionError(f"int8 {label}: q or s differ from the "
+                                 f"CPU's")
+        if label == "table" and not torch.equal(rec.q_items[:c, :d].cpu(),
+                                                qc):
+            raise AssertionError("int8: the Recommender's table is not the "
+                                 "CPU's quantization")
+    q_u = _pad_int8(quantize_rows_int8(ur[:INT8_CPU_USERS])[0], 0)
+    got = torch._int_mm(q_u, rec.q_items.T)
+    if not torch.equal(got.cpu(), torch._int_mm(q_u.cpu(),
+                                                rec.q_items.cpu().T)):
+        raise AssertionError("int8: the card's int32 products differ from "
+                             "the CPU's")
 
 
 def windowed_rankers(rec, score_fn, split, data, kernels, count_path,
@@ -2112,10 +2352,116 @@ def cli_phase(splits, kernels, count_path, card: str) -> None:
             f"ndcg@10 {val_metrics['val/ndcg@10']:.6f} (best of "
             f"{len(validations)}), test ndcg@10 "
             f"{test_metrics['test/ndcg@10']:.6f}")
+        reload_phase(run_dir, root, splits, kernels, count_path, card,
+                     test_metrics)
         mf_sparse_phase(data_dir, os.path.join(root, "mf_run"), kernels,
                         count_path, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def reload_phase(run_dir: str, root: str, splits, kernels, count_path,
+                 card: str, test_metrics: dict) -> None:
+    """Serving from the CLI's run directory (``conf.yml``, ``model.pt``):
+    ``Recommender.from_run_dir(run_dir)`` (the test split, the card from
+    the YAML's device) serves RELOAD_USERS test users, whose lists must
+    equal those of a ``Recommender`` built here from the same ``model.pt``
+    over the in-memory splits (held bit-equal to the loaded ones); then
+    ``sibrar_tpu_torch.serve_recs.main`` writes a JSONL of the same users
+    with ``--dtype bfloat16 --scores``, read back against the in-process
+    bf16 lists (ids equal, ``round(score, 6)``); then one test evaluation
+    with ``score_dtype: bfloat16`` on the reloaded weights: JAX's keys,
+    finite values, NDCG@10 logged beside the f32 test metrics'."""
+    import dataclasses
+    import json
+
+    import numpy as np
+    import torch
+
+    from sibrar_tpu_torch.config.loader import get_config
+    from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
+    from sibrar_tpu_torch.models.registry import get_algorithm
+    from sibrar_tpu_torch.serve import Recommender
+    from sibrar_tpu_torch.serve_recs import main as serve_recs
+    from sibrar_tpu_torch.train.scoring import make_score_fn
+
+    conf = get_config(os.path.join(run_dir, "conf.yml"))
+    test, train = splits["test"], splits["train"]
+    users = np.asarray(test.users_in_split)[:RELOAD_USERS]
+    peel_k = ["segment_gather", "gather_windows", "peel_values", "spmm_fwd"]
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    rec = Recommender.from_run_dir(run_dir)
+    t_load = time.perf_counter() - t0
+    ids, vals = rec.recommend(users, return_scores=True)
+    t_serve = time.perf_counter() - t0 - t_load
+    count_path("from_run_dir serving", peel_k + ["score_wmax"],
+               ("score_bf16",))
+    if rec.device.type != DEVICE or rec.k != max(conf.eval.top_k):
+        raise AssertionError(f"from_run_dir: device {rec.device}, k {rec.k}")
+
+    dev = rec.device
+    tdata, data = train.to_device(dev), test.to_device(dev)
+    model = get_algorithm(conf.algorithm).build(conf.model, train, tdata,
+                                                conf.run_settings.seed)
+    model.load_state_dict(torch.load(os.path.join(run_dir, "model.pt"),
+                                     map_location=dev, weights_only=True))
+    score_fn = make_score_fn(model, data.catalog)
+    here = Recommender(score_fn, test, data, k=rec.k)
+    wids, wvals = here.recommend(users, return_scores=True)
+    if not (np.array_equal(ids, wids) and np.array_equal(vals, wvals)):
+        raise AssertionError("from_run_dir: lists differ from the "
+                             "in-process Recommender's on the same "
+                             "model.pt")
+
+    users_file = os.path.join(root, "users.txt")
+    out = os.path.join(root, "recs.jsonl")
+    with open(users_file, "w") as fh:
+        fh.write("\n".join(str(u) for u in users) + "\n")
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    serve_recs(["-r", run_dir, "-u", users_file, "-k", str(K),
+                "--dtype", "bfloat16", "--scores", "-o", out])
+    t_cli = time.perf_counter() - t0
+    count_path("serve_recs --dtype bfloat16", peel_k + ["score_bf16"],
+               ("score_wmax",))
+    with open(out) as fh:
+        rows = [json.loads(line) for line in fh]
+    bids, bvals = Recommender(score_fn, test, data, k=K,
+                              dtype="bfloat16").recommend(
+        users, return_scores=True)
+    if not ([r["user"] for r in rows] == users.tolist()
+            and [r["items"] for r in rows] == bids.tolist()
+            and [r["scores"] for r in rows]
+            == [[round(float(v), 6) for v in row] for row in bvals]):
+        raise AssertionError("serve_recs JSONL: not the in-process bf16 "
+                             "lists")
+
+    eval_conf = dataclasses.replace(conf.eval, score_dtype="bfloat16")
+    ev = FullEvaluator(eval_conf, test, data, evaluator_name="test")
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    bf16 = evaluate_model(score_fn, ev, conf.loader.eval_batch_size)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    count_path("test evaluation, score_dtype bfloat16",
+               ["segment_gather", "gather_windows", "peel_values",
+                "score_bf16"], ("score_wmax",))
+    if set(bf16) != expected_keys(conf.eval, "test") or not all(
+            np.isfinite(v) for v in bf16.values()):
+        raise AssertionError("bf16 test metrics: keys differ from JAX's or "
+                             "values not finite")
+    key = "test/ndcg@10"
+    log(f"reload: from_run_dir {t_load:.2f} s (two splits loaded, catalog "
+        f"encoded), {len(users)} test users served in {t_serve:.3f} s, "
+        f"lists equal to the in-process Recommender's on the same model.pt; "
+        f"serve_recs --dtype bfloat16 {t_cli:.2f} s, its JSONL the "
+        f"in-process bf16 lists; test evaluation in bf16 {t_eval:.3f} s: "
+        f"ndcg@10 {bf16[key]:.6f} against f32 {test_metrics[key]:.6f} "
+        f"(delta {bf16[key] - test_metrics[key]:+.6f}), recall@10 "
+        f"{bf16['test/recall@10']:.6f} against "
+        f"{test_metrics['test/recall@10']:.6f}; redone rows "
+        f"{sum(ev.redo_rows)}; on {card}")
 
 
 def mf_sparse_phase(data_dir: str, run_dir: str, kernels, count_path,
@@ -2957,6 +3303,10 @@ def main() -> int:
     windowed_rankers(recs[1024], score_fn, test, data, kernels, count_path,
                      [users_all[start + r * 1024:start + (r + 1) * 1024]
                       for r in range(RANKER_BATCHES)])
+
+    # ------------- the serving modes (bf16, int8, approx), same weights
+    serving_modes(recs, score_fn, test, data, kernels, count_path,
+                  users_all[start:], card)
 
     # ------------------ the ported tools/ probes, at their full width
     measured.update(probes_phase(kernels, count_path))

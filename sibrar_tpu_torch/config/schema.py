@@ -143,7 +143,8 @@ class LearningConfig:
 @dataclass
 class EvalConfig:
     """The ``eval:`` block (defaults: the reference's metric surface).
-    ``score_dtype`` other than f32 is not ported yet."""
+    ``score_dtype``: None / ``float32``, or ``bfloat16`` (dot-product
+    scores from bf16-rounded operands, `eval.evaluator.evaluate_model`)."""
 
     top_k: list[int] = field(
         default_factory=lambda: [1, 3, 5, 10, 20, 50, 100])
@@ -160,13 +161,10 @@ class EvalConfig:
             raise ValueError("top_k cut-offs must be positive")
         if self.topk_method not in TOPK_METHODS:
             raise ValueError(f"unsupported topk_method {self.topk_method!r}")
-        if self.score_dtype == "bfloat16":
-            raise NotImplementedError(
-                f"score_dtype='bfloat16' is {NOT_PORTED.format(5)}")
-        if self.score_dtype not in (None, "float32"):
+        if self.score_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(
-                f"unsupported score_dtype {self.score_dtype!r} (use "
-                "'float32')")
+                f"unsupported score_dtype {self.score_dtype!r} "
+                "(use 'float32' or 'bfloat16')")
 
 
 @dataclass

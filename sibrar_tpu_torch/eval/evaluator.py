@@ -21,12 +21,16 @@ The peel flags rows it cannot prove exact; only those rows are redone
 densely (JAX redoes whole batches), and ``redo_rows`` records how many per
 batch. Everything runs eagerly, one batch after the other.
 
-Not in this slice: the item-sharded ``mesh`` (ROADMAP.md queue 1, item 8)
-and ``score_dtype: bfloat16`` (queue 1, item 5; `EvalConfig.validate`
-raises).
+``eval.score_dtype: bfloat16`` (JAX's ``evaluate_model``): a scorer with
+``dot_parts`` is scored from its operands rounded to bf16 with f32 sums,
+K15 in place of K2, on the dot path and the scores path alike, so both
+rank the same scores; without ``dot_parts`` it warns and stays in f32.
+
+Not in this slice: the item-sharded ``mesh`` (ROADMAP.md queue 1, item 8).
 """
 from __future__ import annotations
 
+import logging
 import re
 from typing import Callable, Dict, Optional
 
@@ -41,10 +45,11 @@ from sibrar_tpu_torch.eval.metrics import (
     coverage_flags,
     user_metrics_from_hits,
 )
+from sibrar_tpu_torch.ops.gemm_probe import score_bf16
 from sibrar_tpu_torch.ops.peel import peel_masked_topk_dot, peel_viable
 from sibrar_tpu_torch.ops.sparse import csr_contains_rows, csr_row_gather
 from sibrar_tpu_torch.ops.topk import masked_topk
-from sibrar_tpu_torch.ops.window import pad_catalog
+from sibrar_tpu_torch.ops.window import WINDOW, pad_catalog
 
 
 def natsort_key(s: str):
@@ -139,13 +144,15 @@ class FullEvaluator:
         return self._metrics_from_topk(topk_idx, u_idxs)
 
     def make_dot_eval_batch(self, user_repr_fn: Callable,
-                            items: torch.Tensor) -> Optional[Callable]:
+                            items: torch.Tensor,
+                            score_dtype: Optional[str] = None
+                            ) -> Optional[Callable]:
         """The dot path's batch function ``fn(u_idxs) -> (metrics, cov)``: K2
-        scores and window maxima, the peel, a dense redo of the rows it
-        flags. None where it does not apply: an explicit
-        ``topk_method`` other than ``auto`` / ``peel`` pins the scores path,
-        and the peel must be viable for the catalog, ``k_max`` and the
-        longest exclusion row."""
+        scores and window maxima (K15's under ``score_dtype="bfloat16"``),
+        the peel, a dense redo of the rows it flags. None where it does not
+        apply: an explicit ``topk_method`` other than ``auto`` / ``peel``
+        pins the scores path, and the peel must be viable for the catalog,
+        ``k_max`` and the longest exclusion row."""
         if self.method not in ("auto", "peel"):
             return None
         n_catalog = self.dataset.n_items_in_split
@@ -160,7 +167,7 @@ class FullEvaluator:
             cols, mask = csr_row_gather(csr, u_idxs)
             _, topk_idx, ok = peel_masked_topk_dot(
                 user_repr_fn(u_idxs), items_p, cols, mask, self.k_max,
-                c_real=n_catalog)
+                c_real=n_catalog, score_dtype=score_dtype)
             self.redo_rows.append(int((~ok).sum()))
             return self._metrics_from_topk(topk_idx, u_idxs)
 
@@ -264,7 +271,25 @@ def evaluate_model(score_fn: Callable[[torch.Tensor], torch.Tensor],
     one, and the padded rows are masked out of every statistic. A
     ``score_fn.dot_parts = (user_repr_fn, items)`` takes the dot path where
     `FullEvaluator.make_dot_eval_batch` allows it, otherwise the scores
-    path. Returns `FullEvaluator.get_results`."""
+    path. Under ``evaluator.config.score_dtype == "bfloat16"`` both paths
+    rank K15's scores of the dot parts (a scorer without them warns and
+    stays in f32). Returns `FullEvaluator.get_results`."""
+    dot_parts = getattr(score_fn, "dot_parts", None)
+    sd = evaluator.config.score_dtype
+    if sd in (None, "float32"):
+        sd = None
+    elif sd != "bfloat16":
+        # also where EvalConfig.validate never ran (a config built in code)
+        raise ValueError(f"unsupported score_dtype {sd!r} (use 'float32' or "
+                         f"'bfloat16')")
+    elif dot_parts is None:
+        logging.getLogger(__name__).warning(
+            "eval.score_dtype=%s requested but the score_fn exposes no "
+            "dot_parts; evaluation stays in the score_fn's own precision",
+            sd)
+        sd = None
+    else:
+        score_fn = _bf16_scorer(*dot_parts, evaluator.dataset.n_items_in_split)
     users = evaluator.data.users_in_split
     n = int(users.shape[0])
     bs = min(batch_size, max(n, 1))
@@ -272,8 +297,7 @@ def evaluate_model(score_fn: Callable[[torch.Tensor], torch.Tensor],
     if pad:
         users = torch.cat([users, users[-1:].expand(pad)])
     valid = np.arange(n + pad) < n
-    dot_parts = getattr(score_fn, "dot_parts", None)
-    dot_batch = (evaluator.make_dot_eval_batch(*dot_parts)
+    dot_batch = (evaluator.make_dot_eval_batch(*dot_parts, score_dtype=sd)
                  if dot_parts is not None else None)
     for start in range(0, n + pad, bs):
         u = users[start:start + bs]
@@ -281,3 +305,16 @@ def evaluate_model(score_fn: Callable[[torch.Tensor], torch.Tensor],
                         else evaluator._eval_batch(score_fn(u), u))
         evaluator._accumulate(u, valid[start:start + bs], metrics, cov)
     return evaluator.get_results()
+
+
+def _bf16_scorer(user_repr_fn: Callable, items: torch.Tensor, c: int
+                 ) -> Callable:
+    """``fn(u_idxs) -> [B, c]``: K15's scores of the dot parts, the catalog
+    padded once to a 128 multiple (K15's tile)."""
+    items_p = pad_catalog(items, WINDOW)
+
+    def score_fn(u_idxs: torch.Tensor) -> torch.Tensor:
+        scores = score_bf16(user_repr_fn(u_idxs), items_p)[0]
+        return scores if scores.shape[1] == c else scores[:, :c].contiguous()
+
+    return score_fn

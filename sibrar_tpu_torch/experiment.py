@@ -10,6 +10,10 @@ whenever the best validation improves, ``metrics_val.yml`` (fit's best
 validation) and ``metrics_test.yml``. ``profile_training`` writes a
 ``torch.profiler`` trace of the first epoch under ``profile/``.
 
+`load_for_serving` rebuilds a fitted run directory for serving
+(``serve.Recommender.from_run_dir``, ``python -m
+sibrar_tpu_torch.serve_recs``).
+
 ``run_settings.device``: ``cuda`` and ``tpu`` run on the card and raise
 when there is none, ``cpu`` runs on the CPU. ``run_settings.debug_nans``
 makes the trainer raise ``FloatingPointError`` at the first train step
@@ -26,7 +30,12 @@ import os
 
 import torch
 
-from sibrar_tpu_torch.config.loader import load_split_type, yaml_save
+from sibrar_tpu_torch import config_from_dict
+from sibrar_tpu_torch.config.loader import (
+    load_split_type,
+    parse_conf_file,
+    yaml_save,
+)
 from sibrar_tpu_torch.config.schema import (
     NOT_PORTED,
     DatasetSplitType,
@@ -221,3 +230,34 @@ def run_test(conf: ExperimentConfig, log_fn=None) -> dict:
 
 def run_train_val_test(conf: ExperimentConfig) -> tuple[dict, dict]:
     return run_train_val(conf), run_test(conf)
+
+
+def load_for_serving(run_dir: str, split: str = "test", device=None):
+    """A fitted SGD run directory rebuilt for serving (JAX
+    ``Recommender.from_run_dir``): ``conf.yml``, the train split and the
+    serving ``split`` (``"val"`` or ``"test"``, which sets the catalog and
+    the exclusions), the model with ``model.pt`` loaded, the catalog
+    encoded once. ``device`` defaults to the run's ``run_settings.device``
+    (`resolve_device`). Returns ``(score_fn, dataset, device_data, k)``,
+    ``k`` the largest ``eval.top_k``. A matrix algorithm's run raises
+    (queue 1 item 7), as does a ``parallel`` block (item 8)."""
+    conf = config_from_dict(ExperimentConfig, parse_conf_file(
+        os.path.join(run_dir, "conf.yml")))
+    conf.results_path = run_dir
+    spec = get_algorithm(conf.algorithm)
+    _check_ported(conf, spec)
+    device = resolve_device(conf) if device is None else torch.device(device)
+    split_type = load_split_type(conf.dataset.dataset_path)
+    train_ds = _load_split(conf, "train", split_type)
+    serve_ds = _load_split(conf, split, split_type)
+    train_data = train_ds.to_device(device)
+    evaluator = FullEvaluator(conf.eval, serve_ds, device=device,
+                              evaluator_name=split)
+    model = spec.build(conf.model, train_ds, train_data,
+                       conf.run_settings.seed)
+    trainer = Trainer(model, train_ds, conf.learn, conf.dataset,
+                      seed=conf.run_settings.seed, device_data=train_data,
+                      val_evaluator=evaluator)
+    trainer.load(run_dir)
+    return (trainer.make_score_fn(), serve_ds, evaluator.data,
+            max(conf.eval.top_k))

@@ -29,7 +29,11 @@ on the TPU, precision DEFAULT is one bf16 pass of the matrix unit with f32
 sums. K15 rounds ``u`` and ``items`` to bf16 (round to nearest even) and
 multiplies them on the tensor cores (``wgmma``) with f32 accumulators,
 returning ``full``'s ``(s, wmax_t)``; each item is read from device memory
-once.
+once. It is also the score GEMM of bf16 serving and of ``eval.score_dtype:
+bfloat16`` (`score_bf16_wmax`, JAX's Pallas ``score_native_wmax`` with bf16
+operands), where every score lies within ``D 2^-24 (|u~| @ |i~|^T)`` of
+the exact product of the rounded operands u~, i~; its plain version is
+that product rounded to f32 once.
 
 The precision probe's modes map so: ``default`` is K15; ``highest`` and
 ``asis`` (no precision argument) are K14 ``full``, K2's f32 FFMA loop,
@@ -41,7 +45,12 @@ from __future__ import annotations
 import torch
 
 from sibrar_tpu_torch.ops import _cuda
-from sibrar_tpu_torch.ops.window import WINDOW, _dot_operands, score_wmax_plain
+from sibrar_tpu_torch.ops.window import (
+    WINDOW,
+    _dot_operands,
+    max_like_jax,
+    score_wmax_plain,
+)
 
 BC = 1024  # the probes' catalog block: wmax_contig's leading dimension
 # the C entry's variant codes (csrc/score_variants.cu kKernels)
@@ -149,20 +158,24 @@ for _fn in VARIANTS.values():
 # ----------------------------------------------------------------- kernel K15
 def score_bf16_plain(u: torch.Tensor, items: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K15: the f32 product of the bf16-rounded operands
-    (exact products, f32 sums; TF32 must be off, `sibrar_tpu_torch.full_f32`)
-    and its maxima as ``wmax_t [C/128, B]``."""
-    return score_variant_plain(u.bfloat16().float(), items.bfloat16().float(),
-                               "full")
+    """Plain version of K15: the product of the bf16-rounded operands,
+    summed in float64 and rounded to f32 once, so within half an f32 ulp
+    of the exact product (bf16 products are exact in float64, and the
+    float64 sums err by at most ``D 2^-53`` relative), and its maxima as
+    ``wmax_t [C/128, B]``."""
+    s = (u.bfloat16().double() @ items.bfloat16().double().T).float()
+    b, c = s.shape
+    return s, max_like_jax(s.view(b, c // WINDOW, WINDOW), -1).T.contiguous()
 
 
 def score_bf16(u: torch.Tensor, items: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """K15: ``(scores [B, C], wmax_t [C/128, B])`` from one bf16 pass on
     the tensor cores (operands rounded to bf16, f32 accumulators), for f32
-    ``u [B, D]`` and ``items [C, D]`` with C % 128 == 0 and D % 4 == 0.
-    Takes a workspace for ``u`` rounded once (``sibrar_score_bf16_workspace``
-    bytes: 32 KB per 64 users and 256 depths)."""
+    ``u [B, D]`` and ``items [C, D]`` with C % 128 == 0 and D % 4 == 0 (a
+    CUDA tensor of any other D raises). Takes a workspace for ``u``
+    rounded once (``sibrar_score_bf16_workspace`` bytes: 32 KB per 64
+    users and 256 depths)."""
     b, c, d = _shapes(u, items, "score_bf16")
     if not _cuda.use_kernel(u, items):
         return score_bf16_plain(u, items)
@@ -181,3 +194,20 @@ def score_bf16(u: torch.Tensor, items: torch.Tensor
 
 
 score_bf16.launches = 0
+
+
+def score_bf16_wmax(u: torch.Tensor, items: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K15 in K2's layout, for the bf16 serving and evaluation paths:
+    ``(scores [B, C], wmax [B, C/128])``, the layout the peel takes
+    (`window.score_wmax`). K15's ``wmax_t`` is transposed: C/128 x B
+    floats, 3.2 MB at B = 1,024 and C = 100,352.
+
+    ``items`` stays the f32 table and K15 rounds it as it loads it, which
+    gives the bits of a bf16 copy made once. A bf16 copy would halve the
+    table read, C D 4 = 103 MB at C = 100,352 and D = 256, that is 0.03 ms
+    at the H100 SXM's published 3.35 TB/s (700 W), beside the B C 4 = 411
+    MB of scores written at B = 1,024: it buys nothing measurable and would
+    hold a second table."""
+    scores, wmax_t = score_bf16(u, items)
+    return scores, wmax_t.T.contiguous()

@@ -3,10 +3,11 @@
 
 Pipeline (`_peel_select`) over scores and their 128-wide window maxima, in
 one of two layouts: a [B, C] score matrix (from kernel K2, ``ops/window.py``,
-on the dot path; the maxima from kernel K8, `window_max`, on the scores
-path), or the window planes ``sw_t [C / 128, B, 128]`` of kernel K10
-(`peel_masked_topk`). Only the window gather differs: K3 off the rows, or
-K3 with the window stride B * 128 off the planes (`gather_windows_rows`).
+on the dot path, or K15 with bf16 operands; the maxima from kernel K8,
+`window_max`, on the scores path), or the window planes ``sw_t [C / 128,
+B, 128]`` of kernel K10 (`peel_masked_topk`). Only the window gather
+differs: K3 off the rows, or K3 with the window stride B * 128 off the
+planes (`gather_windows_rows`).
 
 1. on the corrected-wmax path, recompute the maxima of the windows that hold
    a user's excluded items; otherwise select ``k + E`` windows (margin path);
@@ -33,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from sibrar_tpu_torch.ops import _cuda
+from sibrar_tpu_torch.ops.gemm_probe import score_bf16_wmax
 from sibrar_tpu_torch.ops.topk import topk_excluding
 from sibrar_tpu_torch.ops.window import (
     BC,
@@ -452,11 +454,14 @@ def peel_masked_topk_dot(u: torch.Tensor, items: torch.Tensor,
                          excl_cols: torch.Tensor | None,
                          excl_mask: torch.Tensor | None, k: int, *,
                          c_real: int | None = None,
-                         with_fallback: bool = True
+                         with_fallback: bool = True,
+                         score_dtype: str | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dot-product scores + exclusion + exact top-k: K2 writes the scores and
     their window maxima, then the peel selects (JAX
-    ``peel_masked_topk_dot``).
+    ``peel_masked_topk_dot``). With ``score_dtype="bfloat16"`` K15 writes
+    them instead, from the f32 operands rounded to bf16 (JAX's kernel with
+    bf16 operands), and the redo ranks the same K15 scores.
 
     ``items`` is either the live catalog (padded here to a `BC` multiple
     with zero rows) or already padded once by the caller, with ``c_real``
@@ -464,6 +469,9 @@ def peel_masked_topk_dot(u: torch.Tensor, items: torch.Tensor,
     rows whose ``ok`` is False are redone densely (``ops/topk.py``) before
     returning, so ``v``/``idx`` are exact for every row and ``ok`` tells
     which rows took the redo."""
+    if score_dtype not in (None, "float32", "bfloat16"):
+        raise ValueError(f"unsupported score_dtype {score_dtype!r} (use "
+                         f"'float32' or 'bfloat16')")
     b = u.shape[0]
     c = items.shape[0]
     if c_real is None:
@@ -472,7 +480,8 @@ def peel_masked_topk_dot(u: torch.Tensor, items: torch.Tensor,
         raise ValueError(f"c_real={c_real}: items must be pre-padded to the "
                          f"next {BC} multiple (got {c} rows)")
     excl_cols, excl_mask = pad_excl(excl_cols, excl_mask, b, u.device)
-    scores, wmax = score_wmax(u, pad_catalog(items))
+    score = score_bf16_wmax if score_dtype == "bfloat16" else score_wmax
+    scores, wmax = score(u, pad_catalog(items))
     v, idx, ok = peel_topk_from_scores(scores, wmax, excl_cols, excl_mask, k,
                                        c_real)
     if with_fallback:

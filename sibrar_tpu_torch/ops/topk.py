@@ -90,6 +90,26 @@ def windowed_topk_excluded(scores: torch.Tensor, exclude_csr: DeviceCSR,
     return v, cand_c.gather(1, p)
 
 
+def resolve_method(method: str, c: int, k: int, e: int) -> str:
+    """The method `masked_topk` runs when asked for ``method`` over C = ``c``
+    columns, top ``k``, exclusion rows of at most ``e`` items."""
+    from sibrar_tpu_torch.ops.peel import peel_viable
+
+    if method not in METHODS:
+        raise ValueError(f"unknown top-k method {method!r}; choose from "
+                         f"{METHODS}")
+    if method == "auto":
+        if c <= 4096 or k >= c:
+            return "full"
+        return "peel" if peel_viable(c, k, e) else "scatter"
+    if method == "peel" and not peel_viable(c, k, e):
+        logging.getLogger(__name__).warning(
+            "topk method 'peel' is not viable at C=%d, k=%d, E=%d; using "
+            "'scatter'", c, k, e)
+        return "scatter"
+    return method
+
+
 def masked_topk(scores: torch.Tensor, exclude_csr: DeviceCSR,
                 u_idxs: torch.Tensor, k: int, method: str = "auto",
                 return_ok: bool = False):
@@ -107,25 +127,11 @@ def masked_topk(scores: torch.Tensor, exclude_csr: DeviceCSR,
     degrades it to ``scatter`` off the TPU). An explicit ``peel`` that
     `peel_viable` refuses takes ``scatter``, as in JAX: its merge would
     have fewer peeled values than k."""
-    from sibrar_tpu_torch.ops.peel import peel_masked_topk_scores, peel_viable
+    from sibrar_tpu_torch.ops.peel import peel_masked_topk_scores
     from sibrar_tpu_torch.ops.window import pallas_masked_topk_scores
 
-    if method not in METHODS:
-        raise ValueError(f"unknown top-k method {method!r}; choose from "
-                         f"{METHODS}")
-    c = scores.shape[1]
     e = exclude_csr.max_row_len
-    if method == "auto":
-        if c <= 4096 or k >= c:
-            method = "full"
-        else:
-            method = "peel" if peel_viable(c, k, e) else "scatter"
-    elif method == "peel" and not peel_viable(c, k, e):
-        logging.getLogger(__name__).warning(
-            "topk method 'peel' is not viable at C=%d, k=%d, E=%d; using "
-            "'scatter'", c, k, e)
-        method = "scatter"
-
+    method = resolve_method(method, scores.shape[1], k, e)
     if method == "peel":
         cols, mask = csr_row_gather(exclude_csr, u_idxs)
         v, i, ok = peel_masked_topk_scores(scores, cols, mask, k,

@@ -1,15 +1,23 @@
-"""Exact top-k recommendation serving (port of ``sibrar_tpu/serve.py``
-``Recommender``, single-device f32 path).
+"""Top-k recommendation serving (port of ``sibrar_tpu/serve.py``: the
+single-device ``Recommender``, its ``dtype`` / ``selection`` modes,
+``quantize_rows_int8`` and ``from_run_dir``).
 
 - item representations are computed once (`train.scoring.make_score_fn`);
 - requests are padded to a fixed batch size;
 - each user's already-interacted items (train for a val split, train + val
   for a test split) are excluded through the split's exclusion CSR;
-- a dot-product model takes the fused path: K2 scores + window maxima, the
-  peel selection (K3, K4) and a dense redo of rows whose exactness flag
-  tripped; other scorers take ``masked_topk(method="auto")`` on their
-  scores (the peel with K8's window maxima where it is viable);
+- a dot-product model takes the fused path where the peel is viable: K2
+  scores + window maxima (K15 under ``dtype="bfloat16"``), the peel
+  selection (K3, K4) and a dense redo of rows whose exactness flag
+  tripped; otherwise scores, then ``masked_topk(method="auto")`` (the peel
+  with K8's window maxima where it is viable), or, under
+  ``selection="approx"``, the exclusion fill and K13 ``exact_topk``;
 - catalog positions are mapped back to global item ids.
+
+A dot-product model's scores come from the port's kernels in every mode
+and on every branch, so the fast path, the redo and the scores path rank
+the same scores: K2 in f32, K15 in bf16, ``torch._int_mm`` in int8. A
+scorer without ``dot_parts`` is called as it is.
 
 JAX's ``Recommender`` has one more branch (``sibrar_tpu/serve.py:296-334``):
 ``peel_masked_topk`` (window planes, ``ops/peel.py`` here) when
@@ -20,37 +28,138 @@ m <= 768. The port's `peel_viable` has no VMEM gates, so its fused and
 unfused forms coincide, and the port takes the [B, C] path wherever JAX
 does (``tests/test_torch_windowed.py`` pins the JAX fact).
 
-Not in this slice: the ``bfloat16`` / ``int8`` serving dtypes,
-``selection="approx"``, the multi-device path and ``from_run_dir``.
+Not in this slice: the multi-device path (``mesh``; ROADMAP.md queue 1,
+item 8).
 """
 from __future__ import annotations
 
+import logging
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sibrar_tpu_torch import full_f32
+from sibrar_tpu_torch.config.schema import NOT_PORTED
 from sibrar_tpu_torch.data.dataset import DeviceData, RecDataset
+from sibrar_tpu_torch.ops.exact_topk import exact_topk
+from sibrar_tpu_torch.ops.gemm_probe import score_bf16
 from sibrar_tpu_torch.ops.peel import peel_masked_topk_dot, peel_viable
-from sibrar_tpu_torch.ops.sparse import DeviceCSR, csr_row_gather
-from sibrar_tpu_torch.ops.topk import masked_topk
-from sibrar_tpu_torch.ops.window import pad_catalog
+from sibrar_tpu_torch.ops.sparse import (
+    DeviceCSR,
+    csr_row_gather,
+    scatter_fill_rows,
+)
+from sibrar_tpu_torch.ops.topk import NEG, masked_topk, resolve_method
+from sibrar_tpu_torch.ops.window import pad_catalog, score_wmax
+
+logger = logging.getLogger(__name__)
+
+DTYPES = ("float32", "bfloat16", "int8")
+# torch._int_mm on the card: more than 16 rows, depth and columns multiples
+# of 8; the int8 operands are zero-padded to these (zeros add nothing)
+INT8_MIN_ROWS = 17
+INT8_MULTIPLE = 8
+
+
+def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization, JAX's arithmetic in its order:
+    ``s = max(max|row| / 127, 1e-12)`` (an all-zero row stays zero), ``q =
+    clip(round(x / s), -127, 127)`` with ties to even. Returns ``(q int8
+    [R, D], s f32 [R])``; dequantization is ``q.float() * s[:, None]``."""
+    x = x.float()
+    # a tensor divisor: PyTorch multiplies by the reciprocal of a Python
+    # scalar divisor on the card, which is not JAX's (or the CPU's) division
+    s = (x.abs().amax(dim=1) / x.new_tensor(127.0)).clamp_min(1e-12)
+    q = torch.round(x / s[:, None]).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
+def _pad_int8(q: torch.Tensor, rows: int) -> torch.Tensor:
+    """``q [R, D]`` zero-padded to at least ``rows`` rows and to multiples
+    of `INT8_MULTIPLE` in both dimensions."""
+    r, d = q.shape
+    rp = -(-max(r, rows) // INT8_MULTIPLE) * INT8_MULTIPLE
+    dp = -(-d // INT8_MULTIPLE) * INT8_MULTIPLE
+    return q if (rp, dp) == (r, d) else F.pad(q, (0, dp - d, 0, rp - r))
+
+
+def quantize_items_int8(items: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The item table for `int8_scores`: `quantize_rows_int8`, with ``q``
+    zero-padded to multiples of 8 in rows and depth (``s`` unpadded)."""
+    q, s = quantize_rows_int8(items)
+    return _pad_int8(q, 0), s
+
+
+def int8_scores(u_repr: torch.Tensor, q_items: torch.Tensor,
+                s_items: torch.Tensor) -> torch.Tensor:
+    """Scores ``[B, C]`` of the int8 x int8 -> int32 product (JAX
+    ``_int8_scores``): ``u_repr`` is quantized per row here, then
+    ``(acc.float() * s_u[:, None]) * s_items[None, :]`` in that order.
+    ``q_items`` is `quantize_items_int8`'s (C = ``len(s_items)`` live
+    rows). The product is ``torch._int_mm``, exact in int32 (|acc| <= D
+    127^2), so the card and the CPU give the same bits; JAX computes it
+    outside any Pallas kernel."""
+    b, c = u_repr.shape[0], s_items.shape[0]
+    q_u, s_u = quantize_rows_int8(u_repr)
+    q_u = _pad_int8(q_u, INT8_MIN_ROWS)
+    if q_u.shape[1] != q_items.shape[1]:
+        raise ValueError(f"int8_scores: depth {u_repr.shape[1]} against "
+                         f"the table's padded {q_items.shape[1]}")
+    acc = torch._int_mm(q_u, q_items.T)[:b, :c]
+    # int32 x f32 converts acc to f32 inside the multiply: the bits of
+    # acc.float() * s_u, one pass over [B, C] fewer
+    return (acc * s_u[:, None]).mul_(s_items)
 
 
 class Recommender:
-    """Serve exact top-k recommendations for user ids of a fitted model.
+    """Serve top-k recommendations for user ids of a fitted model.
 
     ``score_fn(u_idxs [B]) -> scores [B, n_catalog]`` is the scorer over the
-    split's catalog; its ``dot_parts`` attribute, when set, routes serving
-    through the fused dot kernels. ``dataset`` is the split the scorer was
-    built against. ``redo_rows`` lists, per served batch, the rows the peel
-    flagged and the dense path redid."""
+    split's catalog; its ``dot_parts = (user_repr_fn, items)`` attribute,
+    when set, routes serving through the port's dot kernels. ``dataset`` is
+    the split the scorer was built against. ``redo_rows`` lists, per served
+    batch, the rows the peel flagged and the dense path redid.
+
+    ``dtype`` (dot-product models; JAX's keyword): ``None`` or
+    ``"float32"`` serves f32 scores (K2). ``"bfloat16"`` rounds both GEMM
+    operands to bf16 with f32 sums (K15, which rounds the f32 table as it
+    reads it): the fused path where the peel is viable, else K15's scores
+    on the scores path. ``"int8"`` quantizes the item table once here and
+    the user side per batch (`quantize_rows_int8`), and ranks
+    `int8_scores` on the scores path. Selection stays exact for the scores
+    it is given, and exclusion is exact. On a scorer without ``dot_parts``
+    it logs one warning and serves in the scorer's own precision.
+
+    ``selection="approx"`` (JAX's ``lax.approx_max_k`` at
+    ``recall_target``, which has no torch counterpart): the exclusions are
+    filled with -1e30 exactly (`scatter_fill_rows`), then K13
+    `exact_topk` ranks, so the port's "approx" lists are exact, with
+    recall 1.0, at or above any ``recall_target``; JAX's CPU path gives
+    the same lists. As in JAX, approx never takes the fused dot path.
+
+    ``mesh`` (several devices) raises ``NotImplementedError``."""
 
     def __init__(self, score_fn: Callable, dataset: RecDataset,
                  device_data: Optional[DeviceData] = None, *,
                  k: int = 100, batch_size: int = 256,
-                 exclude_seen: bool = True, device="cuda"):
+                 exclude_seen: bool = True, device="cuda", mesh=None,
+                 dtype: Optional[str] = None, selection: str = "exact",
+                 recall_target: float = 0.95):
+        if mesh is not None:
+            raise NotImplementedError(f"serving on a device mesh is "
+                                      f"{NOT_PORTED.format(8)}")
+        if selection not in ("exact", "approx"):
+            raise ValueError(f"unknown selection mode {selection!r} "
+                             "(expected 'exact' or 'approx')")
+        if not (0.0 < recall_target <= 1.0):
+            raise ValueError(f"recall_target must be in (0, 1], got "
+                             f"{recall_target}")
+        if dtype is not None and dtype not in DTYPES:
+            raise ValueError(f"unsupported serving dtype {dtype!r} (use "
+                             f"one of {DTYPES})")
         full_f32()
         if device_data is None:
             device_data = dataset.to_device(device)
@@ -60,6 +169,8 @@ class Recommender:
         self.k = min(k, dataset.n_items_in_split)
         self.batch_size = batch_size
         self.score_fn = score_fn
+        self.selection = selection
+        self.recall_target = recall_target
         self.redo_rows: list[int] = []
         self._catalog_items = np.asarray(dataset.items_in_split)
         if exclude_seen:
@@ -69,29 +180,67 @@ class Recommender:
                                        dataset.n_items_in_split, self.device)
         self.c = dataset.n_items_in_split
         dot_parts = getattr(score_fn, "dot_parts", None)
-        self.use_dot = (dot_parts is not None
+        self.dtype = None if dtype == "float32" else dtype
+        if self.dtype is not None and dot_parts is None:
+            logger.warning("dtype=%s requested but the score_fn exposes no "
+                           "dot_parts; serving stays in the score_fn's own "
+                           "precision", self.dtype)
+            self.dtype = None
+        self.use_dot = (dot_parts is not None and selection == "exact"
+                        and self.dtype != "int8"
                         and peel_viable(self.c, self.k, self.csr.max_row_len))
-        if self.use_dot:
+        self._peel_scores = resolve_method(
+            "auto", self.c, self.k, self.csr.max_row_len) == "peel"
+        self._dot = dot_parts is not None
+        if self._dot:
             self.user_repr_fn, items = dot_parts
-            # pad the catalog ONCE to the GEMM's chunk multiple
-            self.items = pad_catalog(items)
+            if self.dtype == "int8":  # quantized once, held instead
+                self.q_items, self.s_items = quantize_items_int8(items)
+            else:  # padded ONCE to the GEMM's chunk multiple
+                self.items = pad_catalog(items)
+
+    def _scores(self, u_idxs: torch.Tensor) -> torch.Tensor:
+        """The scores path's ``[B, C]`` scores of a batch."""
+        if not self._dot:
+            return self.score_fn(u_idxs)
+        u_repr = self.user_repr_fn(u_idxs)
+        if self.dtype == "int8":
+            return int8_scores(u_repr, self.q_items, self.s_items)
+        score = score_bf16 if self.dtype == "bfloat16" else score_wmax
+        scores = score(u_repr, self.items)[0]
+        return scores if scores.shape[1] == self.c else (
+            scores[:, :self.c].contiguous())
 
     @torch.no_grad()
     def _step(self, u_idxs: torch.Tensor):
-        if not self.use_dot:
-            scores = self.score_fn(u_idxs)
+        if self.use_dot:
+            cols, mask = csr_row_gather(self.csr, u_idxs)
+            v, i, ok = peel_masked_topk_dot(
+                self.user_repr_fn(u_idxs), self.items, cols, mask, self.k,
+                c_real=self.c, score_dtype=self.dtype)
+            self.redo_rows.append(int((~ok).sum()))
+            return v, i
+        scores = self._scores(u_idxs)
+        if self.selection == "approx":
+            if self.csr.max_row_len:
+                cols, mask = csr_row_gather(self.csr, u_idxs)
+                scores = scatter_fill_rows(scores, cols, mask, fill=NEG)
+            return exact_topk(scores.contiguous(), self.k)
+        if not self._peel_scores:
             return masked_topk(scores, self.csr, u_idxs, self.k,
                                method="auto")
-        u_repr = self.user_repr_fn(u_idxs)
-        cols, mask = csr_row_gather(self.csr, u_idxs)
-        v, i, ok = peel_masked_topk_dot(u_repr, self.items, cols, mask,
-                                        self.k, c_real=self.c)
-        self.redo_rows.append(int((~ok).sum()))
+        v, i, ok = masked_topk(scores, self.csr, u_idxs, self.k,
+                               method="peel", return_ok=True)
+        bad = (~ok).nonzero().squeeze(1)
+        self.redo_rows.append(int(bad.numel()))
+        if bad.numel():
+            v[bad], i[bad] = masked_topk(scores[bad], self.csr, u_idxs[bad],
+                                         self.k, method="full")
         return v, i
 
     def recommend(self, user_ids, k: Optional[int] = None,
                   return_scores: bool = False):
-        """Exact top-k global item ids for ``user_ids``: ``ids [N, k]``, or
+        """Top-k global item ids for ``user_ids``: ``ids [N, k]``, or
         ``(ids, scores)`` with ``return_scores=True``."""
         k = self.k if k is None else min(k, self.k)
         users = np.asarray(user_ids, dtype=np.int64).reshape(-1)
@@ -119,3 +268,18 @@ class Recommender:
         i = torch.cat(idxs)[:n, :k].cpu().numpy()
         ids = self._catalog_items[i]  # catalog position -> global item id
         return (ids, v) if return_scores else ids
+
+    @classmethod
+    def from_run_dir(cls, run_dir: str, split: str = "test", *,
+                     device=None, **kwargs) -> "Recommender":
+        """Rebuild a fitted run (``conf.yml``, ``model.pt``) for serving
+        (`experiment.load_for_serving`). ``split`` picks the catalog and
+        exclusion context: ``"test"`` excludes train + val interactions,
+        ``"val"`` train only. ``device`` defaults to the run's
+        ``run_settings.device``; ``k`` to the largest ``eval.top_k``."""
+        from sibrar_tpu_torch.experiment import load_for_serving
+
+        score_fn, dataset, device_data, k = load_for_serving(run_dir, split,
+                                                             device)
+        kwargs.setdefault("k", k)
+        return cls(score_fn, dataset, device_data, **kwargs)

@@ -197,9 +197,15 @@ def test_validate_errors_raise_in_both_packages(case):
 
 
 def test_bf16_scores_stay_unported_at_load():
-    """JAX accepts ``score_dtype: bfloat16``; the port refuses it when the
-    config loads, naming the queue that owes it."""
-    assert jax_schema.from_dict(jax_schema.EvalConfig,
+    """``score_dtype: bfloat16`` loads in the port as in JAX (it was refused
+    here before the bf16 path was ported), and another dtype raises
+    ``ValueError`` in both."""
+    want = jax_schema.from_dict(jax_schema.EvalConfig,
                                 {"score_dtype": "bfloat16"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config_from_dict(EvalConfig, {"score_dtype": "bfloat16"})
+    got = config_from_dict(EvalConfig, {"score_dtype": "bfloat16"})
+    assert got.score_dtype == want.score_dtype == "bfloat16"
+    for data in ({"score_dtype": "float16"}, {"score_dtype": "int8"}):
+        with pytest.raises(ValueError, match="unsupported score_dtype"):
+            jax_schema.from_dict(jax_schema.EvalConfig, data)
+        with pytest.raises(ValueError, match="unsupported score_dtype"):
+            config_from_dict(EvalConfig, data)

@@ -12,6 +12,7 @@ best state restored, the missing-metric error, ``save`` / ``load``) and on
 real validations, and the chip run's ``eval:`` block against the YAML.
 JAX's scanned ``Trainer.fit`` is never compiled here (minutes on a CPU)."""
 import dataclasses
+import logging
 import os
 
 import jax
@@ -236,9 +237,25 @@ def test_forced_exactness_trip_takes_the_redo():
         _assert_same(got, want, atol=1e-6)
 
 
-def test_evaluator_refuses_unported_options(slice_):
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        _port_evaluator(slice_, dict(score_dtype="bfloat16"))
+def test_evaluator_refuses_unported_options(slice_, caplog):
+    # score_dtype: bfloat16 is ported (tests/test_torch_serve.py holds the
+    # dot path to JAX): a scorer without dot parts warns and keeps its f32
+    # metrics; another dtype raises, at the evaluator and, where the config
+    # was never validated, at evaluate_model, as in JAX
+    sf = slice_["score_fn"]
+    with caplog.at_level(logging.WARNING,
+                         logger="sibrar_tpu_torch.eval.evaluator"):
+        got = evaluate_model(lambda u: sf(u), _port_evaluator(
+            slice_, dict(top_k=KS, score_dtype="bfloat16")), batch_size=64)
+    assert any("exposes no dot_parts" in m for m in caplog.messages)
+    assert got == evaluate_model(lambda u: sf(u), _port_evaluator(
+        slice_, dict(top_k=KS)), batch_size=64)
+    with pytest.raises(ValueError, match="unsupported score_dtype"):
+        _port_evaluator(slice_, dict(score_dtype="float16"))
+    ev = _port_evaluator(slice_, dict(top_k=KS))
+    ev.config.score_dtype = "float16"
+    with pytest.raises(ValueError, match="unsupported score_dtype"):
+        evaluate_model(sf, ev, batch_size=64)
     with pytest.raises(ValueError, match="topk_method"):
         _port_evaluator(slice_, dict(topk_method="approx"))
     with pytest.raises(NotImplementedError, match="queue 1, item 8"):

@@ -60,14 +60,12 @@ ITEM_FEATS_FLAG = ("[{name: ivec256, type: vector}, {name: bert, type: "
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_get_config_matches_jax_on_every_yaml(path):
     """The resolved config of every shipped YAML, as both packages load it;
-    ``eval.score_dtype: bfloat16`` (``conf/fast.yml``) is refused by the
-    port, naming the queue that owes it."""
+    ``conf/fast.yml``'s ``eval.score_dtype: bfloat16`` loads and validates
+    in the port too."""
     want = jax_as_dict(jax_get_config(path, overrides={"run_id": "r"}))
-    if want["eval"]["score_dtype"] == "bfloat16":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(path, overrides={"run_id": "r"})
-        return
-    assert as_dict(get_config(path, overrides={"run_id": "r"})) == want
+    got = get_config(path, overrides={"run_id": "r"})
+    got.eval.validate()
+    assert as_dict(got) == want
 
 
 def test_get_config_overrides_and_conflicts_match_jax(tmp_path):

@@ -254,6 +254,52 @@ def test_bf16_plain_off_the_tiles_within_bound(b, d):
     np.testing.assert_array_equal(wmax_t.T, _window_max(scores))
 
 
+@pytest.mark.parametrize("b,d", [(1, 4), (37, 20), (63, 260)])
+def test_bf16_plain_within_half_an_ulp(b, d):
+    """``score_bf16_plain`` is the float64 product of JAX's rounded operands
+    rounded to f32 once: within half an ulp of numpy's float64 product,
+    plus the float64 sums' own ``D 2^-53 (|u~| @ |i~|^T)``."""
+    rng = np.random.default_rng(b + 10 * d)
+    u = rng.normal(size=(b, d)).astype(np.float32)
+    items = rng.normal(size=(384, d)).astype(np.float32)
+    ub, ib = (_jax_bf16(x).astype(np.float64) for x in (u, items))
+    scores = gemm_probe.score_bf16_plain(torch.from_numpy(u),
+                                         torch.from_numpy(items))[0].numpy()
+    exact = ub @ ib.T
+    sums = d * 2.0 ** -53 * (np.abs(ub) @ np.abs(ib).T)
+    assert np.all(np.abs(scores - exact)
+                  <= 0.5 * np.spacing(np.abs(scores)) + sums)
+
+
+@pytest.mark.parametrize("d", [4, 256])
+def test_bf16_plain_is_the_nearest_reference(d):
+    """The queue 3 fault of the old plain version (the f32 product of the
+    rounded operands): it is not the f32 value nearest the exact product,
+    and at D = 256 it lies farther from it than JAX's CPU bf16 dot, in the
+    largest and the mean error (at D = 4 the two agree on all but a few
+    scores). The new one is the nearest f32 value at every score, so never
+    farther than either."""
+    rng = np.random.default_rng(d)
+    u = rng.normal(size=(64, d)).astype(np.float32)
+    items = rng.normal(size=(1024, d)).astype(np.float32)
+    tu, ti = torch.from_numpy(u), torch.from_numpy(items)
+    exact = tu.bfloat16().double() @ ti.bfloat16().double().T
+    old = (tu.bfloat16().float() @ ti.bfloat16().float().T).double()
+    jax_dot = torch.from_numpy(np.array(jax.lax.dot_general(
+        jnp.asarray(u).astype(jnp.bfloat16),
+        jnp.asarray(items).astype(jnp.bfloat16), (((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.float32))).double()
+    new = gemm_probe.score_bf16_plain(tu, ti)[0].double()
+    err = {name: (x - exact).abs() for name, x in
+           (("old", old), ("jax", jax_dot), ("new", new))}
+    assert bool((err["new"] <= err["old"]).all())
+    assert bool((err["new"] <= err["jax"]).all())
+    assert bool((err["new"] < err["old"]).any())
+    if d == 256:
+        assert err["old"].max() > err["jax"].max()
+        assert err["old"].mean() > err["jax"].mean()
+
+
 @pytest.mark.parametrize("b,d", [(1, 4), (65, 100), (63, 260)])
 def test_bf16_bound_check_holds_plain_and_catches_a_step(b, d):
     """``_common.bf16_within``, the card checks' hold on K15 (within ``D

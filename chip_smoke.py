@@ -137,15 +137,32 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    touched holding its initial bits and zero moments, its ms per step and
    peak memory logged, and K7 at ``coalesce_rows``' [M, 1] calls of both
    tables (K6 at the run's one-slot lookups) held to the plain versions on
-   the inputs the run gave them;
-9. ``quality``: SBNet seed 0 of the trained-quality run at mid scale
-   (``sibrar_tpu_torch/tools/trained_parity.py``) must score above 0.03
-   and within 0.015 of JAX's seed 0 (``trained_parity_jax.json``).
+   the inputs the run gave them; then ``-a dmf -c
+   conf/single/dmf_onion18.yml -t train_val`` on the same artifacts, one
+   epoch of 100 steps: the run files and JAX's keys, its wall time;
+9. ``zoo``: DMF, ifeatmf, ufeatmf and DropoutNet, each at the full width
+   of its ``conf/single/<name>_onion18.yml`` (the YAML chain's learn /
+   dataset / loader blocks too), random weights from a seed, on the same
+   splits with the user features those configs read added in memory
+   (``gender``, ``country``, a 768-wide ``acg_with_unknown_mpnet``):
+   each interaction tower's first-layer path logged (the user towers' bag
+   path, the item towers' dense path); K5 held to its plain version on the
+   rows one train step gives it (and on L2-normalized rows, DMF with
+   ``normalize_interactions``), K6 / K7 at every spmm call site of one
+   step; then 20 + 100 train steps (finite, falling losses), one
+   validation (JAX's keys, the dot path) and one serving batch of 1,024
+   test users (`check_lists`), each family gated by its kernels'
+   launches, with host ms per step, a profiled window and peak memory;
+10. ``quality``: seed 0 of ``sbnet``, ``dmf``, ``dropoutnet``, ``ifeatmf``
+   and ``ufeatmf`` of the trained-quality run at mid scale
+   (``sibrar_tpu_torch/tools/trained_parity.py``) must each score above
+   0.03 and within 0.015 of JAX's seed 0 (``trained_parity_jax.json``).
 
 Each path (default training, spmm training, the determinism run, fit, the
 four validation paths, serving, the five windowed rankers, the four serving
 modes at each batch size, the probes, the CLI, the reload, ``serve_recs``,
-the bf16 test evaluation, row-sparse MF) runs with
+the bf16 test evaluation, row-sparse MF, the DMF CLI run, each zoo family)
+runs with
 every launch count set to 0 just before it and read just after; each of
 its kernels must have launched, and kernels of other paths must not.
 
@@ -229,7 +246,7 @@ SEED = 0
 K = 100
 BATCHES = {256: 8, 1024: 4}  # batch size -> timed request batches
 TRAIN_WARMUP = 20  # steps before the timed window
-TRAIN_STEPS = 400  # timed steps on the default first layer
+TRAIN_STEPS = 300  # timed steps on the default first layer
 LOSS_WINDOW = 50  # steps in the first and last loss windows
 PROFILE_STEPS = 10  # train steps under torch.profiler
 PROFILE_BATCHES = 5  # request batches of each size under torch.profiler
@@ -1242,6 +1259,14 @@ def serving_modes(f32_recs, score_fn, split, data, kernels, count_path,
             int_mm=cuda_ms(lambda: torch._int_mm(q_u, rec.q_items.T), 20),
             int8_scores=cuda_ms(lambda: int8_scores(ur, rec.q_items,
                                                     rec.s_items), 20))
+        # K15's plain version and its library yardstick at this shape: the
+        # rounded operands' product with f32 output, no maxima
+        u16, i16 = ur.bfloat16(), items_p.bfloat16()
+        times["score_bf16_plain"] = cuda_ms(
+            lambda: gemm_probe.score_bf16_plain(ur, items_p), 5)
+        times["mm_bf16_f32_out"] = cuda_ms(
+            lambda: torch.mm(u16, i16.T, out_dtype=torch.float32), 20)
+        del u16, i16
     cp, d = items_p.shape
     ops = 2 * bs * cp * d
     stores = 4 * bs * cp + 4 * bs * (cp // 128)  # scores, window maxima
@@ -1252,7 +1277,9 @@ def serving_modes(f32_recs, score_fn, split, data, kernels, count_path,
                      INT8_OPS),
         int8_scores=bound(4 * bs * d + rec.q_items.numel()
                           + 4 * rec.s_items.numel() + 4 * bs * c, ops,
-                          INT8_OPS))
+                          INT8_OPS),
+        mm_bf16_f32_out=bound(2 * (bs * d + cp * d) + 4 * bs * cp, ops,
+                              BF16_FLOPS))
     log(f"score GEMMs at B={bs}, C={c}, D={d} (CUDA events, ms per call) "
         f"on {card}: {times}; bounds {bounds}")
     log(f"serving modes: {time.perf_counter() - t_phase:.2f} s")
@@ -1395,8 +1422,8 @@ def recovery_device_time(batches, user_fn, csr, dev, default, recover
                          ) -> None:
     """Device busy ms per batch of the plane peel with each winner recovery
     (K3 + four compares, or K11 under ``RECOVER_KERNEL``), under the
-    profiler over the same batches' user vectors and exclusions, in the
-    order default, K11, K11, default."""
+    profiler over the same batches' user vectors and exclusions, default
+    first (device time repeats within 0.001 ms: one session each)."""
     import torch
 
     from sibrar_tpu_torch.ops.sparse import csr_row_gather
@@ -1407,7 +1434,7 @@ def recovery_device_time(batches, user_fn, csr, dev, default, recover
             u_t = torch.as_tensor(users, device=dev)
             inputs.append((user_fn(u_t), *csr_row_gather(csr, u_t)))
         busy = {"default": [], "K11": []}
-        for name in ("default", "K11", "K11", "default"):
+        for name in ("default", "K11"):
             fn = default if name == "default" else recover
             busy[name].append(profile_window(
                 lambda f=fn: [f(*args) for args in inputs], len(inputs),
@@ -2356,6 +2383,8 @@ def cli_phase(splits, kernels, count_path, card: str) -> None:
                      test_metrics)
         mf_sparse_phase(data_dir, os.path.join(root, "mf_run"), kernels,
                         count_path, card)
+        dmf_cli_phase(data_dir, os.path.join(root, "dmf_run"), kernels,
+                      count_path, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2998,24 +3027,356 @@ def bf16_moments_phase(train, tdata) -> None:
         f"stored in bf16; host {run['host_ms']:.3f} ms/step")
 
 
+ZOO_CONF_DIR = os.path.dirname(CONF_PATH)
+# The resolved ``model:`` blocks of conf/single/<name>_onion18.yml (their
+# base_configs folded in); a test holds them equal to the YAMLs.
+ZOO_MODELS = {
+    "dmf": {"u_mid_layers": [512], "i_mid_layers": [512],
+            "final_dimension": 256},
+    "ifeatmf": {"feature_name": "bert", "embedding_dim": 256,
+                "temperature": 0.2, "lambda_content": 0.5},
+    "ufeatmf": {"feature_name": "acg_with_unknown_mpnet",
+                "embedding_dim": 256, "temperature": 0.2,
+                "lambda_content": 0.5},
+    "dropoutnet": {
+        "shared_common_dim": 256,
+        "user": {"features": [{"feature_name": "gender", "embedding_dim": 32},
+                              {"feature_name": "country",
+                               "embedding_dim": 32}],
+                 "preference_layers": [512],
+                 "common_hidden_layers": [512, 256]},
+        "item": {"features": [{"feature_name": "ivec256", "embedding_dim": 256},
+                              {"feature_name": "bert", "embedding_dim": 256},
+                              {"feature_name": "musicnn",
+                               "embedding_dim": 256}],
+                 "preference_layers": [512],
+                 "common_hidden_layers": [512, 256]},
+    },
+}
+# kernels each family's zoo run must launch (train, one validation, one
+# serving batch); K8 must not (the dot path ranks every validation)
+ZOO_KERNELS = {
+    "dmf": ["segment_gather", "dw_matmul", "spmm_fwd", "spmm_bwd",
+            "score_wmax", "gather_windows", "peel_values"],
+    "ifeatmf": ["spmm_fwd", "spmm_bwd", "score_wmax"],
+    "ufeatmf": ["spmm_fwd", "spmm_bwd", "score_wmax"],
+    "dropoutnet": ["segment_gather", "dw_matmul", "spmm_fwd", "spmm_bwd",
+                   "score_wmax"],
+}
+ZOO_WARMUP, ZOO_STEPS, ZOO_LOSS_WINDOW = 20, 100, 25
+ZOO_MPNET_DIM, ZOO_COUNTRIES = 768, 50
+DMF_CLI_STEPS = 100
+QUALITY_FAMILIES = ("sbnet", "dmf", "dropoutnet", "ifeatmf", "ufeatmf")
+
+
+def zoo_user_features(n_users: int, n_items: int, seed: int = 7,
+                      n_clusters: int = 64) -> dict:
+    """The user features the zoo's configs read, which the onion-scale
+    splits lack, drawn from ``seed``: ``gender`` (3 values) and
+    ``country`` (50), categorical, and ``acg_with_unknown_mpnet``, a
+    768-wide vector around its user's cluster centre (the cluster
+    ``make_onion_scale_splits`` gives the user: its second draw, after the
+    items')."""
+    import numpy as np
+
+    from sibrar_tpu_torch.config.schema import FeatureDefinition, FeatureType
+    from sibrar_tpu_torch.data.feature import build_feature
+
+    rng = np.random.default_rng(seed)
+    rng.integers(0, n_clusters, n_items)  # the items' clusters
+    cluster = rng.integers(0, n_clusters, n_users)
+    draw = np.random.default_rng(seed + 1)
+    centres = draw.normal(size=(n_clusters, ZOO_MPNET_DIM))
+    mpnet = (centres[cluster] + 0.6 * draw.normal(
+        size=(n_users, ZOO_MPNET_DIM))).astype(np.float32)
+    gender = list(draw.choice(["f", "m", "x"], n_users))
+    country = [f"c{c:02d}" for c in draw.integers(0, ZOO_COUNTRIES,
+                                                  n_users)]
+
+    def feature(name, kind, values):
+        return build_feature(FeatureDefinition(name, kind), values, n_users)
+
+    return {"gender": feature("gender", FeatureType.CATEGORICAL, gender),
+            "country": feature("country", FeatureType.CATEGORICAL, country),
+            "acg_with_unknown_mpnet": feature(
+                "acg_with_unknown_mpnet", FeatureType.VECTOR, mpnet)}
+
+
+@contextlib.contextmanager
+def recorded_dw(calls: list):
+    """While open, keeps the inputs ``(vec, g)`` K5 gets in every backward
+    of the dense first layers (``ops/dw.DenseFirstMatmul``)."""
+    from sibrar_tpu_torch.ops import dw
+
+    real = dw.DenseFirstMatmul.backward
+
+    def backward(ctx, g):
+        calls.append((ctx.saved_tensors[0], g.contiguous()))
+        return real(ctx, g)
+
+    dw.DenseFirstMatmul.backward = staticmethod(backward)
+    try:
+        yield calls
+    finally:
+        dw.DenseFirstMatmul.backward = staticmethod(real)
+
+
+def check_dw_case(label: str, vec, g, timed: bool = False) -> bool:
+    """K5 on one call's inputs within ``2 R eps |vec|^T |g|`` of its plain
+    version (`check_train_kernels`' bound), with ``timed`` its time beside
+    its plain version's (``vec.T @ g``, cuBLAS) and its bound; returns
+    whether the rows were 0/1."""
+    from sibrar_tpu_torch.ops import dw
+
+    got, want = dw.dw_matmul(vec, g), dw.dw_matmul_plain(vec, g)
+    tol = 2 * vec.shape[0] * F32_EPS * (vec.abs().T @ g.abs())
+    err = max_abs_err(got, want)
+    if not bool(((got - want).abs() <= tol).all()):
+        raise AssertionError(f"K5 dw_matmul beyond the f32 GEMM bound on "
+                             f"{label}: max abs err {err}")
+    del got, want, tol
+    binary = bool(((vec == 0) | (vec == 1)).all())
+    (r, c), h = vec.shape, g.shape[1]
+    times = ""
+    if timed:
+        times = (f"; K5 {cuda_ms(lambda: dw.dw_matmul(vec, g), 10):.4f} ms, "
+                 f"plain (vec.T @ g) "
+                 f"{cuda_ms(lambda: dw.dw_matmul_plain(vec, g), 10):.4f} ms, "
+                 f"{bound(4 * (r * c + r * h + c * h), 2 * r * c * h)}")
+    log(f"{label}: K5 [{r} x {c}] x H = {h}, rows "
+        f"{'0/1' if binary else 'L2-normalized (not 0/1)'}: max abs err "
+        f"{err:.3e}, within the bound{times}")
+    return binary
+
+
+def zoo_towers(model) -> dict:
+    """The interaction towers of a zoo model by label."""
+    from sibrar_tpu_torch.models.dmf import DeepMatrixFactorization
+    from sibrar_tpu_torch.models.dropoutnet import DropoutNet
+
+    if isinstance(model, DeepMatrixFactorization):
+        return {"user_nn": model.user_nn, "item_nn": model.item_nn}
+    if isinstance(model, DropoutNet):
+        return {"user pref_net": model.user_net.pref_net,
+                "item pref_net": model.item_net.pref_net}
+    return {}
+
+
+def zoo_phase(splits, device_data: dict, kernels, count_path,
+              card: str) -> None:
+    """DMF, ifeatmf, ufeatmf and DropoutNet at the full widths of their
+    ``conf/single/<name>_onion18.yml`` (the learn / dataset / loader
+    blocks from the YAML chain too), random weights from SEED, on the
+    onion-scale splits with `zoo_user_features` added in memory."""
+    import copy
+
+    import torch
+
+    feats = zoo_user_features(splits["train"].n_users,
+                              splits["train"].n_items)
+    dev = device_data["train"].catalog.device
+    tables = {k: torch.as_tensor(f.table, device=dev)
+              for k, f in feats.items()}
+    zoo = {}
+    for name, split in splits.items():
+        host = copy.copy(split)
+        host.user_features = {**split.user_features, **feats}
+        dd = device_data[name]
+        zoo[name] = (host, dd._replace(
+            user_features={**dd.user_features, **tables}))
+    for name in ZOO_MODELS:
+        t0 = time.perf_counter()
+        zoo_family(name, zoo, kernels, count_path, card)
+        torch.cuda.empty_cache()
+        log(f"zoo {name}: {time.perf_counter() - t0:.1f} s")
+
+
+def zoo_family(name: str, zoo: dict, kernels, count_path, card: str) -> None:
+    """One zoo family: build through the registry; the kernels on the
+    inputs one recorded train step gives them (K5 on the dense item
+    towers, also on L2-normalized rows for DMF; K6 / K7 at every spmm call
+    site); then, counted, ZOO_WARMUP + ZOO_STEPS train steps (finite,
+    falling losses), one validation (JAX's keys, the dot path), one
+    serving batch of 1,024 test users (`check_lists`); a profiled window
+    of train steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sibrar_tpu_torch.config.loader import get_config
+    from sibrar_tpu_torch.eval.evaluator import FullEvaluator
+    from sibrar_tpu_torch.models.registry import get_algorithm
+    from sibrar_tpu_torch.serve import Recommender
+    from sibrar_tpu_torch.train.scoring import make_score_fn
+    from sibrar_tpu_torch.train.trainer import Trainer
+
+    conf = get_config(os.path.join(ZOO_CONF_DIR, f"{name}_onion18.yml"),
+                      algorithm=name)
+    if conf.model != ZOO_MODELS[name]:
+        raise AssertionError(f"zoo {name}: resolved model {conf.model}")
+    (train, tdata), (val, vdata), (test, data) = (
+        zoo["train"], zoo["val"], zoo["test"])
+    bs = conf.loader.batch_size
+    rows = {"user": bs, "item": bs * (1 + conf.dataset.n_negative_samples)}
+
+    def trainer_for(model_conf):
+        model = get_algorithm(name).build(model_conf, train, tdata, SEED)
+        return Trainer(model, train, dataclasses.replace(conf.learn),
+                       conf.dataset, batch_size=bs, seed=SEED,
+                       device_data=tdata, val_evaluator=FullEvaluator(
+                           eval_conf(), val, vdata, evaluator_name="val"),
+                       eval_batch_size=conf.loader.eval_batch_size)
+
+    trainer = trainer_for(conf.model)
+    model = trainer.model
+    n_params = sum(p.numel() for p in model.parameters())
+    for label, tower in zoo_towers(model).items():
+        r = rows[label.split()[0].split("_")[0]]
+        bag = tower.use_bag(r)
+        if bag != label.startswith("user"):
+            raise AssertionError(f"zoo {name} {label}: expected the user "
+                                 f"tower's bag path and the item tower's "
+                                 f"dense path")
+        path = ("bag (K1, K6; K7)" if bag
+                else "dense (K1, densify, matmul; K5)")
+        log(f"zoo {name} {label} [{tower.csr.n_cols} -> "
+            f"{tower.kernel.shape[1]}], longest row {tower.csr.max_row_len}:"
+            f" {path} at {r} train rows; "
+            f"{'bag' if tower.use_bag(8192) else 'dense'} at the catalog "
+            f"encode's 8,192")
+
+    # the kernels on the inputs one train step gives them, outside the
+    # counted run: K5 on the dense towers' rows, K6 / K7 at every call site
+    with recorded_spmm({}) as calls, recorded_dw([]) as dws:
+        train_window(trainer, 1)
+    for vec, g in dws[:1]:
+        check_dw_case(f"zoo {name}, item tower", vec, g, timed=True)
+    check_recorded(f"zoo {name} step", calls,
+                   ("InteractionTower",) if name == "dmf" else
+                   ("Embedding",) + (("InteractionTower",)
+                                     if name == "dropoutnet" else ()))
+    del calls, dws
+    if name == "dmf":  # normalize_interactions: K5 on non-0/1 rows
+        normed = trainer_for({**conf.model, "normalize_interactions": True})
+        with recorded_dw([]) as dws:
+            train_window(normed, 1)
+        if check_dw_case("zoo dmf, normalize_interactions, item tower",
+                         *dws[0]):
+            raise AssertionError("normalize_interactions gave K5 0/1 rows")
+        del normed, dws
+    torch.cuda.empty_cache()
+
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    warm = train_window(trainer, ZOO_WARMUP)
+    run = train_window(trainer, ZOO_STEPS)
+    losses = np.concatenate([warm["losses"], run["losses"]])
+    first = float(losses[:ZOO_LOSS_WINDOW].mean())
+    last = float(losses[-ZOO_LOSS_WINDOW:].mean())
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"zoo {name}: losses not finite or not "
+                             f"falling: first {first}, last {last}")
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = trainer.validate()
+    torch.cuda.synchronize()
+    val_wall = time.perf_counter() - t0
+    check_metrics(f"zoo {name} validation", metrics, eval_conf())
+    score_fn = make_score_fn(model, data.catalog)
+    rec = Recommender(score_fn, test, data, k=K, batch_size=1024)
+    if not rec.use_dot:
+        raise AssertionError(f"zoo {name}: serving did not take the dot "
+                             f"path")
+    users = np.random.default_rng(SEED).permutation(test.n_users)[:1024]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, vals = rec.recommend(users, return_scores=True)
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    count_path(f"zoo {name} (train, validation, serving)", ZOO_KERNELS[name],
+               ("window_max",))
+    differ = check_lists(test, data, score_fn, users, ids, vals)
+    log(f"zoo {name} ({n_params} parameters) on {card}: "
+        f"{ZOO_STEPS} steps after {ZOO_WARMUP}: host {run['host_ms']:.3f} "
+        f"ms/step (synchronized), CUDA events {run['event_ms']:.3f} ms/step; "
+        f"loss first {ZOO_LOSS_WINDOW} {first:.6f}, last {ZOO_LOSS_WINDOW} "
+        f"{last:.6f}; max_memory_allocated {train_peak:.3f} GiB (training); "
+        f"validation {val_wall:.3f} s, ndcg@10 {metrics['val/ndcg@10']:.6f}, "
+        f"redone rows {sum(trainer.val_evaluator.redo_rows)}; one serving "
+        f"batch of 1,024 {serve_ms:.3f} ms (first call), lists checked "
+        f"({differ} differ from the plain path only on ties); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB (all)")
+    trainer.learn.max_batches_per_epoch = PROFILE_STEPS
+    profile_window(trainer.train_epoch, PROFILE_STEPS,
+                   f"zoo {name} train steps")
+
+
+def dmf_cli_phase(data_dir: str, run_dir: str, kernels, count_path,
+                  card: str) -> None:
+    """``python -m sibrar_tpu_torch.run_experiment -a dmf -c
+    conf/single/dmf_onion18.yml -t train_val`` on the CLI phase's
+    onion-scale artifacts (DMF reads no feature: none is loaded), one epoch
+    of DMF_CLI_STEPS steps: the run files, JAX's keys, finite values; its
+    wall time, ms per step and peak memory logged."""
+    import numpy as np
+    import torch
+
+    from sibrar_tpu_torch.config.loader import get_config, parse_conf_file
+    from sibrar_tpu_torch.run_experiment import main as run_experiment
+
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = run_experiment([
+        "-a", "dmf", "-c", os.path.join(ZOO_CONF_DIR, "dmf_onion18.yml"),
+        "-d", data_dir, "-n", "onion18", "-t", "train_val",
+        "-o", f"results_path={run_dir}", "-o", "dataset.user_features=[]",
+        "-o", "dataset.item_features=[]", "-o", "eval.group_metrics=[]",
+        "-o", "learn.n_epochs=1",
+        "-o", f"learn.max_batches_per_epoch={DMF_CLI_STEPS}"])
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    count_path("dmf CLI train_val", ZOO_KERNELS["dmf"], ("window_max",))
+    files = sorted(os.listdir(run_dir))
+    if files != ["conf.yml", "metrics_val.yml", "model.pt"]:
+        raise AssertionError(f"dmf CLI run files: {files}")
+    conf = get_config(os.path.join(run_dir, "conf.yml"))
+    saved = parse_conf_file(os.path.join(run_dir, "metrics_val.yml"))
+    if (conf.algorithm != "dmf" or saved != metrics
+            or set(metrics) != expected_keys(conf.eval, "val")
+            or not all(np.isfinite(v) for v in metrics.values())):
+        raise AssertionError("dmf CLI: metrics_val.yml not JAX's keys, not "
+                             "finite or not what the run returned")
+    log(f"dmf CLI train_val: {total:.2f} s on {card} ({DMF_CLI_STEPS} steps, "
+        f"two validations, train and val loaded); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; val ndcg@10 "
+        f"{metrics['val/ndcg@10']:.6f}")
+
+
 def quality_phase(card: str) -> None:
-    """Seed 0 of the ``sbnet`` family of the trained-quality run at mid
-    scale on the card (`tools.trained_parity`): its best validation
+    """Seed 0 of each of QUALITY_FAMILIES of the trained-quality run at mid
+    scale on the card (`tools.trained_parity`): each best validation
     ndcg@10 must exceed QUALITY_FLOOR and lie within QUALITY_SEED_NOISE of
     JAX's seed 0 (``tools/trained_parity_jax.json``)."""
     from sibrar_tpu_torch.tools import trained_parity
 
     t0 = time.perf_counter()
-    got = trained_parity.run(["sbnet"], [0], "mid", DEVICE, log=log)
-    got = got["families"]["sbnet"]["runs"]["0"]
+    got = trained_parity.run(QUALITY_FAMILIES, [0], "mid", DEVICE, log=log)
     with open(trained_parity.JAX_RUNS) as fh:
-        want = json.load(fh)["families"]["sbnet"]["runs"]["0"]
-    if not (got > QUALITY_FLOOR and abs(got - want) <= QUALITY_SEED_NOISE):
-        raise AssertionError(f"quality: sbnet seed 0 ndcg@10 {got:.6f}, "
-                             f"JAX {want:.6f}")
-    log(f"quality: sbnet seed 0 at mid scale, best val ndcg@10 {got:.6f} "
-        f"(JAX {want:.6f}, apart {got - want:+.6f}) in "
-        f"{time.perf_counter() - t0:.1f} s on {card}")
+        jax_runs = json.load(fh)["families"]
+    for family in QUALITY_FAMILIES:
+        port = got["families"][family]["runs"]["0"]
+        want = jax_runs[family]["runs"]["0"]
+        if not (port > QUALITY_FLOOR
+                and abs(port - want) <= QUALITY_SEED_NOISE):
+            raise AssertionError(f"quality: {family} seed 0 ndcg@10 "
+                                 f"{port:.6f}, JAX {want:.6f}")
+        log(f"quality: {family} seed 0 at mid scale, best val ndcg@10 "
+            f"{port:.6f} (JAX {want:.6f}, apart {port - want:+.6f}) in "
+            f"{got['families'][family]['seconds']['0']} s on {card}")
+    log(f"quality: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -3314,6 +3675,10 @@ def main() -> int:
     # --------- the CLI, train_val_test from artifacts, at full width,
     # then MF with row-sparse tables on the same artifacts
     cli_phase(splits, kernels, count_path, card)
+
+    # ------- DMF, ifeatmf, ufeatmf and DropoutNet at their onion18 widths
+    zoo_phase(splits, {"train": tdata, "val": vdata, "test": data}, kernels,
+              count_path, card)
 
     # ------------------ trained quality against JAX's committed seed 0
     quality_phase(card)

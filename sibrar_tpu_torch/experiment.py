@@ -21,7 +21,8 @@ with a NaN in its loss, gradients or updated parameters (JAX's
 ``jax_debug_nans`` traps the operation that made it; see
 ``train/trainer.py``). Not ported (each raises, naming its ``ROADMAP.md``
 queue 1 item): several devices (item 8), the matrix family (item 7), the
-SGD models besides ``sbnet``, ``sgdbias``, ``mf`` and ``acf`` (item 6).
+SGD models besides ``sbnet``, ``sgdbias``, ``mf``, ``acf``, ``dmf``,
+``ifeatmf``, ``ufeatmf`` and ``dropoutnet`` (item 6).
 """
 from __future__ import annotations
 

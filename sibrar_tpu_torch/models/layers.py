@@ -251,6 +251,8 @@ class FeatureEmbeddingModule(nn.Module):
             self.post_embedding = PolyLinear(
                 [out, *post_embedding_layers], gen,
                 activation_fn=activation_fn, output_fn=activation_fn)
+            out = post_embedding_layers[-1]
+        self.output_dim = out
 
     def forward(self, idxs: torch.Tensor) -> torch.Tensor:
         raw = self.table[idxs.long()]
@@ -293,18 +295,29 @@ class InteractionTower(nn.Module):
     then a scatter into zeros) and multiplies, with K5 for the kernel's
     gradient; with `INTERACTION_SPMM` the non-bag path takes the bag
     path's K1, K6 and K7. Which one runs follows the JAX package's static
-    gate, with the break-even factor a parameter. The JAX tower's
-    ``normalize``, ``scale`` and torch-default init serve DMF and
-    DropoutNet, not SBNet, and come with those models."""
+    gate, with the break-even factor a parameter.
+
+    ``normalize`` divides each row by its L2 norm: the bag and spmm paths
+    divide the row sum by ``max(sqrt(nnz), 1e-8)``, the dense path divides
+    the densified row by ``max(||row||, 1e-8)`` before the matmul (so K5
+    gets rows that are not 0/1). ``scale`` (``idxs.shape + (1,)``, given
+    to `forward`) multiplies the pre-bias sum on every path: DropoutNet's
+    preference dropout. ``torch_default_init`` draws the kernel and the bias
+    from U(+-1/sqrt(n_cols)) and builds ``rest`` with the same init;
+    otherwise the kernel is kaiming-uniform and the bias zero. The kernel is
+    drawn first, then the bias (only under ``torch_default_init``), then
+    ``rest``."""
 
     def __init__(self, csr: DeviceCSR, layer_sizes: Sequence[int],
                  gen: torch.Generator, *, activation_fn: str = "relu",
-                 output_fn: Optional[str] = "relu",
+                 output_fn: Optional[str] = "relu", normalize: bool = False,
+                 torch_default_init: bool = False,
                  bag_break_even_factor: int = BAG_BREAK_EVEN_FACTOR):
         super().__init__()
         if not layer_sizes:
             raise ValueError("InteractionTower needs at least one layer size")
         self.csr = csr
+        self.normalize = normalize
         self.bag_break_even_factor = bag_break_even_factor
         self.act = get_activation_fn(activation_fn)
         self.out_fn = get_activation_fn(output_fn)
@@ -314,12 +327,17 @@ class InteractionTower(nn.Module):
         # path gathers, and the dense path multiplies by it directly
         self.kernel = nn.Parameter(torch.empty(n, h))
         self.bias = nn.Parameter(torch.zeros(h))
-        _uniform_(self.kernel, math.sqrt(6.0 / n), gen)  # kaiming, zero bias
+        if torch_default_init:
+            _uniform_(self.kernel, 1.0 / math.sqrt(n), gen)
+            _uniform_(self.bias, 1.0 / math.sqrt(n), gen)
+        else:  # kaiming, zero bias
+            _uniform_(self.kernel, math.sqrt(6.0 / n), gen)
         self.rest = None
         if len(layer_sizes) > 1:
             self.rest = PolyLinear(list(layer_sizes), gen,
                                    activation_fn=activation_fn,
-                                   output_fn=output_fn)
+                                   output_fn=output_fn,
+                                   torch_default_init=torch_default_init)
 
     def use_bag(self, n_rows: int) -> bool:
         h = self.kernel.shape[1]
@@ -330,15 +348,50 @@ class InteractionTower(nn.Module):
             bag = n_rows * max_len * h * 4 < dense_bytes
         return bag
 
-    def forward(self, idxs: torch.Tensor) -> torch.Tensor:
+    def forward(self, idxs: torch.Tensor,
+                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.kernel.shape[1]
         if self.use_bag(idxs.numel()) or INTERACTION_SPMM:
             cols, mask = csr_row_gather(self.csr, idxs.reshape(-1))
-            pre = spmm_onehot(cols, mask, self.kernel).reshape(*idxs.shape, h)
+            pre = spmm_onehot(cols, mask, self.kernel)
+            if self.normalize:  # ||0/1 row|| = sqrt(nnz)
+                nnz = mask.sum(-1, keepdim=True).float()
+                pre = pre / nnz.sqrt().clamp(min=1e-8)
         else:
             vec = csr_rows_to_dense(self.csr, idxs.reshape(-1))
-            pre = dense_first_matmul(vec, self.kernel).reshape(*idxs.shape, h)
+            if self.normalize:
+                norm = torch.linalg.vector_norm(vec, dim=-1, keepdim=True)
+                vec = vec / norm.clamp(min=1e-8)
+            pre = dense_first_matmul(vec, self.kernel)
+        pre = pre.reshape(*idxs.shape, h)
+        if scale is not None:
+            pre = pre * scale
         x = pre + self.bias
         if self.rest is None:
             return self.out_fn(x) if self.out_fn is not None else x
         return self.rest(self.act(x))
+
+
+def interaction_tower_from(device_data, entity: str,
+                           layer_sizes: Sequence[int], gen: torch.Generator,
+                           **kwargs) -> InteractionTower:
+    """The `InteractionTower` over ``entity``'s train-interaction rows
+    (``device_data.user_inter_csr`` or ``item_inter_csr``)."""
+    csr = (device_data.user_inter_csr if entity == "user"
+           else device_data.item_inter_csr)
+    return InteractionTower(csr, layer_sizes, gen, **kwargs)
+
+
+def feature_module_from(dataset, device_data, entity: str, name: str,
+                        gen: torch.Generator,
+                        **kwargs) -> FeatureEmbeddingModule:
+    """The `FeatureEmbeddingModule` of ``entity``'s feature ``name``: the
+    host split's `FeatureTable` gives its kind and category count, the
+    device data its table."""
+    feats = (dataset.user_features if entity == "user"
+             else dataset.item_features)
+    tables = (device_data.user_features if entity == "user"
+              else device_data.item_features)
+    f = feats[name]
+    return FeatureEmbeddingModule(tables[name], f.kind, gen,
+                                  n_categories=f.n_categories, **kwargs)

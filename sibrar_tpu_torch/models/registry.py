@@ -6,8 +6,8 @@ The names and families are the JAX registry's, so the CLI offers the same
 ``matrix`` algorithms fit once over the train CSR. An ``sgd`` build takes
 ``(model_conf, dataset, device_data, seed)`` and returns the model on the
 device of ``device_data``, in eval mode. Ported: ``sbnet``, ``sgdbias``,
-``mf`` and ``acf``; building any other name raises, naming the queue item
-that owes it.
+``mf``, ``acf``, ``dmf``, ``ifeatmf``, ``ufeatmf`` and ``dropoutnet``;
+building any other name raises, naming the queue item that owes it.
 """
 from __future__ import annotations
 
@@ -17,6 +17,12 @@ from typing import Callable
 import torch
 
 from sibrar_tpu_torch.config.schema import NOT_PORTED
+from sibrar_tpu_torch.models.dmf import DeepMatrixFactorization
+from sibrar_tpu_torch.models.dropoutnet import DropoutNet
+from sibrar_tpu_torch.models.feat_mf import (
+    ItemFeatureMatrixFactorization,
+    UserFeatureMatrixFactorization,
+)
 from sibrar_tpu_torch.models.mf import ACF, SGDBaseline, SGDMatrixFactorization
 from sibrar_tpu_torch.models.sbnet import SingleBranchNet
 
@@ -34,25 +40,32 @@ def _sbnet(conf: dict, dataset, device_data, seed: int) -> SingleBranchNet:
 
 
 def _on_device(build: Callable) -> Callable:
-    """A build of the MF family: weights from a CPU generator of ``seed``,
-    then the model moved to ``device_data``'s device, in eval mode."""
+    """A build of the models besides SBNet: weights from a CPU generator of
+    ``seed`` (``build(conf, dataset, device_data, gen)``), then the model
+    moved to ``device_data``'s device, in eval mode."""
     def wrapped(conf: dict, dataset, device_data, seed: int):
-        model = build(conf, dataset, torch.Generator().manual_seed(seed))
+        model = build(conf, dataset, device_data,
+                      torch.Generator().manual_seed(seed))
         return model.to(device_data.catalog.device).eval()
     return wrapped
 
 
 BUILDS: dict[str, Callable] = {
     "sbnet": _sbnet,
-    "sgdbias": _on_device(lambda c, d, gen: SGDBaseline(
+    "sgdbias": _on_device(lambda c, d, dd, gen: SGDBaseline(
         d.n_users, d.n_items, gen)),
-    "mf": _on_device(SGDMatrixFactorization.build_from_conf),
-    "acf": _on_device(lambda c, d, gen: ACF(
+    "mf": _on_device(lambda c, d, dd, gen:
+                     SGDMatrixFactorization.build_from_conf(c, d, gen)),
+    "acf": _on_device(lambda c, d, dd, gen: ACF(
         d.n_users, d.n_items, gen,
         embedding_dim=c.get("embedding_dim", 100),
         n_anchors=c.get("n_anchors", 20),
         delta_exc=c.get("delta_exc", 1e-1),
         delta_inc=c.get("delta_inc", 1e-2))),
+    "dmf": _on_device(DeepMatrixFactorization.build_from_conf),
+    "ifeatmf": _on_device(ItemFeatureMatrixFactorization.build_from_conf),
+    "ufeatmf": _on_device(UserFeatureMatrixFactorization.build_from_conf),
+    "dropoutnet": _on_device(DropoutNet.build_from_conf),
 }
 
 

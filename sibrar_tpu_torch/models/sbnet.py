@@ -24,9 +24,9 @@ from sibrar_tpu_torch.data.sampling import (
 from sibrar_tpu_torch.models.base import RecModel
 from sibrar_tpu_torch.models.layers import (
     Embedding,
-    FeatureEmbeddingModule,
-    InteractionTower,
     PolyLinear,
+    feature_module_from,
+    interaction_tower_from,
     l2_normalize,
 )
 from sibrar_tpu_torch.train.losses import info_nce
@@ -246,20 +246,6 @@ class SingleBranchNet(RecModel):
         gen = torch.Generator().manual_seed(seed)
         shared_common_dim = conf["shared_common_dim"]
 
-        def feature_module(entity, name, **kwargs):
-            feats = (dataset.user_features if entity == "user"
-                     else dataset.item_features)
-            tables = (device_data.user_features if entity == "user"
-                      else device_data.item_features)
-            f = feats[name]
-            return FeatureEmbeddingModule(
-                tables[name], f.kind, gen, n_categories=f.n_categories,
-                **kwargs)
-
-        def inter_csr(entity):
-            return (device_data.user_inter_csr if entity == "user"
-                    else device_data.item_inter_csr)
-
         def build_entity(entity: str) -> RecModel:
             econf = conf[entity]
             n_entities = (dataset.n_users if entity == "user"
@@ -271,12 +257,13 @@ class SingleBranchNet(RecModel):
                 if fc.feature_name == f"{entity}_embedding":
                     return PlainIdEmbeddingModule(n_entities, emb_dim, gen)
                 if fc.feature_name == "interactions":
-                    return PlainEntityModule(InteractionTower(
-                        inter_csr(entity),
+                    return PlainEntityModule(interaction_tower_from(
+                        device_data, entity,
                         [*(fc.pre_embedding_layers or []), emb_dim], gen,
                         activation_fn=fc.activation_fn, output_fn=None))
-                return PlainEntityModule(feature_module(
-                    entity, fc.feature_name, embedding_dim=emb_dim,
+                return PlainEntityModule(feature_module_from(
+                    dataset, device_data, entity, fc.feature_name, gen,
+                    embedding_dim=emb_dim,
                     pre_embedding_layers=fc.pre_embedding_layers,
                     post_embedding_layers=fc.post_embedding_layers,
                     activation_fn=fc.activation_fn))
@@ -308,8 +295,8 @@ class SingleBranchNet(RecModel):
             modalities = []
             for name in train_mods:
                 if name == "interactions":
-                    modalities.append(InteractionTower(
-                        inter_csr(entity),
+                    modalities.append(interaction_tower_from(
+                        device_data, entity,
                         [*hidden[name], ec.common_modality_dim], gen,
                         activation_fn=ec.activation_fn,
                         output_fn=ec.activation_fn))
@@ -317,8 +304,9 @@ class SingleBranchNet(RecModel):
                     modalities.append(Embedding(
                         n_entities, ec.common_modality_dim, gen))
                 else:
-                    modalities.append(feature_module(
-                        entity, name, embedding_dim=ec.common_modality_dim,
+                    modalities.append(feature_module_from(
+                        dataset, device_data, entity, name, gen,
+                        embedding_dim=ec.common_modality_dim,
                         pre_embedding_layers=hidden[name] or None,
                         activation_fn=ec.activation_fn))
 

@@ -1,17 +1,22 @@
 """Load the flax variables of a JAX ``SingleBranchNet``, ``SGDBaseline``,
-``SGDMatrixFactorization`` or ``ACF`` into the port.
+``SGDMatrixFactorization``, ``ACF``, ``DeepMatrixFactorization``, feature
+MF (``ifeatmf`` / ``ufeatmf``) or ``DropoutNet`` into the port.
 
 ``variables`` is ``{"params": ..., "batch_stats": ...}`` as nested dicts of
 arrays (anything ``numpy.asarray`` takes), the layout the JAX package's
-``init_model`` and checkpoints hold. Two layout rules:
+``init_model`` and checkpoints hold. The layout rules:
 
 - a flax ``Dense`` kernel is ``[in, out]``; an ``nn.Linear`` weight is
   ``[out, in]``, so it is transposed. The interaction towers keep the flax
   ``[n_cols, h]`` layout and copy as they are;
 - flax BatchNorm ``scale`` / ``bias`` are the affine weight / bias, and its
   ``batch_stats`` ``mean`` / ``var`` become the running statistics;
-- in the MF family each id table ``name`` is ``params[name]["embedding"]``
-  and each bare parameter (``global_bias``, ``anchors``) ``params[name]``.
+- in the other models each submodule ``name`` is ``params[name]`` (an id
+  table ``params[name]["embedding"]``, a tower its ``kernel``, ``bias`` and
+  ``rest``, a content net its ``pre_embedding``) and each bare parameter
+  (``global_bias``, ``anchors``) ``params[name]``; DropoutNet's entity
+  ``pref_net``, ``net`` and its content modules by list slot,
+  ``content_{i}``.
 
 `transplant_opt_state` carries an optax ``adam`` / ``adamw`` state (``count``,
 ``mu``, ``nu``; trees shaped like ``params``) or an ``adagrad`` state
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from sibrar_tpu_torch.models.dropoutnet import DropoutNet
 from sibrar_tpu_torch.models.layers import (
     FeatureEmbeddingModule,
     InteractionTower,
@@ -44,12 +50,6 @@ def _pairs(model: nn.Module, params: dict, stats: Optional[dict]
            ) -> list[tuple[torch.Tensor, object, bool]]:
     """``(port tensor, flax leaf, transpose)`` for every parameter, and for
     every batch-norm statistic unless ``stats`` is None."""
-    if not isinstance(model, SingleBranchNet):  # the MF family
-        out = [(child.weight, params[name]["embedding"], False)
-               for name, child in model.named_children()
-               if isinstance(child, nn.Embedding)]
-        return out + [(p, params[name], False)
-                      for name, p in model.named_parameters(recurse=False)]
     out = []
 
     def put(dst, src, transpose=False):
@@ -108,8 +108,22 @@ def _pairs(model: nn.Module, params: dict, stats: Optional[dict]
         else:
             raise TypeError(f"no transplant rule for {type(mod).__name__}")
 
-    for name in ("user_module", "item_module"):
-        entity(getattr(model, name), params[name], sub(stats, name))
+    if isinstance(model, SingleBranchNet):
+        for name in ("user_module", "item_module"):
+            entity(getattr(model, name), params[name], sub(stats, name))
+    elif isinstance(model, DropoutNet):
+        for name in ("user_net", "item_net"):
+            ent, p, s = getattr(model, name), params[name], sub(stats, name)
+            module(ent.pref_net, p["pref_net"], sub(s, "pref_net"))
+            # flax names the content modules by their list slot
+            for i, m in enumerate(ent.content.values()):
+                module(m, p[f"content_{i}"], sub(s, f"content_{i}"))
+            poly(ent.net, p["net"], sub(s, "net"))
+    else:  # MF family, DMF, feature MF: submodules and parameters by name
+        for name, child in model.named_children():
+            module(child, params[name], sub(stats, name))
+        for name, p in model.named_parameters(recurse=False):
+            put(p, params[name])
     return out
 
 

@@ -44,9 +44,10 @@ dw_matmul.launches = 0
 
 
 class DenseFirstMatmul(torch.autograd.Function):
-    """``vec @ kernel`` whose backward treats ``vec`` (densified 0/1 CSR
-    rows) as data, with no gradient, and computes the kernel's gradient
-    with K5."""
+    """``vec @ kernel`` whose backward treats ``vec`` (densified CSR rows:
+    0/1, or L2-normalized under the tower's ``normalize``) as data, with no
+    gradient, and computes the kernel's gradient with K5, which takes any
+    f32 rows."""
 
     @staticmethod
     def forward(ctx, vec, kernel):

@@ -1,9 +1,10 @@
 """The port's side of the trained-quality parity run (no JAX): the best
-validation ndcg@10 of ``sbnet`` and ``mf`` trained by the port on the
-synthetic artifacts of ``tools/trained_parity.py``.
+validation ndcg@10 of ``sbnet``, ``mf``, ``dmf``, ``dropoutnet``,
+``ifeatmf`` and ``ufeatmf`` trained by the port on the synthetic artifacts
+of ``tools/trained_parity.py``.
 
-``train_port_sbnet`` and ``train_port_mf`` are JAX's ``train_ours_sbnet``
-and ``train_ours_mf`` line for line on the port's API: the same artifact
+Each ``train_port_<family>`` is JAX's ``train_ours_<family>`` line for
+line on the port's API: the same artifact
 reader, model, learn / eval / dataset settings and seeds. The artifacts
 come from the port's `make_synthetic_splits` and
 `write_reference_artifacts`, which give JAX's arrays and files bit for bit,
@@ -13,7 +14,8 @@ jax``, on a CPU); ``torch_trained_parity.py join`` pairs them with this
 tool's ``--out``.
 
     python -m sibrar_tpu_torch.tools.trained_parity --family sbnet mf \
-        --seeds 0 1 2 3 4 --out port.json [--device cpu]
+        dmf dropoutnet ifeatmf ufeatmf --seeds 0 1 2 3 4 --out port.json \
+        [--device cpu]
 """
 from __future__ import annotations
 
@@ -38,6 +40,9 @@ from sibrar_tpu_torch.data.synthetic import (
     write_reference_artifacts,
 )
 from sibrar_tpu_torch.eval.evaluator import FullEvaluator
+from sibrar_tpu_torch.models.dmf import DeepMatrixFactorization
+from sibrar_tpu_torch.models.dropoutnet import DropoutNet
+from sibrar_tpu_torch.models.feat_mf import FeatureMF
 from sibrar_tpu_torch.models.mf import SGDMatrixFactorization
 from sibrar_tpu_torch.models.sbnet import SingleBranchNet
 from sibrar_tpu_torch.train.trainer import Trainer
@@ -52,11 +57,22 @@ SBNET_HPARAMS = dict(epochs=12, lr=1e-3, wd=0.0, n_neg=4, batch_size=64,
                      loss="bpr", shared_common_dim=16, common_modality_dim=16,
                      hidden=(32,), reg_weight=0.1)
 _SBNET_ITEM_FEATURES = ("interactions", "audio")
+DN_HPARAMS = dict(epochs=12, lr=1e-3, wd=0.0, n_neg=4, batch_size=64,
+                  loss="bpr", shared_common_dim=16)
+DMF_HPARAMS = dict(epochs=12, lr=1e-3, wd=0.0, n_neg=4, batch_size=64,
+                   loss="bpr", u_mid=(32,), i_mid=(32,), final_dimension=16)
+IFMF_HPARAMS = dict(epochs=15, lr=2e-3, wd=0.0, n_neg=4, batch_size=64,
+                    loss="bpr", embedding_dim=16, lambda_content=1e-4,
+                    temperature=0.1)
 MIDSCALE_DATASET = dict(n_users=1000, n_items=1500, n_interactions=50_000,
                         popularity_alpha=0.8)
 MIDSCALE_HPARAMS = {
     "mf": dict(epochs=20, embedding_dim=32, batch_size=256, lr=5e-3),
     "sbnet": dict(epochs=10, batch_size=256),
+    "dropoutnet": dict(epochs=10, batch_size=256),
+    "dmf": dict(epochs=10, batch_size=256),
+    "ifeatmf": dict(epochs=10, batch_size=256, embedding_dim=32),
+    "ufeatmf": dict(epochs=10, batch_size=256, embedding_dim=32),
 }
 
 
@@ -104,12 +120,22 @@ def _fit(model, tr, va, dd, h: dict, seed: int, device) -> float:
     return float(trainer.fit()["val/ndcg@10"])
 
 
+def _load(artifact_dir: str, device, user=(), item=()):
+    """The train and val splits with the named vector features, and the
+    train split's device data."""
+    kw = dict(user_feature_definitions=[
+        FeatureDefinition(f, FeatureType.VECTOR) for f in user] or None,
+        item_feature_definitions=[
+        FeatureDefinition(f, FeatureType.VECTOR) for f in item] or None)
+    tr = RecDataset.load(artifact_dir, "train", **kw)
+    va = RecDataset.load(artifact_dir, "val", **kw)
+    return tr, va, tr.to_device(device)
+
+
 def train_port_mf(artifact_dir: str, seed: int = 0,
                   hparams: dict = MF_HPARAMS, device="cuda") -> float:
     h = dict(MF_HPARAMS, **hparams)
-    tr = RecDataset.load(artifact_dir, "train")
-    va = RecDataset.load(artifact_dir, "val")
-    dd = tr.to_device(device)
+    tr, va, dd = _load(artifact_dir, device)
     model = SGDMatrixFactorization(
         tr.n_users, tr.n_items, torch.Generator().manual_seed(seed),
         embedding_dim=h["embedding_dim"]).to(device)
@@ -119,19 +145,72 @@ def train_port_mf(artifact_dir: str, seed: int = 0,
 def train_port_sbnet(artifact_dir: str, seed: int = 0,
                      hparams: dict = SBNET_HPARAMS, device="cuda") -> float:
     h = dict(SBNET_HPARAMS, **hparams)
-    feat_defs = [FeatureDefinition("audio", FeatureType.VECTOR)]
-    tr = RecDataset.load(artifact_dir, "train",
-                         item_feature_definitions=feat_defs)
-    va = RecDataset.load(artifact_dir, "val",
-                         item_feature_definitions=feat_defs)
-    dd = tr.to_device(device)
+    tr, va, dd = _load(artifact_dir, device, item=("audio",))
     model = SingleBranchNet.build_from_conf(_our_sbnet_conf(h), tr, dd,
                                             seed=seed)
     return _fit(model, tr, va, dd, h, seed, device)
 
 
+def train_port_dmf(artifact_dir: str, seed: int = 0,
+                   hparams: dict = DMF_HPARAMS, device="cuda") -> float:
+    h = dict(DMF_HPARAMS, **hparams)
+    tr, va, dd = _load(artifact_dir, device)
+    model = DeepMatrixFactorization.build_from_conf(
+        {"u_mid_layers": list(h["u_mid"]), "i_mid_layers": list(h["i_mid"]),
+         "final_dimension": h["final_dimension"]}, tr, dd,
+        torch.Generator().manual_seed(seed)).to(device)
+    return _fit(model, tr, va, dd, h, seed, device)
+
+
+def _dn_entity_conf(feature: str) -> dict:
+    return {"features": [{"feature_name": feature, "embedding_dim": 16}],
+            "preference_layers": [32], "common_hidden_layers": [16]}
+
+
+def train_port_dropoutnet(artifact_dir: str, seed: int = 0,
+                          hparams: dict = DN_HPARAMS, device="cuda"
+                          ) -> float:
+    h = dict(DN_HPARAMS, **hparams)
+    tr, va, dd = _load(artifact_dir, device, user=("profile_vec",),
+                       item=("audio",))
+    conf = {"shared_common_dim": h["shared_common_dim"],
+            "user": _dn_entity_conf("profile_vec"),
+            "item": _dn_entity_conf("audio")}
+    model = DropoutNet.build_from_conf(
+        conf, tr, dd, torch.Generator().manual_seed(seed)).to(device)
+    return _fit(model, tr, va, dd, h, seed, device)
+
+
+def _train_port_feat_mf(entity: str, feature: str, artifact_dir: str,
+                        seed: int, hparams: dict, device) -> float:
+    h = dict(IFMF_HPARAMS, **hparams)
+    tr, va, dd = _load(artifact_dir, device, **{entity: (feature,)})
+    model = FeatureMF.build_from_conf(
+        entity, {"feature_name": feature, "embedding_dim": h["embedding_dim"],
+                 "lambda_content": h["lambda_content"],
+                 "temperature": h["temperature"]}, tr, dd,
+        torch.Generator().manual_seed(seed)).to(device)
+    return _fit(model, tr, va, dd, h, seed, device)
+
+
+def train_port_ifeatmf(artifact_dir: str, seed: int = 0,
+                       hparams: dict = IFMF_HPARAMS, device="cuda") -> float:
+    return _train_port_feat_mf("item", "audio", artifact_dir, seed, hparams,
+                               device)
+
+
+def train_port_ufeatmf(artifact_dir: str, seed: int = 0,
+                       hparams: dict = IFMF_HPARAMS, device="cuda") -> float:
+    return _train_port_feat_mf("user", "profile_vec", artifact_dir, seed,
+                               hparams, device)
+
+
 FAMILIES = {"mf": (train_port_mf, MF_HPARAMS),
-            "sbnet": (train_port_sbnet, SBNET_HPARAMS)}
+            "sbnet": (train_port_sbnet, SBNET_HPARAMS),
+            "dmf": (train_port_dmf, DMF_HPARAMS),
+            "dropoutnet": (train_port_dropoutnet, DN_HPARAMS),
+            "ifeatmf": (train_port_ifeatmf, IFMF_HPARAMS),
+            "ufeatmf": (train_port_ufeatmf, IFMF_HPARAMS)}
 
 
 def hparams_for(family: str, scale: str) -> dict:

@@ -102,7 +102,7 @@ def test_registry_names_and_kinds_match_jax():
         assert (ALGORITHMS[name].name, ALGORITHMS[name].kind) == (
             spec.name, spec.kind)
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        get_algorithm("dmf").build({}, None, None, 0)
+        get_algorithm("ecf").build({}, None, None, 0)
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         get_algorithm("ease").build({}, None, None, 0)
     with pytest.raises(ValueError, match="unknown algorithm"):

@@ -275,6 +275,30 @@ assert sampling.sample_user_positives(
     torch.Generator(), mf_data.train_users[:4], mf_data.pos_csr,
     3).shape == (4, 3)
 assert trained_parity.hparams_for("mf", "mid")["embedding_dim"] == 32
+from sibrar_tpu_torch.models import dmf, dropoutnet, feat_mf
+zoo = make_synthetic_splits(n_users=30, n_items=40, n_interactions=300)
+zoo_data = zoo["train"].to_device("cpu")
+entity = {"features": [{"feature_name": "audio", "embedding_dim": 4}],
+          "preference_layers": [8], "common_hidden_layers": [4]}
+for name, c, cls in (
+        ("dmf", {"u_mid_layers": [8], "final_dimension": 4},
+         dmf.DeepMatrixFactorization),
+        ("ifeatmf", {"feature_name": "audio", "embedding_dim": 4},
+         feat_mf.FeatureMF),
+        ("ufeatmf", {"feature_name": "profile_vec", "embedding_dim": 4},
+         feat_mf.FeatureMF),
+        ("dropoutnet", {"shared_common_dim": 4, "item": entity, "user": {
+            **entity, "features": [{"feature_name": "gender",
+                                    "embedding_dim": 2}]}},
+         dropoutnet.DropoutNet)):
+    zoo_model = registry.get_algorithm(name).build(c, zoo["train"], zoo_data,
+                                                   0)
+    assert isinstance(zoo_model, cls)
+    zoo_model.train()
+    logits, reg = zoo_model(torch.arange(4), torch.zeros(4, 3, dtype=torch.long),
+                            gen=torch.Generator())
+    (logits.sum() + reg).backward()
+    assert logits.shape == (4, 3) and bool(torch.isfinite(logits).all())
 misc.reproducible(3)
 assert schema.DatasetSplitType("cold_start_item").is_cold_start
 assert feature.build_feature(schema.FeatureDefinition(

@@ -139,7 +139,14 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    tables (K6 at the run's one-slot lookups) held to the plain versions on
    the inputs the run gave them; then ``-a dmf -c
    conf/single/dmf_onion18.yml -t train_val`` on the same artifacts, one
-   epoch of 100 steps: the run files and JAX's keys, its wall time;
+   epoch of 100 steps: the run files and JAX's keys, its wall time; then
+   (`zoo_cli_phase`, 100 steps each) ``-a uprotomfs`` and ``-a iprotomfs
+   -c conf/base.yml -t train_val`` with the prototype diagnostics among
+   the metrics, ``-a uiprotomfs_combine --split_set test`` on the two run
+   directories, ``-a ecf -c conf/ecf.yml -t train_val``, ``-t gather`` on
+   that run (the pickle's keys, shapes and exclusions) whose metrics must
+   equal ``-t test``'s, a gather of the UProtoMFs run and
+   ``stat_tests.compare_gathers`` over the two;
 9. ``zoo``: DMF, ifeatmf, ufeatmf and DropoutNet, each at the full width
    of its ``conf/single/<name>_onion18.yml`` (the YAML chain's learn /
    dataset / loader blocks too), random weights from a seed, on the same
@@ -153,16 +160,24 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    validation (JAX's keys, the dot path) and one serving batch of 1,024
    test users (`check_lists`), each family gated by its kernels'
    launches, with host ms per step, a profiled window and peak memory;
-10. ``quality``: seed 0 of ``sbnet``, ``dmf``, ``dropoutnet``, ``ifeatmf``
-   and ``ufeatmf`` of the trained-quality run at mid scale
+   then the six ProtoMF variants at the JAX builds' widths (100-d, 20
+   prototypes; ``conf/base.yml``'s other blocks) and ECF at
+   ``conf/ecf.yml``'s (128-d, 64 clusters, the ``genres`` tags) the same
+   way, K6 / K7 at their lookups, K13 on ECF's recorded mask and tag-loss
+   rows with an all-zero row added, bit-equal to its plain version, one
+   train step of UProtoMF and of ECF twice from one state, bit-equal, and
+   the ProtoMF post-validation keys (UIProtoMFs has no dot parts, as in
+   JAX: its validation and serving rank on the scores path, K8);
+10. ``quality``: seed 0 of ``sbnet``, ``dmf``, ``dropoutnet``, ``ifeatmf``,
+   ``ufeatmf`` and ``uprotomf`` of the trained-quality run at mid scale
    (``sibrar_tpu_torch/tools/trained_parity.py``) must each score above
    0.03 and within 0.015 of JAX's seed 0 (``trained_parity_jax.json``).
 
 Each path (default training, spmm training, the determinism run, fit, the
 four validation paths, serving, the five windowed rankers, the four serving
 modes at each batch size, the probes, the CLI, the reload, ``serve_recs``,
-the bf16 test evaluation, row-sparse MF, the DMF CLI run, each zoo family)
-runs with
+the bf16 test evaluation, row-sparse MF, the DMF, ProtoMF and ECF CLI
+runs, the gathers, the combine, each zoo family) runs with
 every launch count set to 0 just before it and read just after; each of
 its kernels must have launched, and kernels of other paths must not.
 
@@ -1039,8 +1054,9 @@ def check_plane_peel(u, items, gen) -> None:
 
 def check_lists(split, data, score_fn, users, ids, vals) -> int:
     """No returned item from the user's train + val history, lists sorted
-    descending, and equal to the plain path (matmul + scatter + topk) on the
-    card up to ties. Returns the number of rows whose id set differs from
+    descending, and equal to the plain path (matmul of the dot parts, or
+    the scorer itself where it has none, + scatter + topk) on the card up
+    to ties. Returns the number of rows whose id set differs from
     the plain path's (only on near-ties)."""
     import numpy as np
     import torch
@@ -1057,16 +1073,20 @@ def check_lists(split, data, score_fn, users, ids, vals) -> int:
 
     dev = data.catalog.device
     u_t = torch.as_tensor(users, device=dev)
-    user_fn, items = score_fn.dot_parts
-    u_repr = user_fn(u_t)
     csr = data.exclude_csr
     cols, mask = segment_gather_plain(csr.indptr, csr.indices, u_t,
                                       csr.max_row_len)
-    scores = torch.matmul(u_repr, items.T)
+    if score_fn.dot_parts is None:  # the scores path ranks score_fn's own
+        scores = score_fn(u_t)
+        bound = (F32_EPS * scores.abs().amax(dim=1)).cpu().numpy()
+    else:
+        user_fn, items = score_fn.dot_parts
+        u_repr = user_fn(u_t)
+        scores = torch.matmul(u_repr, items.T)
+        # per-row f32 GEMM error bound: 2 * D * eps * max_c |u| . |x_c|
+        bound = (2 * u_repr.shape[1] * F32_EPS
+                 * (u_repr.abs() @ items.abs().T).amax(dim=1)).cpu().numpy()
     pv, pi = topk_excluding(scores, cols, mask, K)
-    # per-row f32 GEMM error bound: 2 * D * eps * max_c |u| . |x_c|
-    bound = (2 * u_repr.shape[1] * F32_EPS
-             * (u_repr.abs() @ items.abs().T).amax(dim=1)).cpu().numpy()
     pv, pi = pv.cpu().numpy(), pi.cpu().numpy()
     if (np.abs(vals - pv) > bound[:, None]).any():
         raise AssertionError("values differ from the plain path beyond the "
@@ -2385,6 +2405,7 @@ def cli_phase(splits, kernels, count_path, card: str) -> None:
                         count_path, card)
         dmf_cli_phase(data_dir, os.path.join(root, "dmf_run"), kernels,
                       count_path, card)
+        zoo_cli_phase(data_dir, root, kernels, count_path, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2766,9 +2787,11 @@ def check_spmm_case(label: str, cols, mask, n_cols: int, kernel=None,
 @contextlib.contextmanager
 def recorded_spmm(calls: dict):
     """While open, keeps the inputs of the first K6 / K7 call of each call
-    site and shape class (``calls[label]``): every `spmm_onehot` of
-    ``models/layers.py`` (`Embedding` lookups, `TagEmbeddingBag` sums, the
-    interaction towers' bag rows) with its table and, once autograd hands
+    site and shape class (``calls[label]``, the site the first method on
+    the stack): every `spmm_onehot` of ``models/layers.py`` (`Embedding`
+    lookups, `TagEmbeddingBag` sums, the interaction towers' bag rows,
+    ECF's `layers.lookup` of its raw tables) with its table and, once
+    autograd hands
     it back, its output gradient (K7's input); and every `spmm_bwd` of
     ``train/row_adam.coalesce_rows`` with its gradient rows."""
     from sibrar_tpu_torch.models import layers
@@ -2778,7 +2801,10 @@ def recorded_spmm(calls: dict):
 
     def spmm_onehot(cols, mask, kernel):
         out = onehot(cols, mask, kernel)
-        owner = type(sys._getframe(1).f_locals.get("self")).__name__
+        frame = sys._getframe(1)  # the first caller that is a method
+        while frame is not None and "self" not in frame.f_locals:
+            frame = frame.f_back
+        owner = type(frame.f_locals["self"]).__name__ if frame else "?"
         n, h = kernel.shape
         label = f"{owner} L={cols.shape[1]} table [{n} x {h}]"
         if label not in calls:
@@ -3053,8 +3079,31 @@ ZOO_MODELS = {
                  "common_hidden_layers": [512, 256]},
     },
 }
+# The ProtoMF variants at the widths of the JAX builds' defaults (no YAML
+# sets them: conf/base.yml gives their learn / dataset / loader blocks and
+# an empty model block) and ECF at conf/ecf.yml's model block.
+PROTOMF = ("uprotomf", "iprotomf", "uiprotomf", "uprotomfs", "iprotomfs",
+           "uiprotomfs")
+ZOO_MODELS.update({name: {} for name in PROTOMF})
+ZOO_MODELS["ecf"] = {"embedding_dim": 128, "n_clusters": 64, "top_n": 20,
+                     "top_m": 20, "top_p": 4, "temp_masking": 2.0,
+                     "temp_tags": 2.0, "lam_cf": 0.6, "lam_ind": 1.0,
+                     "lam_ts": 1.0, "tag_feature": "genres"}
+PROTOMF_WIDTH, PROTOMF_PROTOTYPES = 100, 20
+
+
+def zoo_conf_path(name: str) -> str:
+    conf_root = os.path.dirname(ZOO_CONF_DIR)
+    if name in PROTOMF:
+        return os.path.join(conf_root, "base.yml")
+    if name == "ecf":
+        return os.path.join(conf_root, "ecf.yml")
+    return os.path.join(ZOO_CONF_DIR, f"{name}_onion18.yml")
+
+
 # kernels each family's zoo run must launch (train, one validation, one
-# serving batch); K8 must not (the dot path ranks every validation)
+# serving batch); K8 must not, except where the scores path ranks
+# (UIProtoMFs has no dot parts, as in JAX), which must not launch K2
 ZOO_KERNELS = {
     "dmf": ["segment_gather", "dw_matmul", "spmm_fwd", "spmm_bwd",
             "score_wmax", "gather_windows", "peel_values"],
@@ -3062,11 +3111,27 @@ ZOO_KERNELS = {
     "ufeatmf": ["spmm_fwd", "spmm_bwd", "score_wmax"],
     "dropoutnet": ["segment_gather", "dw_matmul", "spmm_fwd", "spmm_bwd",
                    "score_wmax"],
+    **{name: ["segment_gather", "spmm_fwd", "spmm_bwd", "score_wmax"]
+       for name in PROTOMF},
+    "uiprotomfs": ["segment_gather", "spmm_fwd", "spmm_bwd", "window_max"],
+    "ecf": ["segment_gather", "spmm_fwd", "spmm_bwd", "score_wmax",
+            "exact_topk"],
 }
+ZOO_ABSENT = {name: ("window_max",) for name in ZOO_KERNELS}
+ZOO_ABSENT["uiprotomfs"] = ("score_wmax",)
+# the families whose train step runs twice from one state, bit for bit
+ZOO_REPEAT = ("uprotomf", "ecf")
 ZOO_WARMUP, ZOO_STEPS, ZOO_LOSS_WINDOW = 20, 100, 25
+# UProtoMFs starts on a plateau at ln 2: its relu'd item weights are all
+# 0.5 +- 0.01, so every item scores alike until they spread; at the zoo's
+# width its 50-step loss means stay within 3e-4 of 0.6932 for ~700 steps,
+# then fall (0.6738 by step 1,500 on an H100), so it takes more steps
+ZOO_STEPS_FOR = {"uprotomfs": 1000}
 ZOO_MPNET_DIM, ZOO_COUNTRIES = 768, 50
 DMF_CLI_STEPS = 100
-QUALITY_FAMILIES = ("sbnet", "dmf", "dropoutnet", "ifeatmf", "ufeatmf")
+ZOO_CLI_STEPS = 100  # steps of each ProtoMF and ECF CLI run
+QUALITY_FAMILIES = ("sbnet", "dmf", "dropoutnet", "ifeatmf", "ufeatmf",
+                    "uprotomf")
 
 
 def zoo_user_features(n_users: int, n_items: int, seed: int = 7,
@@ -3149,6 +3214,112 @@ def check_dw_case(label: str, vec, g, timed: bool = False) -> bool:
     return binary
 
 
+@contextlib.contextmanager
+def recorded_topk(calls: list):
+    """While open, keeps the rows and k of every `exact_topk` call of
+    ``models/ecf.py`` (its hard masks, the tag loss's top-p)."""
+    from sibrar_tpu_torch.models import ecf
+
+    real = ecf.exact_topk
+
+    def exact_topk(x, k):
+        calls.append((x.clone(), k))
+        return real(x, k)
+
+    ecf.exact_topk = exact_topk
+    try:
+        yield calls
+    finally:
+        ecf.exact_topk = real
+
+
+def check_topk_calls(label: str, calls: list) -> None:
+    """K13 on the rows of each recorded shape, with an all-zero row added
+    (a user with no train interaction: every cluster ties, and the mask
+    must be the first k clusters), bit-equal to its plain version."""
+    import torch
+
+    from sibrar_tpu_torch.ops.exact_topk import exact_topk, exact_topk_plain
+
+    done = set()
+    for x, k in calls:
+        if (tuple(x.shape), k) in done:
+            continue
+        done.add((tuple(x.shape), k))
+        rows = torch.cat([x, torch.zeros_like(x[:1])])
+        gv, gi = exact_topk(rows, k)
+        wv, wi = exact_topk_plain(rows, k)
+        first = torch.arange(gi.shape[1], device=gi.device)
+        if not (torch.equal(gi, wi) and same_bits(gv, wv)
+                and torch.equal(gi[-1], first)):
+            raise AssertionError(f"{label}: K13 differs from its plain "
+                                 f"version on [{x.shape[0]} x {x.shape[1]}]"
+                                 f" rows, k = {k}")
+        log(f"{label}: K13 on [{x.shape[0]} x {x.shape[1]}] rows and an "
+            f"all-zero row, k = {k}: values and ids bit-equal to its plain "
+            f"version (the zero row's the first {k})")
+    if not done:
+        raise AssertionError(f"{label}: no exact_topk call recorded")
+
+
+def repeat_step(label: str, trainer) -> None:
+    """One train step, then the same step again from the state before it
+    (`Trainer.load_state_dict`): the two states must be bit-equal."""
+    import copy
+
+    before = copy.deepcopy(trainer.state_dict())
+    train_window(trainer, 1)
+    first = trainer_state(trainer)
+    trainer.load_state_dict(before)
+    train_window(trainer, 1)
+    diff = bits_differ(first, trainer_state(trainer))
+    if diff:
+        raise AssertionError(f"{label}: one step twice from one state: "
+                             f"{len(diff)} tensors differ: "
+                             f"{sorted(diff.items())[:8]}")
+    log(f"{label}: one train step twice from one state, bit-equal "
+        f"({len(first)} tensors)")
+
+
+def post_val_keys(name: str, with_report: bool) -> set:
+    """`protomf_post_val`'s keys for ProtoMF ``name`` (no t-SNE plot: the
+    card's machine has no sklearn)."""
+    entities = (("user", "item") if name.startswith("ui")
+                else ("item",) if name[0] == "i" else ("user",))
+    keys = {f"{e}_proto_{s}" for e in entities
+            for s in ("sim_mean", "sim_max_mean", "sim_min_mean",
+                      "utilization_entropy", "dead_fraction")}
+    if with_report and "item" in entities:
+        keys.add("item_proto_top_items")
+    return keys
+
+
+def check_post_val(name: str, model) -> None:
+    """The run's post-validation hook (`experiment._post_val_fn`) on the
+    trained model: JAX's keys, finite statistics, the item report."""
+    import tempfile
+
+    import numpy as np
+
+    from sibrar_tpu_torch.config.loader import get_config
+    from sibrar_tpu_torch.experiment import _post_val_fn
+
+    conf = get_config(zoo_conf_path(name), algorithm=name)
+    with tempfile.TemporaryDirectory() as d:
+        out = _post_val_fn(conf, d)(model, 0)
+        report = out.get("item_proto_top_items")
+        if report and not os.path.getsize(report):
+            raise AssertionError(f"zoo {name}: empty prototype report")
+    stats = {k: v for k, v in out.items() if not isinstance(v, str)}
+    if (set(out) - {"user_tsne_plot", "item_tsne_plot"}
+            != post_val_keys(name, True)
+            or not all(np.isfinite(v) for v in stats.values())):
+        raise AssertionError(f"zoo {name}: post-validation keys "
+                             f"{sorted(out)}")
+    log(f"zoo {name} post-validation: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(stats.items())))
+
+
 def zoo_towers(model) -> dict:
     """The interaction towers of a zoo model by label."""
     from sibrar_tpu_torch.models.dmf import DeepMatrixFactorization
@@ -3165,8 +3336,10 @@ def zoo_towers(model) -> dict:
 def zoo_phase(splits, device_data: dict, kernels, count_path,
               card: str) -> None:
     """DMF, ifeatmf, ufeatmf and DropoutNet at the full widths of their
-    ``conf/single/<name>_onion18.yml`` (the learn / dataset / loader
-    blocks from the YAML chain too), random weights from SEED, on the
+    ``conf/single/<name>_onion18.yml``, the six ProtoMF variants at the
+    JAX builds' default widths (``conf/base.yml``) and ECF at
+    ``conf/ecf.yml``'s (the learn / dataset / loader blocks from the YAML
+    chain too; `zoo_conf_path`), random weights from SEED, on the
     onion-scale splits with `zoo_user_features` added in memory."""
     import copy
 
@@ -3195,10 +3368,12 @@ def zoo_family(name: str, zoo: dict, kernels, count_path, card: str) -> None:
     """One zoo family: build through the registry; the kernels on the
     inputs one recorded train step gives them (K5 on the dense item
     towers, also on L2-normalized rows for DMF; K6 / K7 at every spmm call
-    site); then, counted, ZOO_WARMUP + ZOO_STEPS train steps (finite,
-    falling losses), one validation (JAX's keys, the dot path), one
-    serving batch of 1,024 test users (`check_lists`); a profiled window
-    of train steps."""
+    site; K13 on ECF's rows); for ZOO_REPEAT, one step twice from one
+    state, bit for bit; then, counted, ZOO_WARMUP + ZOO_STEPS (or
+    ZOO_STEPS_FOR's) train steps
+    (finite, falling losses), one validation (JAX's keys, the dot path but
+    for UIProtoMFs; ProtoMF's post-validation keys), one serving batch of
+    1,024 test users (`check_lists`); a profiled window of train steps."""
     import dataclasses
 
     import numpy as np
@@ -3211,8 +3386,7 @@ def zoo_family(name: str, zoo: dict, kernels, count_path, card: str) -> None:
     from sibrar_tpu_torch.train.scoring import make_score_fn
     from sibrar_tpu_torch.train.trainer import Trainer
 
-    conf = get_config(os.path.join(ZOO_CONF_DIR, f"{name}_onion18.yml"),
-                      algorithm=name)
+    conf = get_config(zoo_conf_path(name), algorithm=name)
     if conf.model != ZOO_MODELS[name]:
         raise AssertionError(f"zoo {name}: resolved model {conf.model}")
     (train, tdata), (val, vdata), (test, data) = (
@@ -3231,6 +3405,14 @@ def zoo_family(name: str, zoo: dict, kernels, count_path, card: str) -> None:
     trainer = trainer_for(conf.model)
     model = trainer.model
     n_params = sum(p.numel() for p in model.parameters())
+    if name in PROTOMF:  # the JAX builds' default widths
+        protos = [p for n, p in model.named_parameters()
+                  if n.endswith("prototypes")]
+        if not protos or any(tuple(p.shape) != (PROTOMF_PROTOTYPES,
+                                                PROTOMF_WIDTH)
+                             for p in protos):
+            raise AssertionError(f"zoo {name}: prototypes "
+                                 f"{[tuple(p.shape) for p in protos]}")
     for label, tower in zoo_towers(model).items():
         r = rows[label.split()[0].split("_")[0]]
         bag = tower.use_bag(r)
@@ -3247,16 +3429,23 @@ def zoo_family(name: str, zoo: dict, kernels, count_path, card: str) -> None:
             f"encode's 8,192")
 
     # the kernels on the inputs one train step gives them, outside the
-    # counted run: K5 on the dense towers' rows, K6 / K7 at every call site
-    with recorded_spmm({}) as calls, recorded_dw([]) as dws:
+    # counted run: K5 on the dense towers' rows, K6 / K7 at every call
+    # site, K13 on ECF's mask and tag-loss rows
+    with recorded_spmm({}) as calls, recorded_dw([]) as dws, \
+            recorded_topk([]) as topks:
         train_window(trainer, 1)
     for vec, g in dws[:1]:
         check_dw_case(f"zoo {name}, item tower", vec, g, timed=True)
     check_recorded(f"zoo {name} step", calls,
                    ("InteractionTower",) if name == "dmf" else
+                   ("ECF",) if name == "ecf" else
                    ("Embedding",) + (("InteractionTower",)
                                      if name == "dropoutnet" else ()))
-    del calls, dws
+    if name == "ecf":
+        check_topk_calls(f"zoo {name} step", topks)
+    del calls, dws, topks
+    if name in ZOO_REPEAT:
+        repeat_step(f"zoo {name}", trainer)
     if name == "dmf":  # normalize_interactions: K5 on non-0/1 rows
         normed = trainer_for({**conf.model, "normalize_interactions": True})
         with recorded_dw([]) as dws:
@@ -3270,7 +3459,8 @@ def zoo_family(name: str, zoo: dict, kernels, count_path, card: str) -> None:
     reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
     warm = train_window(trainer, ZOO_WARMUP)
-    run = train_window(trainer, ZOO_STEPS)
+    steps = ZOO_STEPS_FOR.get(name, ZOO_STEPS)
+    run = train_window(trainer, steps)
     losses = np.concatenate([warm["losses"], run["losses"]])
     first = float(losses[:ZOO_LOSS_WINDOW].mean())
     last = float(losses[-ZOO_LOSS_WINDOW:].mean())
@@ -3286,19 +3476,21 @@ def zoo_family(name: str, zoo: dict, kernels, count_path, card: str) -> None:
     check_metrics(f"zoo {name} validation", metrics, eval_conf())
     score_fn = make_score_fn(model, data.catalog)
     rec = Recommender(score_fn, test, data, k=K, batch_size=1024)
-    if not rec.use_dot:
-        raise AssertionError(f"zoo {name}: serving did not take the dot "
-                             f"path")
+    if rec.use_dot != (name != "uiprotomfs"):  # JAX's dot parts, or none
+        raise AssertionError(f"zoo {name}: serving took the "
+                             f"{'dot' if rec.use_dot else 'scores'} path")
     users = np.random.default_rng(SEED).permutation(test.n_users)[:1024]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ids, vals = rec.recommend(users, return_scores=True)
     serve_ms = (time.perf_counter() - t0) * 1e3
     count_path(f"zoo {name} (train, validation, serving)", ZOO_KERNELS[name],
-               ("window_max",))
+               ZOO_ABSENT[name])
     differ = check_lists(test, data, score_fn, users, ids, vals)
+    if name in PROTOMF:
+        check_post_val(name, model)
     log(f"zoo {name} ({n_params} parameters) on {card}: "
-        f"{ZOO_STEPS} steps after {ZOO_WARMUP}: host {run['host_ms']:.3f} "
+        f"{steps} steps after {ZOO_WARMUP}: host {run['host_ms']:.3f} "
         f"ms/step (synchronized), CUDA events {run['event_ms']:.3f} ms/step; "
         f"loss first {ZOO_LOSS_WINDOW} {first:.6f}, last {ZOO_LOSS_WINDOW} "
         f"{last:.6f}; max_memory_allocated {train_peak:.3f} GiB (training); "
@@ -3353,6 +3545,151 @@ def dmf_cli_phase(data_dir: str, run_dir: str, kernels, count_path,
         f"two validations, train and val loaded); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; val ndcg@10 "
         f"{metrics['val/ndcg@10']:.6f}")
+
+
+def zoo_cli(args: list, label: str, kernels) -> tuple:
+    """``run_experiment.main(args)`` from zero counts: its result, wall s
+    and peak GiB."""
+    import torch
+
+    from sibrar_tpu_torch.run_experiment import main as run_experiment
+
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run_experiment(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"{label}: {wall:.2f} s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return out, wall
+
+
+def check_gather(label: str, payload: dict, run_dir: str, split) -> None:
+    """A gather payload against its pickle and the test split: JAX's keys,
+    one row of k catalog positions and finite sorted values per user of
+    the split, no seen item, the positives as (row, position) pairs."""
+    import pickle
+
+    import numpy as np
+
+    keys = {"metrics", "raw_metrics", "user_indices", "topk_item_indices",
+            "topk_logits", "targets", "n_users", "n_items", "k",
+            "items_in_split"}
+    with open(os.path.join(run_dir, "gather_test.pkl"), "rb") as fh:
+        saved = pickle.load(fh)
+    users, ids = payload["user_indices"], payload["topk_item_indices"]
+    vals, k = payload["topk_logits"], payload["k"]
+    n = len(split.users_in_split)
+    if (set(payload) != keys or set(saved) != keys
+            or not np.array_equal(saved["topk_item_indices"], ids)
+            or not np.array_equal(users, split.users_in_split)
+            or ids.shape != (n, k) or vals.shape != (n, k)
+            or ids.dtype != np.int32 or payload["n_users"] != n
+            or payload["n_items"] != split.n_items_in_split
+            or not np.isfinite(vals).all()
+            or (np.diff(vals, axis=1) > 0).any()
+            or any(len(v) != n for v in payload["raw_metrics"].values())):
+        raise AssertionError(f"{label}: payload keys, shapes or values")
+    check_excluded(split, users, payload["items_in_split"][ids])
+    t = payload["targets"]
+    if not 0 < len(t) <= len(split.interactions) or t.dtype != np.int64:
+        raise AssertionError(f"{label}: targets {t.shape} {t.dtype}")
+
+
+def zoo_cli_phase(data_dir: str, root: str, kernels, count_path,
+                  card: str) -> None:
+    """On the CLI phase's artifacts, one epoch of ZOO_CLI_STEPS steps
+    each: ``-a uprotomfs`` and ``-a iprotomfs -c conf/base.yml -t
+    train_val`` (the post-validation keys among the metrics), then ``-a
+    uiprotomfs_combine --split_set test`` on the two run directories;
+    ``-a ecf -c conf/ecf.yml -t train_val``, then ``-t gather`` on that
+    run (`check_gather`) and ``-t test``, whose metrics must equal the
+    gather's; a gather of the UProtoMFs run, and
+    ``stat_tests.compare_gathers`` over the two."""
+    import numpy as np
+
+    from sibrar_tpu_torch.config.loader import get_config, load_split_type
+    from sibrar_tpu_torch.data.dataset import RecDataset
+    from sibrar_tpu_torch.eval.stat_tests import compare_gathers
+
+    common = ["-d", data_dir, "-n", "onion18",
+              "-o", "dataset.user_features=[]", "-o", "eval.group_metrics=[]",
+              "-o", "learn.n_epochs=1",
+              "-o", f"learn.max_batches_per_epoch={ZOO_CLI_STEPS}"]
+    runs = {}
+    for name in ("uprotomfs", "iprotomfs", "ecf"):
+        run_dir = runs[name] = os.path.join(root, f"{name}_run")
+        args = ["-a", name, "-c", zoo_conf_path(name), *common,
+                "-o", f"results_path={run_dir}"]
+        if name != "ecf":
+            args += ["-o", "dataset.item_features=[]"]
+        metrics, _ = zoo_cli(args + ["-t", "train_val"],
+                             f"{name} CLI train_val ({ZOO_CLI_STEPS} steps, "
+                             f"two validations) on {card}", kernels)
+        count_path(f"{name} CLI train_val", ZOO_KERNELS[name],
+                   ZOO_ABSENT[name])
+        conf = get_config(os.path.join(run_dir, "conf.yml"))
+        extra = (post_val_keys(name, True) | {"user_tsne_plot",
+                                              "item_tsne_plot"}
+                 if name != "ecf" else set())
+        keys = expected_keys(conf.eval, "val")
+        if (not keys <= set(metrics) <= keys | extra
+                or not all(np.isfinite(metrics[k]) for k in keys)):
+            raise AssertionError(f"{name} CLI: metric keys {sorted(metrics)}")
+        log(f"{name} CLI train_val: val ndcg@10 {metrics['val/ndcg@10']:.6f}"
+            f"; files {sorted(os.listdir(run_dir))}")
+        if name == "iprotomfs":
+            combined, _ = zoo_cli(
+                ["-a", "uiprotomfs_combine", "--split_set", "test",
+                 "--u_run_dir", runs["uprotomfs"], "--i_run_dir", run_dir],
+                f"uiprotomfs_combine CLI (two runs reloaded, the test split "
+                f"evaluated) on {card}", kernels)
+            count_path("uiprotomfs_combine CLI",
+                       ["segment_gather", "spmm_fwd", "window_max"],
+                       ("score_wmax",))
+            if set(combined) != expected_keys(conf.eval, "test") or not all(
+                    np.isfinite(v) for v in combined.values()):
+                raise AssertionError("uiprotomfs_combine: metric keys or "
+                                     "values")
+            log(f"uiprotomfs_combine: test ndcg@10 "
+                f"{combined['test/ndcg@10']:.6f}")
+
+    ecf = ["-a", "ecf", "-c", zoo_conf_path("ecf"), *common,
+           "-o", f"results_path={runs['ecf']}"]
+    payload, _ = zoo_cli(ecf + ["-t", "gather", "--split_set", "test"],
+                         f"ecf CLI gather (test split) on {card}",
+                         kernels)
+    count_path("ecf CLI gather", ["segment_gather", "spmm_fwd", "exact_topk",
+                                  "window_max"], ("score_wmax",))
+    test = RecDataset.load(data_dir, "test",
+                           split_type=load_split_type(data_dir))
+    check_gather("ecf gather", payload, runs["ecf"], test)
+    tested, _ = zoo_cli(ecf + ["-t", "test"], f"ecf CLI test on {card}",
+                        kernels)
+    if payload["metrics"] != tested:
+        diff = {k: tested[k] - v for k, v in payload["metrics"].items()
+                if tested.get(k) != v}
+        raise AssertionError(f"ecf gather: metrics differ from run_test's: "
+                             f"{sorted(diff.items())[:6]}")
+    u_payload, _ = zoo_cli(
+        ["-a", "uprotomfs", "-c", zoo_conf_path("uprotomfs"), *common,
+         "-o", f"results_path={runs['uprotomfs']}",
+         "-o", "dataset.item_features=[]", "-t", "gather"],
+        f"uprotomfs CLI gather on {card}", kernels)
+    check_gather("uprotomfs gather", u_payload, runs["uprotomfs"], test)
+    key = "test/ndcg@10"
+    (cmp,) = compare_gathers({name: os.path.join(runs[name],
+                                                 "gather_test.pkl")
+                              for name in ("ecf", "uprotomfs")}, key)
+    if not 0.0 <= cmp.p_value <= 1.0:
+        raise AssertionError(f"compare_gathers: p-value {cmp.p_value}")
+    log(f"ecf gather: {len(payload['user_indices'])} users x k "
+        f"{payload['k']}, metrics equal to run_test's (test ndcg@10 "
+        f"{tested[key]:.6f}); stat_tests.compare_gathers on {key}: best "
+        f"{cmp.best_model} against {cmp.other_model}, p {cmp.p_value:.3e}, "
+        f"Bonferroni threshold {cmp.threshold}, significant "
+        f"{cmp.significant}")
 
 
 def quality_phase(card: str) -> None:

@@ -210,10 +210,13 @@ class FullEvaluator:
     def _key(self, base: str) -> str:
         return f"{self.name}/{base}" if self.name else base
 
-    def get_results(self) -> dict:
+    def get_results(self, return_raw_results: bool = False):
         """Means (and population stds with ``compute_std``) of the per-user
         metrics over the valid rows, coverage, group breakdowns; natsorted
-        keys. One device-to-host transfer, then `reset`."""
+        keys. One device-to-host transfer, then `reset`. With
+        ``return_raw_results``, ``(metrics, raw)``: ``raw`` maps each
+        per-user metric's key to its values over the valid rows, in the
+        order the batches came (``-t gather``'s ``raw_metrics``)."""
         valid = (np.concatenate(self._valid) if self._valid
                  else np.zeros(0, bool))
         names = [k for k in self._per_user
@@ -260,6 +263,8 @@ class FullEvaluator:
 
         out = {k: out[k] for k in sorted(out, key=natsort_key)}
         self.reset()
+        if return_raw_results:
+            return out, raw
         return out
 
 

@@ -1,6 +1,7 @@
 """Experiment orchestration: config -> data -> model -> fit -> evaluation ->
 run files (port of ``sibrar_tpu/experiment.py``: ``run_train_val``,
-``run_test``, ``run_train_val_test`` for the ``sgd`` family).
+``run_test``, ``run_train_val_test``, ``run_gather`` and
+``run_combine_experiment`` for the ``sgd`` family).
 
 A run reads its splits from ``conf.dataset.dataset_path`` (the split type
 from the directory's ``used_config.yaml``) and writes into
@@ -8,7 +9,11 @@ from the directory's ``used_config.yaml``) and writes into
 ``results_path`` is set: ``conf.yml`` before training, ``model.pt``
 whenever the best validation improves, ``metrics_val.yml`` (fit's best
 validation) and ``metrics_test.yml``. ``profile_training`` writes a
-``torch.profiler`` trace of the first epoch under ``profile/``.
+``torch.profiler`` trace of the first epoch under ``profile/``. A ProtoMF
+run adds `eval.explanations.protomf_post_val`'s prototype diagnostics to
+every validation's metrics. ``run_gather`` writes ``gather_{split}.pkl``
+(per-user metrics and exclusion-masked top-k lists, JAX's payload), which
+``eval/stat_tests.py`` compares.
 
 `load_for_serving` rebuilds a fitted run directory for serving
 (``serve.Recommender.from_run_dir``, ``python -m
@@ -20,15 +25,17 @@ makes the trainer raise ``FloatingPointError`` at the first train step
 with a NaN in its loss, gradients or updated parameters (JAX's
 ``jax_debug_nans`` traps the operation that made it; see
 ``train/trainer.py``). Not ported (each raises, naming its ``ROADMAP.md``
-queue 1 item): several devices (item 8), the matrix family (item 7), the
-SGD models besides ``sbnet``, ``sgdbias``, ``mf``, ``acf``, ``dmf``,
-``ifeatmf``, ``ufeatmf`` and ``dropoutnet`` (item 6).
+queue 1 item): several devices (item 8), the matrix family (item 7).
 """
 from __future__ import annotations
 
 import logging
 import os
+import pickle
+from typing import Optional
 
+import numpy as np
+import scipy.sparse as sp
 import torch
 
 from sibrar_tpu_torch import config_from_dict
@@ -44,8 +51,10 @@ from sibrar_tpu_torch.config.schema import (
     as_dict,
 )
 from sibrar_tpu_torch.data.dataset import RecDataset
-from sibrar_tpu_torch.eval.evaluator import FullEvaluator
+from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
+from sibrar_tpu_torch.models.protomf import UIProtoMFsCombine
 from sibrar_tpu_torch.models.registry import AlgorithmSpec, get_algorithm
+from sibrar_tpu_torch.ops.topk import masked_topk
 from sibrar_tpu_torch.train.trainer import Trainer
 from sibrar_tpu_torch.utils.misc import (
     generate_id,
@@ -156,6 +165,28 @@ def _finish(wandb_run) -> None:
         wandb_run.finish()
 
 
+def _post_val_fn(conf: ExperimentConfig, results_path: str):
+    """The ProtoMF runs' post-validation hook (names ending in ``protomf``
+    or ``protomfs``): `protomf_post_val` of the user side (``u*``), the
+    item side (``i*``) or both (``ui*``); None for other algorithms."""
+    name = conf.algorithm
+    if not name.endswith(("protomf", "protomfs")):
+        return None
+    from sibrar_tpu_torch.eval.explanations import protomf_post_val
+
+    entities = (("user", "item") if name.startswith("ui")
+                else ("item",) if name[0] == "i" else ("user",))
+
+    def post_val(model, epoch: int) -> dict:
+        out = {}
+        for entity in entities:
+            out.update(protomf_post_val(model, entity, epoch,
+                                        results_dir=results_path))
+        return out
+
+    return post_val
+
+
 def run_train_val(conf: ExperimentConfig, log_fn=None) -> dict:
     """Train on the train split, validating on val; returns (and writes)
     the best validation metrics."""
@@ -184,6 +215,7 @@ def run_train_val(conf: ExperimentConfig, log_fn=None) -> dict:
         train_evaluator=(FullEvaluator(conf.eval, train_ds, train_data,
                                        evaluator_name="train")
                          if conf.train_eval else None),
+        post_val_fn=_post_val_fn(conf, results_path),
         profile_dir=(os.path.join(results_path, "profile")
                      if conf.profile_training else None),
         debug_nans=conf.run_settings.debug_nans)
@@ -229,8 +261,125 @@ def run_test(conf: ExperimentConfig, log_fn=None) -> dict:
     return metrics
 
 
+def _run_conf(run_dir: str) -> ExperimentConfig:
+    """A run directory's ``conf.yml``, its results path the directory."""
+    conf = config_from_dict(ExperimentConfig, parse_conf_file(
+        os.path.join(run_dir, "conf.yml")))
+    conf.results_path = run_dir
+    return conf
+
+
 def run_train_val_test(conf: ExperimentConfig) -> tuple[dict, dict]:
     return run_train_val(conf), run_test(conf)
+
+
+def run_combine_experiment(u_run_dir: str, i_run_dir: str,
+                           split_set: str = "test") -> dict:
+    """``uiprotomfs_combine``: the score sum of two fitted runs (a
+    UProtoMFs and an IProtoMFs run), evaluated on ``split_set`` with the U
+    run's ``eval`` config and eval batch size, with no training. Each
+    scorer is `load_for_serving`'s over the test split's catalog (JAX's
+    ``reload_run``), on the U run's device."""
+    u_conf = _run_conf(u_run_dir)
+    device = resolve_device(u_conf)
+    u_score = load_for_serving(u_run_dir, "test", device)[0]
+    i_score = load_for_serving(i_run_dir, "test", device)[0]
+    eval_ds = _load_split(u_conf, split_set,
+                          load_split_type(u_conf.dataset.dataset_path))
+    evaluator = FullEvaluator(u_conf.eval, eval_ds, device=device,
+                              evaluator_name=split_set)
+    metrics = evaluate_model(UIProtoMFsCombine(u_score, i_score), evaluator,
+                             u_conf.loader.eval_batch_size)
+    log_info_results(metrics)
+    return metrics
+
+
+def run_gather(conf: ExperimentConfig, split_set: str = "test",
+               k: Optional[int] = None,
+               out_name: Optional[str] = None) -> dict:
+    """Evaluate the run's saved model (``model.pt``) on ``split_set`` and
+    write JAX's gather payload to ``gather_{split_set}.pkl`` (or
+    ``out_name``) in the run directory: ``metrics``, ``raw_metrics`` (the
+    per-user values), ``user_indices`` (the split's users, in order),
+    ``topk_item_indices`` (catalog positions, int32) and ``topk_logits``
+    of each user's top-``k`` with its seen items excluded
+    (`ops.topk.masked_topk`), ``targets`` (``(user row, catalog
+    position)`` pairs of the split's positives, int64), ``n_users``,
+    ``n_items``, ``k`` (default the largest cutoff, at most the catalog)
+    and ``items_in_split``. Users go in batches of the eval batch size,
+    the last one padded by repeating its last user; when ``k`` covers
+    every cutoff the metrics come from the exported lists
+    (``eval_batch_from_topk``)."""
+    reproducible(conf.run_settings.seed)
+    device = resolve_device(conf)
+    spec = get_algorithm(conf.algorithm)
+    _check_ported(conf, spec)
+    results_path = _results_path(conf)
+    split_type = load_split_type(conf.dataset.dataset_path)
+    train_ds = _load_split(conf, "train", split_type)
+    eval_ds = _load_split(conf, split_set, split_type)
+    train_data = train_ds.to_device(device)
+    evaluator = FullEvaluator(conf.eval, eval_ds, device=device,
+                              evaluator_name=split_set)
+    model = spec.build(conf.model, train_ds, train_data,
+                       conf.run_settings.seed)
+    trainer = Trainer(model, train_ds, conf.learn, conf.dataset,
+                      seed=conf.run_settings.seed, device_data=train_data,
+                      val_evaluator=evaluator)
+    trainer.load(results_path)
+    score_fn = trainer.make_score_fn()
+
+    if k is None:
+        k = max(conf.eval.top_k)
+    k = min(k, eval_ds.n_items_in_split)
+    users_dev = evaluator.data.users_in_split
+    users = users_dev.cpu().numpy()
+    bs = conf.loader.eval_batch_size
+    top_idx, top_logits = [], []
+    with torch.no_grad():
+        for start in range(0, len(users), bs):
+            u = users_dev[start:start + bs]
+            valid = np.ones(len(u), bool)
+            pad = bs - len(u)
+            if pad > 0:
+                u = torch.cat([u, u[-1:].expand(pad)])
+                valid = np.concatenate([valid, np.zeros(pad, bool)])
+            scores = score_fn(u)
+            v, i = masked_topk(scores, evaluator.data.exclude_csr, u, k)
+            top_idx.append(i.to(torch.int32).cpu().numpy()[valid])
+            top_logits.append(v.cpu().numpy()[valid])
+            if k >= evaluator.k_max:
+                evaluator.eval_batch_from_topk(u, i, valid=valid)
+            else:
+                evaluator.eval_batch(u, scores, valid=valid)
+    metrics, raw = evaluator.get_results(return_raw_results=True)
+
+    inter = eval_ds.interactions
+    item_to_catalog = np.full(eval_ds.n_items, -1, dtype=np.int64)
+    item_to_catalog[eval_ds.items_in_split] = np.arange(
+        eval_ds.n_items_in_split)
+    pos = sp.csr_matrix(
+        (np.ones(len(inter), np.int8),
+         (inter[:, 0], item_to_catalog[inter[:, 1]])),
+        shape=(eval_ds.n_users, eval_ds.n_items_in_split))
+    coo = pos[users].tocoo()
+    payload = {
+        "metrics": metrics,
+        "raw_metrics": raw,
+        "user_indices": users,
+        "topk_item_indices": np.concatenate(top_idx),
+        "topk_logits": np.concatenate(top_logits),
+        "targets": np.stack([coo.row, coo.col], axis=1).astype(np.int64),
+        "n_users": len(eval_ds.users_in_split),
+        "n_items": eval_ds.n_items_in_split,
+        "k": k,
+        "items_in_split": np.asarray(eval_ds.items_in_split),
+    }
+    out = os.path.join(results_path, out_name or f"gather_{split_set}.pkl")
+    with open(out, "wb") as fh:
+        pickle.dump(payload, fh)
+    log_info_results(metrics)
+    return payload
 
 
 def load_for_serving(run_dir: str, split: str = "test", device=None):
@@ -242,9 +391,7 @@ def load_for_serving(run_dir: str, split: str = "test", device=None):
     (`resolve_device`). Returns ``(score_fn, dataset, device_data, k)``,
     ``k`` the largest ``eval.top_k``. A matrix algorithm's run raises
     (queue 1 item 7), as does a ``parallel`` block (item 8)."""
-    conf = config_from_dict(ExperimentConfig, parse_conf_file(
-        os.path.join(run_dir, "conf.yml")))
-    conf.results_path = run_dir
+    conf = _run_conf(run_dir)
     spec = get_algorithm(conf.algorithm)
     _check_ported(conf, spec)
     device = resolve_device(conf) if device is None else torch.device(device)

@@ -61,3 +61,22 @@ class RecModel(nn.Module):
         if i_repr.ndim == 2:
             return u_repr @ i_repr.T
         return torch.einsum("be,bce->bc", u_repr, i_repr)
+
+
+class NamedLossModel(RecModel):
+    """A model whose train forward names its regularization losses (the
+    JAX package's sown ``losses`` entries): `forward_losses` returns
+    ``(logits, {name: loss})``, and the model call their sum."""
+
+    def forward_losses(self, u_idxs: torch.Tensor, i_idxs: torch.Tensor
+                       ) -> tuple[torch.Tensor, dict]:
+        raise NotImplementedError
+
+    def forward(self, u_idxs: torch.Tensor, i_idxs: torch.Tensor, *,
+                gen: Optional[torch.Generator] = None, delta=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        logits, losses = self.forward_losses(u_idxs, i_idxs)
+        reg = torch.zeros((), device=logits.device)
+        for v in losses.values():
+            reg = reg + v
+        return logits, reg

@@ -10,7 +10,7 @@ through ``models/transplant.py``.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -41,6 +41,21 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
     return x * torch.rsqrt(sq.clamp(min=eps * eps))
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)`` with tensor bounds, so
+    a value exactly at a bound passes half its gradient, as in JAX
+    (``torch.clamp`` passes all of it)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def embedding_init_(t: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """N(0, 0.1 / dim) in place, ``dim`` the last axis (JAX
+    ``embedding_init``; for an ``nn.Linear`` weight ``[out, in]`` pass its
+    transpose's last axis, ``out``)."""
+    with torch.no_grad():
+        return t.normal_(0.0, 0.1 / t.shape[-1], generator=gen)
+
+
 def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator):
     with torch.no_grad():
         t.uniform_(-bound, bound, generator=gen)
@@ -62,6 +77,15 @@ def linear(d_in: int, d_out: int, gen: torch.Generator, *,
     return layer
 
 
+def lookup(table: torch.Tensor, idxs: torch.Tensor) -> torch.Tensor:
+    """``table[idxs]`` as `spmm_onehot` over rows of one live slot (K6
+    forward, K7 backward on the card), differentiable in ``table``."""
+    flat = idxs.reshape(-1, 1).to(torch.int32)
+    mask = torch.ones(flat.shape, dtype=torch.bool, device=flat.device)
+    out = spmm_onehot(flat, mask, table)
+    return out.reshape(*idxs.shape, table.shape[-1])
+
+
 class Embedding(nn.Embedding):
     """``nn.Embedding`` with the reference's N(0, 0.1 / dim) init, looked
     up as `spmm_onehot` over rows of one live slot: K6 forward, K7 backward
@@ -76,21 +100,22 @@ class Embedding(nn.Embedding):
     injected rows instead of gathering, so the backward never builds a
     dense ``[n, d]`` gradient. The rows must be the gather of exactly the
     ``idxs`` the call receives; a shape that differs raises (JAX's
-    ``Embedding`` check)."""
+    ``Embedding`` check). ``init(weight, gen)``, when given, fills the
+    table in place of the N(0, 0.1 / dim) draw."""
 
-    def __init__(self, num: int, dim: int, gen: torch.Generator):
+    def __init__(self, num: int, dim: int, gen: torch.Generator,
+                 init: Optional[Callable] = None):
         super().__init__(num, dim)
         self.rows: Optional[torch.Tensor] = None
         with torch.no_grad():
-            self.weight.normal_(0.0, 0.1 / dim, generator=gen)
+            if init is None:
+                self.weight.normal_(0.0, 0.1 / dim, generator=gen)
+            else:  # init(weight, gen) fills the table in place
+                init(self.weight, gen)
 
     def forward(self, idxs: torch.Tensor) -> torch.Tensor:
         if self.rows is None:
-            flat = idxs.reshape(-1, 1).to(torch.int32)
-            mask = torch.ones(flat.shape, dtype=torch.bool,
-                              device=flat.device)
-            out = spmm_onehot(flat, mask, self.weight)
-            return out.reshape(*idxs.shape, self.embedding_dim)
+            return lookup(self.weight, idxs)
         expect = (*idxs.shape, self.embedding_dim)
         if tuple(self.rows.shape) != expect:
             raise ValueError(
@@ -370,6 +395,20 @@ class InteractionTower(nn.Module):
         if self.rest is None:
             return self.out_fn(x) if self.out_fn is not None else x
         return self.rest(self.act(x))
+
+
+class InteractionVectorModule(nn.Module):
+    """Dense 0/1 train-interaction rows ``[..., n_cols]`` of a batch of
+    entity ids: K1 row gather, then a scatter into zeros
+    (`ops.sparse.csr_rows_to_dense`). A constant of the data: nothing
+    trains."""
+
+    def __init__(self, csr: DeviceCSR):
+        super().__init__()
+        self.csr = csr
+
+    def forward(self, idxs: torch.Tensor) -> torch.Tensor:
+        return csr_rows_to_dense(self.csr, idxs)
 
 
 def interaction_tower_from(device_data, entity: str,

@@ -6,8 +6,9 @@ The names and families are the JAX registry's, so the CLI offers the same
 ``matrix`` algorithms fit once over the train CSR. An ``sgd`` build takes
 ``(model_conf, dataset, device_data, seed)`` and returns the model on the
 device of ``device_data``, in eval mode. Ported: ``sbnet``, ``sgdbias``,
-``mf``, ``acf``, ``dmf``, ``ifeatmf``, ``ufeatmf`` and ``dropoutnet``;
-building any other name raises, naming the queue item that owes it.
+``mf``, ``acf``, the six ProtoMF variants, ``ecf``, ``dmf``, ``ifeatmf``,
+``ufeatmf`` and ``dropoutnet``: every ``sgd`` name. Building a ``matrix``
+name raises, naming the queue item that owes it.
 """
 from __future__ import annotations
 
@@ -19,11 +20,20 @@ import torch
 from sibrar_tpu_torch.config.schema import NOT_PORTED
 from sibrar_tpu_torch.models.dmf import DeepMatrixFactorization
 from sibrar_tpu_torch.models.dropoutnet import DropoutNet
+from sibrar_tpu_torch.models.ecf import ECF
 from sibrar_tpu_torch.models.feat_mf import (
     ItemFeatureMatrixFactorization,
     UserFeatureMatrixFactorization,
 )
 from sibrar_tpu_torch.models.mf import ACF, SGDBaseline, SGDMatrixFactorization
+from sibrar_tpu_torch.models.protomf import (
+    IProtoMF,
+    IProtoMFs,
+    UIProtoMF,
+    UIProtoMFs,
+    UProtoMF,
+    UProtoMFs,
+)
 from sibrar_tpu_torch.models.sbnet import SingleBranchNet
 
 
@@ -62,6 +72,13 @@ BUILDS: dict[str, Callable] = {
         n_anchors=c.get("n_anchors", 20),
         delta_exc=c.get("delta_exc", 1e-1),
         delta_inc=c.get("delta_inc", 1e-2))),
+    "uprotomf": _on_device(UProtoMF.build_from_conf),
+    "iprotomf": _on_device(IProtoMF.build_from_conf),
+    "uiprotomf": _on_device(UIProtoMF.build_from_conf),
+    "uprotomfs": _on_device(UProtoMFs.build_from_conf),
+    "iprotomfs": _on_device(IProtoMFs.build_from_conf),
+    "uiprotomfs": _on_device(UIProtoMFs.build_from_conf),
+    "ecf": _on_device(ECF.build_from_conf),
     "dmf": _on_device(DeepMatrixFactorization.build_from_conf),
     "ifeatmf": _on_device(ItemFeatureMatrixFactorization.build_from_conf),
     "ufeatmf": _on_device(UserFeatureMatrixFactorization.build_from_conf),
@@ -82,8 +99,7 @@ SGD = ("sgdbias", "mf", "acf", "uprotomf", "iprotomf", "uiprotomf",
 MATRIX = ("uknn", "iknn", "ifknn", "svd", "als", "rbmf", "slim", "ease",
           "p3alpha", "rand", "pop")
 ALGORITHMS: dict[str, AlgorithmSpec] = {
-    **{n: AlgorithmSpec(n, "sgd", BUILDS.get(n) or _unported(n, 6))
-       for n in SGD},
+    **{n: AlgorithmSpec(n, "sgd", BUILDS[n]) for n in SGD},
     **{n: AlgorithmSpec(n, "matrix", _unported(n, 7)) for n in MATRIX},
 }
 

@@ -1,6 +1,7 @@
 """Load the flax variables of a JAX ``SingleBranchNet``, ``SGDBaseline``,
-``SGDMatrixFactorization``, ``ACF``, ``DeepMatrixFactorization``, feature
-MF (``ifeatmf`` / ``ufeatmf``) or ``DropoutNet`` into the port.
+``SGDMatrixFactorization``, ``ACF``, ProtoMF model (six variants), ``ECF``,
+``DeepMatrixFactorization``, feature MF (``ifeatmf`` / ``ufeatmf``) or
+``DropoutNet`` into the port.
 
 ``variables`` is ``{"params": ..., "batch_stats": ...}`` as nested dicts of
 arrays (anything ``numpy.asarray`` takes), the layout the JAX package's
@@ -12,9 +13,13 @@ arrays (anything ``numpy.asarray`` takes), the layout the JAX package's
 - flax BatchNorm ``scale`` / ``bias`` are the affine weight / bias, and its
   ``batch_stats`` ``mean`` / ``var`` become the running statistics;
 - in the other models each submodule ``name`` is ``params[name]`` (an id
-  table ``params[name]["embedding"]``, a tower its ``kernel``, ``bias`` and
-  ``rest``, a content net its ``pre_embedding``) and each bare parameter
-  (``global_bias``, ``anchors``) ``params[name]``; DropoutNet's entity
+  table ``params[name]["embedding"]``, a bias-free projection its
+  ``kernel``, a tower its ``kernel``, ``bias`` and ``rest``, a content net
+  its ``pre_embedding``) and each bare parameter (``global_bias``,
+  ``anchors``, ``prototypes``, ECF's ``user_embedding`` / ``item_embedding``
+  / ``clusters``) ``params[name]``. ECF's interaction rows and tag matrix
+  are JAX's ``tables`` collection: the port rebuilds them from the dataset,
+  so nothing is carried; DropoutNet's entity
   ``pref_net``, ``net`` and its content modules by list slot,
   ``content_{i}``.
 
@@ -35,6 +40,7 @@ from sibrar_tpu_torch.models.dropoutnet import DropoutNet
 from sibrar_tpu_torch.models.layers import (
     FeatureEmbeddingModule,
     InteractionTower,
+    InteractionVectorModule,
     PolyLinear,
     TagEmbeddingBag,
 )
@@ -88,6 +94,8 @@ def _pairs(model: nn.Module, params: dict, stats: Optional[dict]
                     poly(getattr(mod, name), p[name], sub(s, name))
         elif isinstance(mod, nn.Embedding):  # '{entity}_embedding' modality
             put(mod.weight, p["embedding"])
+        elif isinstance(mod, nn.Linear) and mod.bias is None:
+            put(mod.weight, p["kernel"], True)  # ProtoMF's u_to_i / i_to_u
         else:
             raise TypeError(f"no transplant rule for {type(mod).__name__}")
 
@@ -119,9 +127,10 @@ def _pairs(model: nn.Module, params: dict, stats: Optional[dict]
             for i, m in enumerate(ent.content.values()):
                 module(m, p[f"content_{i}"], sub(s, f"content_{i}"))
             poly(ent.net, p["net"], sub(s, "net"))
-    else:  # MF family, DMF, feature MF: submodules and parameters by name
+    else:  # MF, ProtoMF, ECF, DMF, feature MF: by name
         for name, child in model.named_children():
-            module(child, params[name], sub(stats, name))
+            if not isinstance(child, InteractionVectorModule):  # ECF's data
+                module(child, params[name], sub(stats, name))
         for name, p in model.named_parameters(recurse=False):
             put(p, params[name])
     return out

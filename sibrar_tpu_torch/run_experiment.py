@@ -7,8 +7,10 @@ the card (port of the repository root's ``run_experiment.py``).
 
 ``-o key.path=value`` overrides a config key (the value is parsed as
 YAML); the dataset name defaults to the artifact directory's name.
-``train_val``, ``test`` and ``train_val_test`` run; ``gather`` and
-``uiprotomfs_combine`` are accepted and not ported yet.
+``-t train_val``, ``test``, ``train_val_test`` and ``gather`` (the
+``--split_set`` split, top ``--gather_k``) run; ``-a uiprotomfs_combine
+--u_run_dir U --i_run_dir I`` evaluates the score sum of two fitted runs
+and takes no ``-d`` / ``-c``.
 """
 from __future__ import annotations
 
@@ -19,8 +21,9 @@ import os
 import yaml
 
 from sibrar_tpu_torch.config.loader import get_config
-from sibrar_tpu_torch.config.schema import NOT_PORTED
 from sibrar_tpu_torch.experiment import (
+    run_combine_experiment,
+    run_gather,
     run_test,
     run_train_val,
     run_train_val_test,
@@ -69,10 +72,12 @@ def main(argv=None):
                         help="uiprotomfs_combine: fitted IProtoMFs run dir")
     args = parser.parse_args(argv)
 
-    if args.algorithm == COMBINE_ALG or args.run_type == "gather":
-        what = (COMBINE_ALG if args.algorithm == COMBINE_ALG
-                else "run type 'gather'")
-        raise NotImplementedError(f"{what} is {NOT_PORTED.format(6)}")
+    if args.algorithm == COMBINE_ALG:
+        if not (args.u_run_dir and args.i_run_dir):
+            parser.error(f"{COMBINE_ALG} requires --u_run_dir and "
+                         f"--i_run_dir")
+        return run_combine_experiment(args.u_run_dir, args.i_run_dir,
+                                      split_set=args.split_set)
     if not (args.dataset_path and args.conf_path):
         parser.error("--dataset_path/-d and --conf_path/-c are required")
 
@@ -85,6 +90,8 @@ def main(argv=None):
         dataset_name=args.dataset_name or os.path.basename(
             os.path.normpath(args.dataset_path)),
         split_type=args.split_type, overrides=overrides)
+    if args.run_type == "gather":
+        return run_gather(conf, split_set=args.split_set, k=args.gather_k)
     return RUNS[args.run_type](conf)
 
 

@@ -230,10 +230,11 @@ class Trainer:
         self.step += 1
         return out
 
-    def forward_backward(self, idxs: torch.Tensor) -> torch.Tensor:
-        """The train step up to its gradients: draws, train forward, loss,
-        backward into ``.grad`` (and, for row-sparse tables, into the
-        injected rows' ``.grad``); returns ``[total, rec_loss, reg_loss]``."""
+    def draw_batch(self, idxs: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The users ``[B]`` of the pairs ``idxs`` and their items ``[B, 1 +
+        n_neg]`` (global ids, the positive first), the negatives drawn from
+        the trainer's generator."""
         data = self.data
         u = data.train_users[idxs]
         pos = data.train_items_cat[idxs]
@@ -243,8 +244,15 @@ class Trainer:
             n_catalog=self.train_dataset.n_items_in_split, n_neg=self.n_neg,
             squashing_factor=self.dataset_conf.popularity_squashing_factor)
         i_cat = torch.cat([pos.unsqueeze(1), negs], dim=1)
-        i_global = data.catalog[i_cat.long()]
-        labels = torch.zeros(i_cat.shape, device=self.device)
+        return u, data.catalog[i_cat.long()]
+
+    def forward_backward(self, idxs: torch.Tensor) -> torch.Tensor:
+        """The train step up to its gradients: draws (`draw_batch`), train
+        forward, loss, backward into ``.grad`` (and, for row-sparse tables,
+        into the injected rows' ``.grad``); returns ``[total, rec_loss,
+        reg_loss]``."""
+        u, i_global = self.draw_batch(idxs)
+        labels = torch.zeros(i_global.shape, device=self.device)
         labels[:, 0] = 1.0
         self.model.train()
         source = {"user": u, "item": i_global}

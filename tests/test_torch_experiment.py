@@ -101,8 +101,6 @@ def test_registry_names_and_kinds_match_jax():
     for name, spec in JAX_ALGORITHMS.items():
         assert (ALGORITHMS[name].name, ALGORITHMS[name].kind) == (
             spec.name, spec.kind)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        get_algorithm("ecf").build({}, None, None, 0)
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         get_algorithm("ease").build({}, None, None, 0)
     with pytest.raises(ValueError, match="unknown algorithm"):
@@ -263,10 +261,6 @@ def test_cli_runs_mf_with_sparse_tables_and_debug_nans(onion_dir, tmp_path,
 
 def test_cli_refuses_what_is_not_ported(onion_dir, tmp_path):
     base = ["-c", CONF, "-d", onion_dir, "-o", f"results_path={tmp_path}/r"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        main(["-a", "sbnet", "-t", "gather", *base])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        main(["-a", "uiprotomfs_combine", *base])
     with pytest.raises(NotImplementedError, match="item 7"):
         main(["-a", "ease", *base, "-o", "run_settings.device=cpu"])
     with pytest.raises(NotImplementedError, match="item 8"):

@@ -275,7 +275,8 @@ assert sampling.sample_user_positives(
     torch.Generator(), mf_data.train_users[:4], mf_data.pos_csr,
     3).shape == (4, 3)
 assert trained_parity.hparams_for("mf", "mid")["embedding_dim"] == 32
-from sibrar_tpu_torch.models import dmf, dropoutnet, feat_mf
+from sibrar_tpu_torch.models import dmf, dropoutnet, ecf, feat_mf, protomf
+from sibrar_tpu_torch.eval import explanations, stat_tests
 zoo = make_synthetic_splits(n_users=30, n_items=40, n_interactions=300)
 zoo_data = zoo["train"].to_device("cpu")
 entity = {"features": [{"feature_name": "audio", "embedding_dim": 4}],
@@ -290,7 +291,17 @@ for name, c, cls in (
         ("dropoutnet", {"shared_common_dim": 4, "item": entity, "user": {
             **entity, "features": [{"feature_name": "gender",
                                     "embedding_dim": 2}]}},
-         dropoutnet.DropoutNet)):
+         dropoutnet.DropoutNet),
+        *((n, {"embedding_dim": 4, "n_prototypes": 3,
+               "u_n_prototypes": 3, "i_n_prototypes": 2}, cls)
+          for n, cls in (("uprotomf", protomf.UProtoMF),
+                         ("iprotomf", protomf.IProtoMF),
+                         ("uiprotomf", protomf.UIProtoMF),
+                         ("uprotomfs", protomf.UProtoMFs),
+                         ("iprotomfs", protomf.IProtoMFs),
+                         ("uiprotomfs", protomf.UIProtoMFs))),
+        ("ecf", {"embedding_dim": 4, "n_clusters": 5, "top_n": 2,
+                 "top_m": 2, "top_p": 2, "tag_feature": "genres"}, ecf.ECF)):
     zoo_model = registry.get_algorithm(name).build(c, zoo["train"], zoo_data,
                                                    0)
     assert isinstance(zoo_model, cls)
@@ -299,6 +310,11 @@ for name, c, cls in (
                             gen=torch.Generator())
     (logits.sum() + reg).backward()
     assert logits.shape == (4, 3) and bool(torch.isfinite(logits).all())
+    if name.endswith("protomf"):
+        assert reg > 0 and explanations.protomf_post_val(
+            zoo_model, "user" if name[0] == "u" else "item", 0)
+assert stat_tests.paired_t_tests({"a": np.arange(5.0),
+                                  "b": np.arange(5.0) ** 2})
 misc.reproducible(3)
 assert schema.DatasetSplitType("cold_start_item").is_cold_start
 assert feature.build_feature(schema.FeatureDefinition(

@@ -35,6 +35,17 @@ TOY_FLOOR = 0.1  # ndcg@10; the JAX toy-scale SBNet runs are held to 0.1
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread per test: beside the suite's other workers the
+    toy trainings took 649 s and 329 s with torch's own thread count, 6 s
+    and 3 s on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _joiner():
     """The root script ``torch_trained_parity.py`` as a module."""
     spec = importlib.util.spec_from_file_location(

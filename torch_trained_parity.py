@@ -12,6 +12,11 @@ on the card or the CPU.
     # the JAX side, on the CPU (writes the per-seed values)
     python torch_trained_parity.py jax --family sbnet mf --seeds 0 1 2 3 4 \
         --out sibrar_tpu_torch/tools/trained_parity_jax.json
+    # a toy-scale file (make_artifacts' 100 x 120, no MIDSCALE_HPARAMS)
+    python torch_trained_parity.py jax --family ecf --scale toy \
+        --out sibrar_tpu_torch/tools/trained_parity_jax_toy.json
+    # JAX's ECF draws, init and epochs, one .npz per seed, for a replay
+    python torch_trained_parity.py replay-jax --scale toy --out-dir _replay
     # the port side (no JAX), on the card or with --device cpu
     python -m sibrar_tpu_torch.tools.trained_parity --family sbnet mf \
         --seeds 0 1 2 3 4 --out port.json
@@ -38,23 +43,28 @@ FLOOR = 0.03
 TOLERANCE = 0.01
 
 
-def run_jax(families, seeds) -> dict:
-    """Best validation ndcg@10 of JAX's ``train_ours_<family>`` per seed,
-    at mid scale: artifacts written by JAX's ``make_midscale_artifacts``,
-    hyperparameters updated by its ``MIDSCALE_HPARAMS``."""
+def run_jax(families, seeds, scale: str = "mid") -> dict:
+    """Best validation ndcg@10 of JAX's ``train_ours_<family>`` per seed.
+    At ``mid`` scale the artifacts are JAX's ``make_midscale_artifacts``
+    and the hyperparameters are updated by its ``MIDSCALE_HPARAMS``; at
+    ``toy`` scale they are ``make_artifacts``' defaults (100 users x 120
+    items) and the family's own hyperparameters (``tests/
+    test_trained_parity.py``'s setting)."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import jax
 
     import trained_parity as tp
 
-    out = {"scale": "mid", "platform": jax.default_backend(),
+    out = {"scale": scale, "platform": jax.default_backend(),
            "jax": jax.__version__, "families": {}}
     with tempfile.TemporaryDirectory() as d:
-        tp.make_midscale_artifacts(d)
+        (tp.make_midscale_artifacts if scale == "mid"
+         else tp.make_artifacts)(d)
         for family in families:
             _, ours_fn, base = tp._families()[family]
             h = dict(base)
-            h.update(tp.MIDSCALE_HPARAMS.get(family, {}))
+            if scale == "mid":
+                h.update(tp.MIDSCALE_HPARAMS.get(family, {}))
             runs, secs = {}, {}
             for s in seeds:
                 t0 = time.perf_counter()
@@ -64,6 +74,116 @@ def run_jax(families, seeds) -> dict:
                       f"({secs[str(s)]} s)", flush=True)
             out["families"][family] = {"hparams": h, "runs": runs,
                                        "seconds": secs}
+    return out
+
+
+def record_jax_ecf(artifact_dir: str, seed: int, h: dict) -> dict:
+    """JAX's ECF training, set up as ``train_ours_ecf`` and run epoch by
+    epoch, with what a replay needs (flat arrays): the initial parameters
+    (``init/<path>``), every step's users (``users``) and items (``items``,
+    global ids, the positive first) in order with the steps' sizes
+    (``sizes``), the validation ndcg@10 before training and after each
+    epoch (``val``), the parameters after each epoch (``epoch<e>/<path>``)
+    and after each step of the first epoch (``step<j>/<path>``). The draws
+    are derived from the trainer's keys as its epoch function derives them
+    (``sibrar_tpu/train/trainer.py``: the epoch's permutation under
+    ``fold_in(rng, 1000003 + step)``, each step's negatives under the first
+    of ``split(fold_in(rng, step), 3)``)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import jax
+    import jax.numpy as jnp
+    from flax.traverse_util import flatten_dict
+
+    import trained_parity as tp
+    from sibrar_tpu.config.schema import (
+        DatasetConfig,
+        EvalConfig,
+        FeatureDefinition,
+        FeatureType,
+        LearningConfig,
+    )
+    from sibrar_tpu.data.dataset import RecDataset
+    from sibrar_tpu.data.sampling import sample_negatives
+    from sibrar_tpu.eval.evaluator import FullEvaluator
+    from sibrar_tpu.models.ecf import ECF
+    from sibrar_tpu.train.trainer import Trainer
+
+    h = dict(tp.ECF_HPARAMS, **h)
+    feat = [FeatureDefinition("genres", FeatureType.TAG)]
+    tr = RecDataset.load(artifact_dir, "train",
+                         item_feature_definitions=feat)
+    va = RecDataset.load(artifact_dir, "val")
+    learn = LearningConfig(
+        n_epochs=h["epochs"], lr=h["lr"], wd=h["wd"], rec_loss=h["loss"],
+        max_patience=h["epochs"] + 1, optimizing_metric="ndcg@10")
+    ev = FullEvaluator(EvalConfig(top_k=[10], metrics=["ndcg"]), va,
+                       evaluator_name="val")
+    dconf = DatasetConfig(n_negative_samples=h["n_neg"])
+
+    def make_trainer():
+        """A fresh trainer on fresh device data: an epoch donates its
+        state, whose ``tables`` hold the data's interaction arrays."""
+        dd = tr.to_device()
+        model = ECF.build_from_conf(
+            {k: h[k] for k in ("embedding_dim", "n_clusters", "top_n",
+                               "top_m", "top_p")} | {"tag_feature": "genres"},
+            tr, dd)
+        return Trainer(model, tr, ev, learn, dconf,
+                       batch_size=h["batch_size"], seed=seed, device_data=dd)
+
+    trainer = make_trainer()
+    dd = trainer.data
+
+    def flat(prefix, params):
+        return {f"{prefix}/" + "/".join(k): np.asarray(v)
+                for k, v in flatten_dict(params).items()}
+
+    out = flat("init", trainer.state.params)
+    n_inter = int(dd.train_users.shape[0])
+    n_batches, tail = trainer.epoch_batch_plan(n_inter, h["batch_size"], None)
+    sizes = [h["batch_size"]] * n_batches + ([tail] if tail else [])
+    users, items, val, step = [], [], [trainer.validate()["val/ndcg@10"]], 0
+    for e in range(h["epochs"]):
+        rng = trainer.state.rng  # the epoch donates the state: read anew
+        perm = jax.random.permutation(
+            jax.random.fold_in(rng, 1000003 + step), n_inter)
+        off = 0
+        for size in sizes:
+            idxs = perm[off:off + size]
+            off += size
+            k_neg = jax.random.split(jax.random.fold_in(rng, step), 3)[0]
+            u = dd.train_users[idxs]
+            negs = sample_negatives(
+                k_neg, u, dd.pos_csr, dd.popularity,
+                strategy=dconf.negative_sampling_strategy,
+                n_catalog=tr.n_items_in_split, n_neg=h["n_neg"],
+                squashing_factor=dconf.popularity_squashing_factor)
+            i_cat = jnp.concatenate([dd.train_items_cat[idxs][:, None], negs],
+                                    axis=1)
+            users.append(np.asarray(u))
+            items.append(np.asarray(dd.catalog[i_cat]))
+            step += 1
+        trainer.train_epoch()
+        if int(trainer.state.step) != step:
+            raise RuntimeError(f"epoch {e}: the trainer took "
+                               f"{int(trainer.state.step)} steps, not {step}")
+        val.append(trainer.validate()["val/ndcg@10"])
+        out.update(flat(f"epoch{e}", trainer.state.params))
+    # the first epoch again from the same init, one step per call, each
+    # step's parameters kept (``step<j>/<path>``): where the port parts
+    trainer = make_trainer()
+    perm = jax.random.permutation(
+        jax.random.fold_in(trainer.state.rng, 1000003), n_inter)
+    off = 0
+    for j, size in enumerate(sizes):
+        fn = trainer._make_epoch_fn(*((1, 0) if size == h["batch_size"]
+                                      else (0, size)))
+        trainer.state, _ = fn(trainer.state, perm[off:off + size])
+        off += size
+        out.update(flat(f"step{j}", trainer.state.params))
+    out.update(users=np.concatenate(users), items=np.concatenate(items),
+               sizes=np.asarray(sizes * h["epochs"], np.int64),
+               val=np.asarray(val, np.float64))
     return out
 
 
@@ -111,17 +231,39 @@ def main(argv=None) -> int:
     j = sub.add_parser("jax", help="train the JAX side on this CPU")
     j.add_argument("--family", nargs="+", default=["sbnet", "mf"])
     j.add_argument("--seeds", nargs="+", type=int, default=[0, 1, 2, 3, 4])
+    j.add_argument("--scale", default="mid", choices=("mid", "toy"))
     j.add_argument("--out", required=True)
+    r = sub.add_parser("replay-jax", help="record JAX's ECF draws, init "
+                       "and epochs for the port's --replay")
+    r.add_argument("--seeds", nargs="+", type=int, default=[0, 1, 2, 3, 4])
+    r.add_argument("--scale", default="toy", choices=("mid", "toy"))
+    r.add_argument("--out-dir", required=True)
     k = sub.add_parser("join", help="join a port run with the JAX runs")
     k.add_argument("--jax", required=True)
     k.add_argument("--port", required=True)
     k.add_argument("--out")
     args = p.parse_args(argv)
     if args.cmd == "jax":
-        res = run_jax(args.family, args.seeds)
+        res = run_jax(args.family, args.seeds, args.scale)
         with open(args.out, "w") as fh:
             json.dump(res, fh, indent=1)
             fh.write("\n")
+        return 0
+    if args.cmd == "replay-jax":
+        sys.path.insert(0, os.path.join(ROOT, "tools"))
+        import trained_parity as tp
+
+        os.makedirs(args.out_dir, exist_ok=True)
+        h = {} if args.scale == "toy" else tp.MIDSCALE_HPARAMS["ecf"]
+        with tempfile.TemporaryDirectory() as d:
+            (tp.make_midscale_artifacts if args.scale == "mid"
+             else tp.make_artifacts)(d)
+            for s in args.seeds:
+                rec = record_jax_ecf(d, s, h)
+                np.savez_compressed(os.path.join(
+                    args.out_dir, f"ecf_{args.scale}_seed{s}.npz"), **rec)
+                print(f"jax ecf seed {s}: best {rec['val'].max():.6f}",
+                      flush=True)
         return 0
     with open(args.jax) as fh:
         jax_runs = json.load(fh)

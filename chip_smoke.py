@@ -72,12 +72,13 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    fit's weights, validates once per ranking path (dot; scores with K8 and
    the peel; ``pallas`` with K9 and K3 on the tiling; ``full``), checks the
    key set and ranges of every metric dict, and holds sample batches' lists
-   to the plain ``full`` path;
+   to the plain oracle (`plain_oracle`: the exclusion fill and K13's plain
+   version, no kernel), the ``full`` path's bit for bit;
 5. serves from the weights the default training left: catalog encode, then
    request batches at B = 256 and B = 1024 with k = 100. The lists are
    checked against the users' train + val history (scipy, on the host) and
    against the plain path on the same card (``torch.matmul`` + scatter +
-   ``torch.topk``);
+   K13's plain version);
 6. on the same weights, serves batches of 1,024 test users through the
    windowed rankers: ``peel.peel_masked_topk`` (K10, K3 on the planes, K4,
    K3), the same with ``peel.RECOVER_KERNEL`` (K11 instead of the last K3),
@@ -171,13 +172,33 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
 10. ``quality``: seed 0 of ``sbnet``, ``dmf``, ``dropoutnet``, ``ifeatmf``,
    ``ufeatmf`` and ``uprotomf`` of the trained-quality run at mid scale
    (``sibrar_tpu_torch/tools/trained_parity.py``) must each score above
-   0.03 and within 0.015 of JAX's seed 0 (``trained_parity_jax.json``).
+   0.03 and within 0.015 of JAX's seed 0 (``trained_parity_jax.json``);
+11. ``matrix``: iknn at ``conf/single/knn.yml``'s width (k = 100,
+   shrinkage 10, cosine) on the onion-scale splits: the item-item
+   similarity from full-f32 GEMMs of the dense [100,352 x 50,000] train
+   matrix with K13 per block of 4,096 rows (K13 on the recorded blocks and
+   an all-zero row bit-equal to its plain version; sampled rows bit-equal
+   to the host's f32 chain on exact counts and within 4 ulps of float64;
+   K13's time at the block shape beside ``torch.topk``'s), the host's
+   sparse product, one validation of the 50,000 val users through the
+   peel (K1, K8, K3, K4) and a serving batch of 1,024 whose ids and values
+   equal the plain oracle's bit for bit; pop and rand the same way;
+   uknn, ifknn (over ``ivec256``), EASE, SLIM, P3alpha, ALS, SVD and RBMF
+   at ML-1M's shape (6,040 x 3,706, 1,000,209 draws), each fitted,
+   validated and serving one batch (K1, K13); all eleven names through
+   ``run_experiment -t train_val_test`` on the mid-scale artifacts, ``-t
+   gather`` (its metrics equal ``-t test``'s) and ``serve_recs``; the
+   matrix quality run at mid scale against JAX's committed values (the
+   exact fits within 1e-3, als at seed 0 within 0.01, rand by the
+   paired-seed delta). Fit,
+   validation and serving times, peak device memory, host peak RSS and
+   K13 launches are logged beside the card's name and power limit.
 
 Each path (default training, spmm training, the determinism run, fit, the
 four validation paths, serving, the five windowed rankers, the four serving
 modes at each batch size, the probes, the CLI, the reload, ``serve_recs``,
 the bf16 test evaluation, row-sparse MF, the DMF, ProtoMF and ECF CLI
-runs, the gathers, the combine, each zoo family) runs with
+runs, the gathers, the combine, each zoo family, each matrix run) runs with
 every launch count set to 0 just before it and read just after; each of
 its kernels must have launched, and kernels of other paths must not.
 
@@ -1052,17 +1073,37 @@ def check_plane_peel(u, items, gen) -> None:
         f"flags bit-equal to peel_masked_topk_dot")
 
 
+def plain_oracle(scores, csr, users, k: int):
+    """The exact top-k the lists are held to, built with no kernel of the
+    port: the user's CSR row gathered and filled with -1e30 in plain
+    torch, then K13's plain version (a stable sort of the f32 total-order
+    keys), which gives ``lax.top_k``'s order. ``(values, ids)`` on the
+    host."""
+    import torch
+
+    from sibrar_tpu_torch.ops.exact_topk import exact_topk_plain
+    from sibrar_tpu_torch.ops.sparse import (
+        scatter_fill_rows,
+        segment_gather_plain,
+    )
+    from sibrar_tpu_torch.ops.topk import NEG
+
+    u = torch.as_tensor(users, device=scores.device)
+    cols, mask = segment_gather_plain(csr.indptr, csr.indices, u,
+                                      csr.max_row_len)
+    v, i = exact_topk_plain(scatter_fill_rows(scores, cols, mask, fill=NEG),
+                            k)
+    return v.cpu().numpy(), i.cpu().numpy()
+
+
 def check_lists(split, data, score_fn, users, ids, vals) -> int:
     """No returned item from the user's train + val history, lists sorted
     descending, and equal to the plain path (matmul of the dot parts, or
-    the scorer itself where it has none, + scatter + topk) on the card up
-    to ties. Returns the number of rows whose id set differs from
+    the scorer itself where it has none, then `plain_oracle`) on the card
+    up to ties. Returns the number of rows whose id set differs from
     the plain path's (only on near-ties)."""
     import numpy as np
     import torch
-
-    from sibrar_tpu_torch.ops.sparse import segment_gather_plain
-    from sibrar_tpu_torch.ops.topk import topk_excluding
 
     if not np.isfinite(vals).all() or ids.shape != (len(users), K):
         raise AssertionError(f"bad output: shape {ids.shape}, finite "
@@ -1071,11 +1112,7 @@ def check_lists(split, data, score_fn, users, ids, vals) -> int:
     if (np.diff(vals, axis=1) > 0).any():
         raise AssertionError("lists are not sorted descending")
 
-    dev = data.catalog.device
-    u_t = torch.as_tensor(users, device=dev)
-    csr = data.exclude_csr
-    cols, mask = segment_gather_plain(csr.indptr, csr.indices, u_t,
-                                      csr.max_row_len)
+    u_t = torch.as_tensor(users, device=data.catalog.device)
     if score_fn.dot_parts is None:  # the scores path ranks score_fn's own
         scores = score_fn(u_t)
         bound = (F32_EPS * scores.abs().amax(dim=1)).cpu().numpy()
@@ -1086,8 +1123,7 @@ def check_lists(split, data, score_fn, users, ids, vals) -> int:
         # per-row f32 GEMM error bound: 2 * D * eps * max_c |u| . |x_c|
         bound = (2 * u_repr.shape[1] * F32_EPS
                  * (u_repr.abs() @ items.abs().T).amax(dim=1)).cpu().numpy()
-    pv, pi = topk_excluding(scores, cols, mask, K)
-    pv, pi = pv.cpu().numpy(), pi.cpu().numpy()
+    pv, pi = plain_oracle(scores, data.exclude_csr, users, K)
     if (np.abs(vals - pv) > bound[:, None]).any():
         raise AssertionError("values differ from the plain path beyond the "
                              "f32 GEMM bound")
@@ -1106,20 +1142,14 @@ def check_lists(split, data, score_fn, users, ids, vals) -> int:
 def same_as_oracle(label: str, split, users, ids, vals, scores, csr,
                    catalog_items) -> None:
     """Served lists against the exact top-k of the masked ``scores`` the
-    mode ranks ([B, C], catalog positions): sorted, no seen item, values
-    bit-equal, ids equal up to exact ties."""
+    mode ranks ([B, C], catalog positions; `plain_oracle`): sorted, no
+    seen item, values bit-equal, ids equal up to exact ties."""
     import numpy as np
-    import torch
-
-    from sibrar_tpu_torch.ops.sparse import csr_row_gather
-    from sibrar_tpu_torch.ops.topk import topk_excluding
 
     if (np.diff(vals, axis=1) > 0).any():
         raise AssertionError(f"{label}: lists are not sorted descending")
     check_excluded(split, users, ids)
-    cols, mask = csr_row_gather(csr, torch.as_tensor(users,
-                                                     device=scores.device))
-    ov, oi = (t.cpu().numpy() for t in topk_excluding(scores, cols, mask, K))
+    ov, oi = plain_oracle(scores, csr, users, K)
     if not np.array_equal(vals, ov):
         raise AssertionError(f"{label}: values are not the exact top-k of "
                              f"its own masked scores")
@@ -1172,11 +1202,12 @@ def serving_modes(f32_recs, score_fn, split, data, kernels, count_path,
     csr = data.exclude_csr
     catalog_items = np.asarray(split.items_in_split)
     peel_k = ["segment_gather", "gather_windows", "peel_values", "spmm_fwd"]
+    # K13 may launch on the peel's paths: it selects the rows they redo
     modes = (
         ("bf16", dict(dtype="bfloat16"), peel_k + ["score_bf16"],
-         ("score_wmax", "window_max", "exact_topk")),
+         ("score_wmax", "window_max")),
         ("int8", dict(dtype="int8"), peel_k + ["window_max"],
-         ("score_wmax", "score_bf16", "exact_topk")),
+         ("score_wmax", "score_bf16")),
         ("approx", dict(selection="approx"),
          ["segment_gather", "score_wmax", "exact_topk", "spmm_fwd"],
          ("score_bf16", "window_max", "gather_windows", "peel_values")),
@@ -1377,8 +1408,9 @@ def windowed_rankers(rec, score_fn, split, data, kernels, count_path,
 
     peel_k = ["segment_gather", "score_windows", "gather_windows_rows",
               "peel_values"]
-    others = ("score_wmax", "fused_score_wmax", "exact_topk",
-              "window_scores_from", "window_max")
+    # K13 may launch on the plane peel: it selects the rows the peel redoes
+    others = ("score_wmax", "fused_score_wmax", "window_scores_from",
+              "window_max")
     paths = (
         ("peel_masked_topk", peel_planes, peel_k + ["gather_windows"],
          others + ("recover_winners", "gather_windows_tiled")),
@@ -1387,7 +1419,8 @@ def windowed_rankers(rec, score_fn, split, data, kernels, count_path,
          others + ("gather_windows", "gather_windows_tiled")),
         ("pallas_masked_topk", tiled,
          ["segment_gather", "score_windows", "gather_windows_tiled"],
-         others + ("gather_windows_rows", "peel_values", "recover_winners")),
+         others + ("gather_windows_rows", "peel_values", "recover_winners",
+                   "exact_topk")),
         ("fused_masked_topk", fused, ["segment_gather", "fused_score_wmax"],
          ("score_wmax", "score_windows", "exact_topk", "peel_values")),
         ("exact_topk after the exclusion fill", exact_fill,
@@ -1583,8 +1616,8 @@ def eval_paths(fitter, val, vdata, kernels, count_path) -> dict:
     """One validation of the val split per ranking path on fit's weights:
     the dot path, the scores path (the scorer without ``dot_parts``,
     ``auto``: K8 + the peel), ``pallas`` (K9 + K3 on the tiling) and
-    ``full`` (scatter + ``torch.topk``, the plain yardstick). Returns
-    path -> (metrics, seconds)."""
+    ``full`` (scatter + K13, the yardstick). Returns path -> (metrics,
+    seconds)."""
     import torch
 
     from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
@@ -1602,7 +1635,7 @@ def eval_paths(fitter, val, vdata, kernels, count_path) -> dict:
               ("score_wmax",) + tiled),
              ("pallas", "pallas", scores_fn, ["segment_gather", *tiled],
               ("window_max", "peel_values", "score_wmax")),
-             ("full", "full", scores_fn, ["segment_gather"],
+             ("full", "full", scores_fn, ["segment_gather", "exact_topk"],
               ("window_max", "peel_values", "score_wmax", "gather_windows")
               + tiled))
     out = {}
@@ -1639,11 +1672,12 @@ def eval_paths(fitter, val, vdata, kernels, count_path) -> dict:
 
 
 def check_path_lists(score_fn, val, vdata) -> None:
-    """On sample batches of the val split: the scores path's and the pallas
-    path's lists equal the full path's on the same score matrix (values
-    bit-equal, ids up to exact ties); the dot path's lists equal the plain
-    path's within the f32 GEMM bound (`check_lists`)."""
-    import torch
+    """On sample batches of the val split, each against `plain_oracle` on
+    the same score matrix: the full path's lists bit for bit, the scores
+    path's and the pallas path's with values bit-equal and ids up to exact
+    ties; the dot path's lists within the f32 GEMM bound
+    (`check_lists`)."""
+    import numpy as np
 
     from sibrar_tpu_torch.ops.peel import peel_masked_topk_dot
     from sibrar_tpu_torch.ops.sparse import csr_row_gather
@@ -1655,27 +1689,34 @@ def check_path_lists(score_fn, val, vdata) -> None:
     for bi in LIST_BATCHES:
         u = users_all[bi * bs:(bi + 1) * bs]
         scores = score_fn(u)
-        fv, fi = masked_topk(scores, csr, u, K, method="full")
-        for path, method in (("scores", "auto"), ("pallas", "pallas")):
-            v, i = masked_topk(scores, csr, u, K, method=method)
-            if not torch.equal(v, fv):
+        ov, oi = plain_oracle(scores, csr, u, K)
+        for path, method in (("full", "full"), ("scores", "auto"),
+                             ("pallas", "pallas")):
+            v, i = (t.cpu().numpy()
+                    for t in masked_topk(scores, csr, u, K, method=method))
+            if not np.array_equal(v, ov):
                 raise AssertionError(f"{path} path values differ from the "
-                                     f"full path's (batch {bi})")
-            rows = (i.sort(1).values != fi.sort(1).values).any(1)
-            for r in rows.nonzero().squeeze(1).tolist():
-                extra = sorted(set(i[r].tolist()) ^ set(fi[r].tolist()))
-                if not bool((scores[r, extra] == fv[r, -1]).all()):
+                                     f"plain oracle's (batch {bi})")
+            if path == "full" and not np.array_equal(i, oi):
+                raise AssertionError(f"full path ids differ from the plain "
+                                     f"oracle's (batch {bi})")
+            rows = np.nonzero((np.sort(i, 1) != np.sort(oi, 1)).any(1))[0]
+            for r in rows.tolist():
+                extra = sorted(set(i[r].tolist()) ^ set(oi[r].tolist()))
+                if not bool((scores[r, extra] == float(ov[r, -1])).all()):
                     raise AssertionError(f"{path} path: row {r} of batch "
                                          f"{bi} differs beyond exact ties")
-            differ[path] += int(rows.sum())
+            if path != "full":
+                differ[path] += len(rows)
         user_fn, items = score_fn.dot_parts
         cols, mask = csr_row_gather(csr, u)
         v, i, _ = peel_masked_topk_dot(user_fn(u), items, cols, mask, K)
         differ["dot"] += check_lists(val, vdata, score_fn, u.cpu().numpy(),
                                      i.cpu().numpy(), v.cpu().numpy())
-    log(f"lists of {len(LIST_BATCHES)} val batches: scores and pallas paths "
-        f"equal the full path (values bit-equal), dot path within the f32 "
-        f"GEMM bound; rows differing on ties only: {differ}")
+    log(f"lists of {len(LIST_BATCHES)} val batches against the plain "
+        f"oracle: full path bit for bit, scores and pallas paths values "
+        f"bit-equal, dot path within the f32 GEMM bound; rows differing on "
+        f"ties only: {differ}")
 
 
 def first_layer_rows(data, model, gen, n_catalog: int):
@@ -3215,22 +3256,28 @@ def check_dw_case(label: str, vec, g, timed: bool = False) -> bool:
 
 
 @contextlib.contextmanager
-def recorded_topk(calls: list):
-    """While open, keeps the rows and k of every `exact_topk` call of
-    ``models/ecf.py`` (its hard masks, the tag loss's top-p)."""
-    from sibrar_tpu_torch.models import ecf
+def recorded_topk(calls: list, module=None):
+    """While open, keeps the rows and k of the first `exact_topk` call of
+    each shape and k made by ``module`` (default ``models/ecf.py``: its
+    hard masks, the tag loss's top-p; ``models/matrix_algs.py``: the
+    similarity blocks)."""
+    if module is None:
+        from sibrar_tpu_torch.models import ecf as module
 
-    real = ecf.exact_topk
+    real = module.exact_topk
+    seen = set()
 
     def exact_topk(x, k):
-        calls.append((x.clone(), k))
+        if (tuple(x.shape), k) not in seen:
+            seen.add((tuple(x.shape), k))
+            calls.append((x.clone(), k))
         return real(x, k)
 
-    ecf.exact_topk = exact_topk
+    module.exact_topk = exact_topk
     try:
         yield calls
     finally:
-        ecf.exact_topk = real
+        module.exact_topk = real
 
 
 def check_topk_calls(label: str, calls: list) -> None:
@@ -3692,6 +3739,430 @@ def zoo_cli_phase(data_dir: str, root: str, kernels, count_path,
         f"{cmp.significant}")
 
 
+KNN_CONF_PATH = os.path.join(os.path.dirname(CONF_PATH), "knn.yml")
+# the validation / serving path of a matrix scorer (no dot parts, so no K2):
+# the exclusion rows (K1), then the peel over the scores (K8, K3, K4) at
+# C = 100,352; at C <= 4,096 `masked_topk` takes ``full`` (K1, K13)
+MATRIX_PEEL_KERNELS = ["segment_gather", "window_max", "gather_windows",
+                       "peel_values"]
+MATRIX_FULL_KERNELS = ["segment_gather", "exact_topk"]
+MATRIX_ABSENT = ("score_wmax", "score_bf16")
+MATRIX_SAMPLE_ROWS = 8  # similarity rows held to the host recomputation
+MATRIX_ULPS = 4  # f32 roundings of the shrunk cosine: both norms, their
+#                  product, the ratio, co + s, co / (co + s), the product
+ML1M_SHAPE = dict(n_users=6040, n_items=3706, n_interactions=1000209)
+# the ML-1M-shape runs, at the quality run's hyperparameters
+# (trained_parity.MATRIX_HPARAMS: knn.yml's KNN, EASE at Steck (2019)'s
+# lambda, SLIM's and P3alpha's defaults, the `implicit` library's ALS
+# defaults, 100 factors / representatives); ifknn over ivec256
+ML1M_NAMES = ("uknn", "ifknn", "ease", "slim", "p3alpha", "als", "svd",
+              "rbmf")
+MATRIX_NAMES = ("uknn", "iknn", "ifknn", "svd", "als", "rbmf", "slim",
+                "ease", "p3alpha", "rand", "pop")
+
+
+def get_knn_conf() -> dict:
+    """conf/single/knn.yml's model block (k = 100, shrinkage 10, cosine),
+    read through the port's loader; the quality run's KNN settings must
+    be the same."""
+    from sibrar_tpu_torch.config.loader import get_config
+    from sibrar_tpu_torch.tools import trained_parity
+
+    conf = get_config(KNN_CONF_PATH).model
+    if conf != trained_parity.MATRIX_HPARAMS["iknn"]:
+        raise AssertionError(f"knn.yml's model block {conf} is not the "
+                             f"quality run's KNN")
+    return conf
+
+
+def host_peak_gib() -> float:
+    """The process's peak resident set so far (GiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def same_ids_as_plain(label: str, split, users, ids, vals, scores,
+                     csr) -> None:
+    """Served lists against `plain_oracle` (the exclusion fill and K13's
+    plain version, in ``lax.top_k``'s order) on the scores the scorer
+    gives: values and ids bit for bit, no seen item."""
+    import numpy as np
+
+    check_excluded(split, users, ids)
+    ov, oi = plain_oracle(scores, csr, users, ids.shape[1])
+    pos = np.searchsorted(np.asarray(split.items_in_split), ids)
+    if not (np.array_equal(vals, ov) and np.array_equal(pos, oi)):
+        rows = np.nonzero((pos != oi).any(1) | (vals != ov).any(1))[0]
+        raise AssertionError(f"{label}: {len(rows)} rows differ from the "
+                             f"plain oracle's lists (first {rows[:5]})")
+
+
+def check_similarity_rows(label: str, sim, matrix, shrinkage: float,
+                          k: int, rng) -> None:
+    """Sampled rows of a cosine similarity CSR (rows of ``matrix``, 0/1)
+    against the host: co-occurrence counts from an exact sparse product,
+    the port's f32 chain on them (norms, ratio, shrink) and the top-k in
+    ``lax.top_k``'s order give the row's ids and values bit for bit; each
+    value within MATRIX_ULPS f32 ulps of the float64 formula."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    m = sp.csr_matrix(matrix, dtype=np.float64)
+    n = m.shape[0]
+    rows = np.concatenate([rng.choice(n, MATRIX_SAMPLE_ROWS - 1,
+                                      replace=False),
+                           [int(np.diff(m.indptr).argmax())]])
+    ss = np.asarray(m.multiply(m).sum(axis=1)).ravel()
+    norm32 = np.sqrt(ss.astype(np.float32))
+    worst = 0.0
+    for r in rows:
+        co = (m[r] @ m.T).toarray().ravel()
+        co32 = co.astype(np.float32)
+        denom = norm32[r] * norm32
+        with np.errstate(divide="ignore", invalid="ignore"):
+            s32 = np.where(denom > 0, co32 / denom, np.float32(0.0))
+            s32 = s32 * (co32 / (co32 + np.float32(shrinkage)))
+            s64 = np.where(ss[r] * ss > 0, co / np.sqrt(ss[r] * ss), 0.0)
+            s64 = s64 * (co / (co + shrinkage))
+        s32 = s32.astype(np.float32)
+        s32[r] = 0.0
+        order = np.argsort(-s32, kind="stable")[:k]
+        order = order[s32[order] != 0]
+        got = slice(sim.indptr[r], sim.indptr[r + 1])
+        if not (np.array_equal(sim.indices[got], order)
+                and np.array_equal(sim.data[got], s32[order])):
+            raise AssertionError(f"{label}: similarity row {r} differs "
+                                 f"from the host's f32 chain")
+        ulp = np.spacing(np.abs(s32[order]).astype(np.float32))
+        worst = max(worst, float((np.abs(s32[order] - s64[order])
+                                  / ulp).max(initial=0.0)))
+    if worst > MATRIX_ULPS:
+        raise AssertionError(f"{label}: {worst:.2f} ulps from float64")
+    log(f"{label}: {len(rows)} similarity rows (the longest included) "
+        f"bit-equal to the host's f32 chain on exact counts, ids in "
+        f"lax.top_k's order; at most {worst:.2f} f32 ulps from the float64 "
+        f"formula (bound {MATRIX_ULPS})")
+
+
+def matrix_serve(label: str, score_fn, split, data, kernels, count_path,
+                 users, needed: list) -> tuple[float, float]:
+    """One warm-up batch of 1,024 users, then one timed batch, through the
+    ``Recommender`` (k = K), gated by ``needed``; the timed batch's lists
+    against `plain_oracle` bit for bit. Returns its ms and the peak device
+    GiB so far, read before the oracle's sort."""
+    import torch
+
+    from sibrar_tpu_torch.serve import Recommender
+
+    rec = Recommender(score_fn, split, data, k=K, batch_size=1024)
+    rec.recommend(users[:1024])
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, vals = rec.recommend(users[1024:2048], return_scores=True)
+    ms = (time.perf_counter() - t0) * 1e3
+    count_path(f"{label} serving", needed, MATRIX_ABSENT)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    u = torch.as_tensor(users[1024:2048], device=data.catalog.device)
+    same_ids_as_plain(f"{label} serving", split, users[1024:2048], ids,
+                      vals, score_fn(u), data.exclude_csr)
+    return ms, peak
+
+
+def matrix_run(name: str, conf: dict, train, val, test, vdata, data,
+               kernels, count_path, card: str, users, needed: list,
+               fit_kwargs=None) -> dict:
+    """One matrix algorithm through the registry: fit (K13 launches
+    counted), one validation of the val split's users (gated by
+    ``needed``, JAX's keys, finite), one serving batch of 1,024; times,
+    peak device and host memory logged."""
+    import numpy as np
+    import torch
+
+    from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
+    from sibrar_tpu_torch.models.registry import get_algorithm
+
+    alg = get_algorithm(name).build(conf, train, DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    alg.fit(matrix=train.user_sampling_matrix, **(fit_kwargs or {}))
+    score_fn = alg.score_fn(val.items_in_split)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k13 = read_counts(kernels)["exact_topk"]
+    if hasattr(alg, "pred_mtx"):
+        alg.pred_mtx = None  # the card holds the scores now
+    ev_conf = eval_conf()
+    ev = FullEvaluator(ev_conf, val, vdata, evaluator_name="val")
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    metrics = evaluate_model(score_fn, ev, LOADER_CONF["eval_batch_size"])
+    val_s = time.perf_counter() - t0
+    count_path(f"{name} validation", needed, MATRIX_ABSENT)
+    check_metrics(f"{name} validation", metrics, ev_conf)
+    serve_ms, peak = matrix_serve(name, score_fn, test, data, kernels,
+                                  count_path, users, needed)
+    log(f"matrix {name} ({train.n_users} users x {train.n_items} items, "
+        f"{train.user_sampling_matrix.nnz} train pairs): fit {fit_s:.2f} s "
+        f"(K13 launches {k13}), validation of {len(val.users_in_split)} "
+        f"users {val_s:.2f} s, serving {serve_ms:.2f} ms per 1,024 users, "
+        f"max_memory_allocated {peak:.3f} GiB, host peak RSS "
+        f"{host_peak_gib():.2f} GiB; val ndcg@10 "
+        f"{metrics['val/ndcg@10']:.6f}, recall@10 "
+        f"{metrics['val/recall@10']:.6f} on {card}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{name}: non-finite metrics")
+    return {"fit_s": fit_s, "val_s": val_s, "serve_ms": serve_ms,
+            "peak_gib": peak, "k13": k13}
+
+
+def iknn_onion(splits, vdata, data, kernels, count_path, card: str,
+               users) -> None:
+    """iknn at conf/single/knn.yml's width on the onion-scale splits: the
+    similarity over the 100,352 items' rows of the 50,000-user train
+    matrix (full-f32 GEMMs, K13 per block of 4,096), K13's recorded calls
+    against its plain version, sampled rows against the host, K13's time
+    at the block shape beside ``torch.topk``'s, then the validation and a
+    serving batch (`matrix_run`)."""
+    import numpy as np
+    import torch
+
+    from sibrar_tpu_torch.models import matrix_algs
+    from sibrar_tpu_torch.ops.exact_topk import exact_topk
+
+    conf = get_knn_conf()
+    train, val, test = splits["train"], splits["val"], splits["test"]
+    real = matrix_algs.compute_similarity_top_k
+    sims = {}
+
+    def timed_similarity(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sims["csr"] = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        sims["s"] = time.perf_counter() - t0
+        sims["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        return sims["csr"]
+
+    calls = []
+    matrix_algs.compute_similarity_top_k = timed_similarity
+    try:
+        with recorded_topk(calls, matrix_algs):
+            res = matrix_run("iknn", conf, train, val, test, vdata, data,
+                             kernels, count_path, card, users,
+                             MATRIX_PEEL_KERNELS)
+    finally:
+        matrix_algs.compute_similarity_top_k = real
+    n, m = train.n_items, train.n_users
+    log(f"iknn similarity: {sims['s']:.2f} s of the fit's {res['fit_s']:.2f}"
+        f" s ({2 * n * n * m:.3e} FLOP of f32 GEMM, "
+        f"{2 * n * n * m / sims['s'] / 1e12:.1f} TFLOP/s over the whole "
+        f"similarity; peak {sims['peak']:.3f} GiB with the dense "
+        f"[{n} x {m}] f32 matrix, {4 * n * m / 2**30:.2f} GiB) on {card}")
+    check_topk_calls("iknn similarity", calls)
+    x, k = calls[0]
+    ms = cuda_ms(lambda: exact_topk(x, k), 5)
+    lib = cuda_ms(lambda: torch.topk(x, k, dim=1), 5)
+    b = bound(4 * x.numel() + 12 * x.shape[0] * k)
+    passing = topk_passing(x, k)
+    log(f"K13 at the similarity block [{x.shape[0]} x {x.shape[1]}], k = "
+        f"{k}: {ms:.4f} ms, torch.topk {lib:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}) on {card}; "
+        f"{int((passing > 2048).sum())} rows take its exact path (more "
+        f"than 2,048 elements pass the threshold; median "
+        f"{int(passing.median())})")
+    del calls, x
+    check_similarity_rows("iknn similarity", sims["csr"],
+                          train.user_sampling_matrix.T, 10.0, 100,
+                          np.random.default_rng(SEED))
+    torch.cuda.empty_cache()
+
+
+def matrix_phase(splits, device_data: dict, kernels, count_path,
+                 card: str) -> None:
+    """The matrix algorithms on the card: iknn (`iknn_onion`), pop and
+    rand at onion scale (validation of the 50,000 val users through the
+    peel, a serving batch of 1,024 held to the plain oracle bit for
+    bit); then uknn, ifknn (over ivec256, whose cosines go negative),
+    ease, slim, p3alpha, als, svd and rbmf at ML-1M's shape, each fitted,
+    validated and serving one batch; then the CLI for all eleven names
+    (`matrix_cli_phase`) and their quality against JAX's values."""
+    import numpy as np
+    import torch
+
+    from sibrar_tpu_torch.data.dataset import make_splits
+    from sibrar_tpu_torch.data.synthetic import make_onion_scale_splits
+    from sibrar_tpu_torch.tools import trained_parity
+
+    users = np.random.default_rng(SEED + 5).permutation(
+        splits["test"].n_users)
+    vdata, data = device_data["val"], device_data["test"]
+    iknn_onion(splits, vdata, data, kernels, count_path, card, users)
+    for name in ("pop", "rand"):
+        matrix_run(name, {}, splits["train"], splits["val"], splits["test"],
+                   vdata, data, kernels, count_path, card, users,
+                   MATRIX_PEEL_KERNELS)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ml = make_splits(make_onion_scale_splits(**ML1M_SHAPE))
+    ml_val, ml_test = ml["val"].to_device(DEVICE), ml["test"].to_device(DEVICE)
+    log(f"ML-1M-shape splits: {time.perf_counter() - t0:.2f} s; "
+        f"{ml['train'].n_users} users x {ml['train'].n_items} items, train "
+        f"{len(ml['train'].interactions)}, val {len(ml['val'].interactions)}"
+        f", test {len(ml['test'].interactions)}")
+    ml_users = np.random.default_rng(SEED + 6).permutation(
+        ml["test"].n_users)
+    for name in ML1M_NAMES:
+        conf, kwargs = dict(trained_parity.MATRIX_HPARAMS[name]), {}
+        if name == "ifknn":
+            conf["feature_name"] = "ivec256"
+            kwargs["feature_matrix"] = ml["train"].item_features[
+                "ivec256"].dense_table()
+        matrix_run(name, conf, ml["train"], ml["val"], ml["test"], ml_val,
+                   ml_test, kernels, count_path, card, ml_users,
+                   MATRIX_FULL_KERNELS, kwargs)
+    del ml, ml_val, ml_test
+    torch.cuda.empty_cache()
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        matrix_cli_phase(root, kernels, count_path, card)
+    matrix_quality(card)
+
+
+def matrix_cli_phase(root: str, kernels, count_path, card: str) -> None:
+    """``python -m sibrar_tpu_torch.run_experiment -a <name> -t
+    train_val_test`` in this process for each of the eleven matrix names
+    on the mid-scale artifacts of ``tools/trained_parity.py`` (1,000 users
+    x 1,500 items x 50k interactions), at the quality run's
+    hyperparameters (``trained_parity.MATRIX_HPARAMS``; the YAML written
+    to ``root``): run files, JAX's keys, each run gated by its kernels;
+    then ``-t gather`` of the iknn run (`check_gather`), whose metrics
+    must equal ``-t test``'s, and ``serve_recs`` from the pop run
+    directory, equal to ``Recommender.from_run_dir``'s lists."""
+    import numpy as np
+
+    from sibrar_tpu_torch.config.loader import load_split_type, yaml_save
+    from sibrar_tpu_torch.data.dataset import RecDataset
+    from sibrar_tpu_torch.serve import Recommender
+    from sibrar_tpu_torch.serve_recs import main as serve_recs
+    from sibrar_tpu_torch.tools import trained_parity
+
+    data_dir = trained_parity.make_midscale_artifacts(
+        os.path.join(root, "matrix_mid"))
+    runs = {}
+    for name in MATRIX_NAMES:
+        run_dir = runs[name] = os.path.join(root, f"{name}_matrix_run")
+        conf = {"model": trained_parity.MATRIX_HPARAMS[name],
+                "eval": {**EVAL_CONF, "group_metrics": []},
+                "loader": {"eval_batch_size": 256},
+                "run_settings": {"device": "cuda", "seed": SEED},
+                "results_path": run_dir}
+        if name == "ifknn":
+            conf["dataset"] = {"item_features": [
+                {"name": conf["model"]["feature_name"], "type": "vector"}]}
+        path = os.path.join(root, f"{name}_matrix.yml")
+        yaml_save(path, conf)
+        (val, test), _ = zoo_cli(
+            ["-a", name, "-c", path, "-d", data_dir, "-t", "train_val_test"],
+            f"{name} CLI train_val_test on {card}", kernels)
+        count_path(f"{name} CLI train_val_test", MATRIX_FULL_KERNELS,
+                   MATRIX_ABSENT)
+        ev = eval_conf()
+        check_metrics(f"{name} CLI validation", val, ev)
+        if set(test) != expected_keys(ev, "test"):
+            raise AssertionError(f"{name} CLI: test keys {sorted(test)}")
+        if sorted(os.listdir(run_dir)) != ["conf.yml", "metrics_test.yml",
+                                           "metrics_val.yml", "model.npz"]:
+            raise AssertionError(f"{name} CLI: files "
+                                 f"{sorted(os.listdir(run_dir))}")
+        log(f"{name} CLI: val ndcg@10 {val['val/ndcg@10']:.6f}, test "
+            f"ndcg@10 {test['test/ndcg@10']:.6f}")
+    iknn = ["-a", "iknn", "-c", os.path.join(root, "iknn_matrix.yml"),
+            "-d", data_dir]
+    payload, _ = zoo_cli(iknn + ["-t", "gather", "--split_set", "test"],
+                         f"iknn CLI gather (test split) on {card}", kernels)
+    count_path("iknn CLI gather", MATRIX_FULL_KERNELS, MATRIX_ABSENT)
+    test = RecDataset.load(data_dir, "test",
+                           split_type=load_split_type(data_dir))
+    check_gather("iknn gather", payload, runs["iknn"], test)
+    tested, _ = zoo_cli(iknn + ["-t", "test"], f"iknn CLI test on {card}",
+                        kernels)
+    if payload["metrics"] != tested:
+        raise AssertionError("iknn gather: metrics differ from run_test's")
+    users = np.arange(0, test.n_users, 7)
+    out = os.path.join(root, "pop_recs.jsonl")
+    reset_counts(kernels)
+    serve_recs(["-r", runs["pop"], "-s", "test", "-k", "10", "--scores",
+                "-u", ",".join(map(str, users)), "-o", out])
+    count_path("pop serve_recs", MATRIX_FULL_KERNELS, MATRIX_ABSENT)
+    with open(out) as fh:
+        lines = [json.loads(line) for line in fh]
+    want = Recommender.from_run_dir(runs["pop"], "test", k=10).recommend(
+        users)
+    if not np.array_equal([ln["items"] for ln in lines], want):
+        raise AssertionError("pop serve_recs: lists differ from "
+                             "Recommender.from_run_dir's")
+    log(f"matrix CLI: iknn gather of {len(payload['user_indices'])} users "
+        f"x k {payload['k']}, metrics equal to run_test's; pop serve_recs "
+        f"of {len(users)} users equal to from_run_dir's lists")
+
+
+def matrix_quality(card: str) -> None:
+    """The matrix algorithms' quality run at mid scale on the card
+    (`trained_parity.run`): the exact fits' val ndcg@10 and recall@10
+    within MATRIX_TOLERANCE of JAX's seed 0 (``trained_parity_jax.json``);
+    als at seed 0 within 0.01 of JAX's and above the 0.03 floor (each
+    side starts from one fixed draw whatever the seed, JAX's PRNGKey(0)
+    and the port's generator seeded 0, so its seeds cannot differ; the
+    two draws differ, so the fits land apart by more than the exact
+    fits'); rand over seeds 0-4 against JAX's by the paired-seed delta
+    (|delta_mean| <= max(0.01, delta_sem); random ranking sits under the
+    floor on both sides)."""
+    import numpy as np
+
+    from sibrar_tpu_torch.tools import trained_parity as tp
+
+    t0 = time.perf_counter()
+    with open(tp.JAX_RUNS) as fh:
+        jax_runs = json.load(fh)["families"]
+    got = tp.run(tp.EXACT_MATRIX + ("als",), [0], "mid", DEVICE,
+                 log=log)["families"]
+    for name in tp.EXACT_MATRIX + ("als",):
+        diffs = [abs(got[name][key]["0"] - jax_runs[name][key]["0"])
+                 for key in ("runs", "recall")]
+        tol = 0.01 if name == "als" else tp.MATRIX_TOLERANCE
+        if max(diffs) > tol or (name == "als" and min(
+                got[name]["runs"]["0"],
+                jax_runs[name]["runs"]["0"]) <= QUALITY_FLOOR):
+            raise AssertionError(f"quality: {name} ndcg@10 / recall@10 "
+                                 f"{diffs} from JAX's")
+        log(f"quality: {name} at mid scale, val ndcg@10 "
+            f"{got[name]['runs']['0']:.6f} (JAX "
+            f"{jax_runs[name]['runs']['0']:.6f}), recall@10 "
+            f"{got[name]['recall']['0']:.6f} (JAX "
+            f"{jax_runs[name]['recall']['0']:.6f}) on {card}")
+    seeds = [0, 1, 2, 3, 4]
+    got = tp.run(("rand",), seeds, "mid", DEVICE, log=log)["families"]
+    d = np.asarray([got["rand"]["runs"][str(s)]
+                    - jax_runs["rand"]["runs"][str(s)] for s in seeds])
+    mean, sem = float(d.mean()), float(d.std(ddof=1) / np.sqrt(len(d)))
+    if abs(mean) > max(0.01, sem):
+        raise AssertionError(f"quality: rand delta {mean:+.6f} "
+                             f"(sem {sem:.6f})")
+    log(f"quality: rand seeds 0-4, port mean "
+        f"{np.mean([got['rand']['runs'][str(s)] for s in seeds]):.6f}, JAX "
+        f"{np.mean([jax_runs['rand']['runs'][str(s)] for s in seeds]):.6f}, "
+        f"delta {mean:+.6f} (sem {sem:.6f}) on {card}")
+    log(f"matrix quality: {time.perf_counter() - t0:.1f} s")
+
+
 def quality_phase(card: str) -> None:
     """Seed 0 of each of QUALITY_FAMILIES of the trained-quality run at mid
     scale on the card (`tools.trained_parity`): each best validation
@@ -3982,7 +4453,7 @@ def main() -> int:
     count_path("serving path", ["segment_gather", "score_wmax",
                                 "gather_windows", "peel_values"],
                ("score_windows", "gather_windows_rows", "recover_winners",
-                "fused_score_wmax", "exact_topk"))
+                "fused_score_wmax"))  # K13 selects any row the peel redoes
     for bs, rec in recs.items():
         users = users_all[start:start + PROFILE_BATCHES * bs]
         start += len(users)
@@ -4019,6 +4490,13 @@ def main() -> int:
 
     # ------------------ trained quality against JAX's committed seed 0
     quality_phase(card)
+
+    # --- the matrix algorithms: iknn, pop, rand at onion scale, eight more
+    # at ML-1M's shape, all eleven through the CLI, their quality
+    t0 = time.perf_counter()
+    matrix_phase(splits, {"val": vdata, "test": data}, kernels, count_path,
+                 card)
+    log(f"matrix: {time.perf_counter() - t0:.1f} s")
 
     rows_json = [dict(name=name, route="cuda", source=src, replaces=rep,
                       launches=launches[name], **measured[name])

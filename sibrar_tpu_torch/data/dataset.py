@@ -97,6 +97,25 @@ class RecDataset:
             self.items_in_split = np.arange(self.n_items, dtype=np.int64)
         self.n_items_in_split = len(self.items_in_split)
         self.interaction_matrix_train = self._matrix(self.train_interactions)
+        self._sampling: Optional[sp.csr_matrix] = None
+        self._pop: Optional[np.ndarray] = None
+
+    @property
+    def user_sampling_matrix(self) -> sp.csr_matrix:
+        """The split's own interactions as an int8 CSR [n_users, n_items]
+        (JAX ``interaction_matrix``): what the matrix algorithms fit on."""
+        if self._sampling is None:
+            self._sampling = self._matrix(self.interactions)
+        return self._sampling
+
+    @property
+    def pop_distribution(self) -> np.ndarray:
+        """Each item's count in the split over the total, float64 (JAX
+        ``pop_distribution``)."""
+        if self._pop is None:
+            counts = np.asarray(self.user_sampling_matrix.sum(axis=0)).ravel()
+            self._pop = counts / max(counts.sum(), 1)
+        return self._pop
 
     def _matrix(self, inter: np.ndarray) -> sp.csr_matrix:
         return sp.csr_matrix(

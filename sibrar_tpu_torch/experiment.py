@@ -1,7 +1,7 @@
 """Experiment orchestration: config -> data -> model -> fit -> evaluation ->
 run files (port of ``sibrar_tpu/experiment.py``: ``run_train_val``,
 ``run_test``, ``run_train_val_test``, ``run_gather`` and
-``run_combine_experiment`` for the ``sgd`` family).
+``run_combine_experiment``, for the ``sgd`` and ``matrix`` families).
 
 A run reads its splits from ``conf.dataset.dataset_path`` (the split type
 from the directory's ``used_config.yaml``) and writes into
@@ -19,13 +19,18 @@ every validation's metrics. ``run_gather`` writes ``gather_{split}.pkl``
 (``serve.Recommender.from_run_dir``, ``python -m
 sibrar_tpu_torch.serve_recs``).
 
+A matrix algorithm (``models/matrix_algs.py``) fits once over the train
+CSR (`_fit_matrix_algorithm`), writes JAX's ``model.npz`` and is
+validated, tested, gathered and served through its ``score_fn`` on the
+scores path, as in JAX.
+
 ``run_settings.device``: ``cuda`` and ``tpu`` run on the card and raise
 when there is none, ``cpu`` runs on the CPU. ``run_settings.debug_nans``
 makes the trainer raise ``FloatingPointError`` at the first train step
 with a NaN in its loss, gradients or updated parameters (JAX's
 ``jax_debug_nans`` traps the operation that made it; see
-``train/trainer.py``). Not ported (each raises, naming its ``ROADMAP.md``
-queue 1 item): several devices (item 8), the matrix family (item 7).
+``train/trainer.py``). Not ported: several devices (raises, naming its
+``ROADMAP.md`` queue 1 item, 8).
 """
 from __future__ import annotations
 
@@ -83,14 +88,43 @@ def resolve_device(conf: ExperimentConfig) -> torch.device:
     return torch.device("cuda")
 
 
-def _check_ported(conf: ExperimentConfig, spec: AlgorithmSpec) -> None:
+def _check_ported(conf: ExperimentConfig) -> None:
     par = conf.parallel
     if par.enabled or (par.n_devices or 1) > 1:
         raise NotImplementedError(f"runs on several devices are "
                                   f"{NOT_PORTED.format(8)}")
-    if spec.kind != "sgd":
-        raise NotImplementedError(f"the matrix algorithms ({spec.name!r}) "
-                                  f"are {NOT_PORTED.format(7)}")
+
+
+def _fit_matrix_algorithm(alg, train_ds: RecDataset) -> None:
+    """Fit a matrix algorithm on the train CSR; ifknn also gets its item
+    feature's `FeatureTable.dense_table` as ``feature_matrix`` (JAX
+    ``_fit_matrix_algorithm``)."""
+    kwargs = {}
+    feature_name = getattr(alg, "feature_name", None)
+    if feature_name:
+        kwargs["feature_matrix"] = train_ds.item_features[
+            feature_name].dense_table()
+    alg.fit(matrix=train_ds.user_sampling_matrix, **kwargs)
+
+
+def _saved_scorer(conf: ExperimentConfig, spec: AlgorithmSpec,
+                  train_ds: RecDataset, evaluator: FullEvaluator,
+                  run_dir: str, device: torch.device):
+    """The scorer of a fitted run over ``evaluator``'s split: an ``sgd``
+    model with ``model.pt`` loaded and its catalog encoded once, or a
+    matrix algorithm from ``model.npz``."""
+    if spec.kind == "matrix":
+        alg = spec.build(conf.model, train_ds, device)
+        alg.load(run_dir)
+        return alg.score_fn(evaluator.dataset.items_in_split)
+    train_data = train_ds.to_device(device)
+    model = spec.build(conf.model, train_ds, train_data,
+                       conf.run_settings.seed)
+    trainer = Trainer(model, train_ds, conf.learn, conf.dataset,
+                      seed=conf.run_settings.seed, device_data=train_data,
+                      val_evaluator=evaluator)
+    trainer.load(run_dir)
+    return trainer.make_score_fn()
 
 
 def _load_split(conf: ExperimentConfig, split_set: str,
@@ -193,16 +227,24 @@ def run_train_val(conf: ExperimentConfig, log_fn=None) -> dict:
     reproducible(conf.run_settings.seed)
     device = resolve_device(conf)
     spec = get_algorithm(conf.algorithm)
-    _check_ported(conf, spec)
+    _check_ported(conf)
     results_path = _results_path(conf)
     yaml_save(os.path.join(results_path, "conf.yml"), as_dict(conf))
     split_type = load_split_type(conf.dataset.dataset_path)
     train_ds = _load_split(conf, "train", split_type)
     val_ds = _load_split(conf, "val", split_type)
-    train_data = train_ds.to_device(device)
     evaluator = FullEvaluator(conf.eval, val_ds, device=device,
                               evaluator_name="val")
     wandb_run = _maybe_wandb(conf)
+    if spec.kind == "matrix":
+        alg = spec.build(conf.model, train_ds, device)
+        _fit_matrix_algorithm(alg, train_ds)
+        alg.save(results_path)
+        metrics = evaluate_model(alg.score_fn(val_ds.items_in_split),
+                                 evaluator, conf.loader.eval_batch_size)
+        (log_fn or _make_log_fn(conf, wandb_run))(metrics)
+        return _write_val(conf, results_path, metrics, wandb_run)
+    train_data = train_ds.to_device(device)
     model = spec.build(conf.model, train_ds, train_data,
                        conf.run_settings.seed)
     trainer = Trainer(
@@ -219,7 +261,11 @@ def run_train_val(conf: ExperimentConfig, log_fn=None) -> dict:
         profile_dir=(os.path.join(results_path, "profile")
                      if conf.profile_training else None),
         debug_nans=conf.run_settings.debug_nans)
-    metrics = trainer.fit()
+    return _write_val(conf, results_path, trainer.fit(), wandb_run)
+
+
+def _write_val(conf: ExperimentConfig, results_path: str, metrics: dict,
+               wandb_run) -> dict:
     yaml_save(os.path.join(results_path, "metrics_val.yml"), metrics)
     log_info_results(metrics)
     _finish(wandb_run)
@@ -232,12 +278,11 @@ def run_test(conf: ExperimentConfig, log_fn=None) -> dict:
     reproducible(conf.run_settings.seed)
     device = resolve_device(conf)
     spec = get_algorithm(conf.algorithm)
-    _check_ported(conf, spec)
+    _check_ported(conf)
     results_path = _results_path(conf)
     split_type = load_split_type(conf.dataset.dataset_path)
     train_ds = _load_split(conf, "train", split_type)
     test_ds = _load_split(conf, "test", split_type)
-    train_data = train_ds.to_device(device)
     evaluator = FullEvaluator(conf.eval, test_ds, device=device,
                               evaluator_name="test")
     wandb_run = _maybe_wandb(conf)
@@ -245,15 +290,9 @@ def run_test(conf: ExperimentConfig, log_fn=None) -> dict:
         # a running W&B run rejects test/* at step 0 without its own axis
         wandb_run.define_metric("test/step")
         wandb_run.define_metric("test/*", step_metric="test/step")
-    model = spec.build(conf.model, train_ds, train_data,
-                       conf.run_settings.seed)
-    trainer = Trainer(
-        model, train_ds, conf.learn, conf.dataset,
-        batch_size=conf.loader.batch_size, seed=conf.run_settings.seed,
-        device_data=train_data, val_evaluator=evaluator,
-        eval_batch_size=conf.loader.eval_batch_size)
-    trainer.load(results_path)
-    metrics = trainer.validate()
+    metrics = evaluate_model(
+        _saved_scorer(conf, spec, train_ds, evaluator, results_path, device),
+        evaluator, conf.loader.eval_batch_size)
     (log_fn or _make_log_fn(conf, wandb_run))(metrics)
     yaml_save(os.path.join(results_path, "metrics_test.yml"), metrics)
     log_info_results(metrics)
@@ -313,21 +352,15 @@ def run_gather(conf: ExperimentConfig, split_set: str = "test",
     reproducible(conf.run_settings.seed)
     device = resolve_device(conf)
     spec = get_algorithm(conf.algorithm)
-    _check_ported(conf, spec)
+    _check_ported(conf)
     results_path = _results_path(conf)
     split_type = load_split_type(conf.dataset.dataset_path)
     train_ds = _load_split(conf, "train", split_type)
     eval_ds = _load_split(conf, split_set, split_type)
-    train_data = train_ds.to_device(device)
     evaluator = FullEvaluator(conf.eval, eval_ds, device=device,
                               evaluator_name=split_set)
-    model = spec.build(conf.model, train_ds, train_data,
-                       conf.run_settings.seed)
-    trainer = Trainer(model, train_ds, conf.learn, conf.dataset,
-                      seed=conf.run_settings.seed, device_data=train_data,
-                      val_evaluator=evaluator)
-    trainer.load(results_path)
-    score_fn = trainer.make_score_fn()
+    score_fn = _saved_scorer(conf, spec, train_ds, evaluator, results_path,
+                             device)
 
     if k is None:
         k = max(conf.eval.top_k)
@@ -383,29 +416,23 @@ def run_gather(conf: ExperimentConfig, split_set: str = "test",
 
 
 def load_for_serving(run_dir: str, split: str = "test", device=None):
-    """A fitted SGD run directory rebuilt for serving (JAX
+    """A fitted run directory rebuilt for serving (JAX
     ``Recommender.from_run_dir``): ``conf.yml``, the train split and the
     serving ``split`` (``"val"`` or ``"test"``, which sets the catalog and
-    the exclusions), the model with ``model.pt`` loaded, the catalog
-    encoded once. ``device`` defaults to the run's ``run_settings.device``
+    the exclusions), then an ``sgd`` model with ``model.pt`` loaded and
+    the catalog encoded once, or a matrix algorithm from ``model.npz``.
+    ``device`` defaults to the run's ``run_settings.device``
     (`resolve_device`). Returns ``(score_fn, dataset, device_data, k)``,
-    ``k`` the largest ``eval.top_k``. A matrix algorithm's run raises
-    (queue 1 item 7), as does a ``parallel`` block (item 8)."""
+    ``k`` the largest ``eval.top_k``. A ``parallel`` block raises (queue 1
+    item 8)."""
     conf = _run_conf(run_dir)
     spec = get_algorithm(conf.algorithm)
-    _check_ported(conf, spec)
+    _check_ported(conf)
     device = resolve_device(conf) if device is None else torch.device(device)
     split_type = load_split_type(conf.dataset.dataset_path)
     train_ds = _load_split(conf, "train", split_type)
     serve_ds = _load_split(conf, split, split_type)
-    train_data = train_ds.to_device(device)
     evaluator = FullEvaluator(conf.eval, serve_ds, device=device,
                               evaluator_name=split)
-    model = spec.build(conf.model, train_ds, train_data,
-                       conf.run_settings.seed)
-    trainer = Trainer(model, train_ds, conf.learn, conf.dataset,
-                      seed=conf.run_settings.seed, device_data=train_data,
-                      val_evaluator=evaluator)
-    trainer.load(run_dir)
-    return (trainer.make_score_fn(), serve_ds, evaluator.data,
-            max(conf.eval.top_k))
+    return (_saved_scorer(conf, spec, train_ds, evaluator, run_dir, device),
+            serve_ds, evaluator.data, max(conf.eval.top_k))

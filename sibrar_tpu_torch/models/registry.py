@@ -5,10 +5,10 @@ The names and families are the JAX registry's, so the CLI offers the same
 ``-a`` choices: ``sgd`` models train with `train.trainer.Trainer`,
 ``matrix`` algorithms fit once over the train CSR. An ``sgd`` build takes
 ``(model_conf, dataset, device_data, seed)`` and returns the model on the
-device of ``device_data``, in eval mode. Ported: ``sbnet``, ``sgdbias``,
-``mf``, ``acf``, the six ProtoMF variants, ``ecf``, ``dmf``, ``ifeatmf``,
-``ufeatmf`` and ``dropoutnet``: every ``sgd`` name. Building a ``matrix``
-name raises, naming the queue item that owes it.
+device of ``device_data``, in eval mode. A ``matrix`` build takes
+``(model_conf, dataset, device)`` and returns the unfitted algorithm
+(``models/matrix_algs.py``), which fits and scores on ``device``. Every
+name of the JAX registry is ported.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from typing import Callable
 
 import torch
 
-from sibrar_tpu_torch.config.schema import NOT_PORTED
+from sibrar_tpu_torch.models import matrix_algs
 from sibrar_tpu_torch.models.dmf import DeepMatrixFactorization
 from sibrar_tpu_torch.models.dropoutnet import DropoutNet
 from sibrar_tpu_torch.models.ecf import ECF
@@ -86,21 +86,43 @@ BUILDS: dict[str, Callable] = {
 }
 
 
-def _unported(name: str, item: int) -> Callable:
-    def build(*args, **kwargs):
-        raise NotImplementedError(f"algorithm {name!r} is "
-                                  f"{NOT_PORTED.format(item)}")
-    return build
+def _matrix(build: Callable) -> Callable:
+    """A matrix algorithm's build: JAX's ``build(conf, dataset)``, the
+    algorithm then set to fit and score on ``device``."""
+    def wrapped(conf: dict, dataset, device="cuda"):
+        alg = build(conf, dataset)
+        alg.device = device
+        return alg
+    return wrapped
+
+
+def _knn(alg: str) -> Callable:
+    return lambda conf, dataset: matrix_algs.KNNAlgorithm.build_from_conf(
+        {**conf, "alg": alg}, dataset)
+
+
+MATRIX_BUILDS: dict[str, Callable] = {
+    "uknn": _knn("uknn"),
+    "iknn": _knn("iknn"),
+    "ifknn": _knn("ifknn"),
+    "svd": matrix_algs.SVDAlgorithm.build_from_conf,
+    "als": matrix_algs.AlternatingLeastSquare.build_from_conf,
+    "rbmf": matrix_algs.RBMF.build_from_conf,
+    "slim": matrix_algs.SLIM.build_from_conf,
+    "ease": matrix_algs.EASE.build_from_conf,
+    "p3alpha": matrix_algs.P3alpha.build_from_conf,
+    "rand": matrix_algs.RandomItems.build_from_conf,
+    "pop": matrix_algs.PopularItems.build_from_conf,
+}
 
 
 SGD = ("sgdbias", "mf", "acf", "uprotomf", "iprotomf", "uiprotomf",
        "uprotomfs", "iprotomfs", "uiprotomfs", "ecf", "dmf", "ifeatmf",
        "ufeatmf", "dropoutnet", "sbnet")
-MATRIX = ("uknn", "iknn", "ifknn", "svd", "als", "rbmf", "slim", "ease",
-          "p3alpha", "rand", "pop")
 ALGORITHMS: dict[str, AlgorithmSpec] = {
     **{n: AlgorithmSpec(n, "sgd", BUILDS[n]) for n in SGD},
-    **{n: AlgorithmSpec(n, "matrix", _unported(n, 7)) for n in MATRIX},
+    **{n: AlgorithmSpec(n, "matrix", _matrix(b))
+       for n, b in MATRIX_BUILDS.items()},
 }
 
 

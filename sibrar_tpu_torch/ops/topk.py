@@ -2,9 +2,10 @@
 
 `masked_topk` dispatches over six methods, all exact:
 
-- ``full``: scatter -1e30 into the excluded columns, then ``torch.topk``
-  (`topk_excluding`). It is also the redo for peel rows whose exactness flag
-  tripped, and the oracle the tests and the chip smoke compare with;
+- ``full``: scatter -1e30 into the excluded columns, then `lax_topk`
+  (`topk_excluding`). It is also the redo for peel rows whose exactness
+  flag tripped, and the yardstick of the tests' methods (the chip smoke
+  holds it, like the others, to K13's plain version);
 - ``scatter``: the same scatter, then the two-phase `windowed_topk`;
 - ``noscatter``: `windowed_topk_excluded`, exclusion by CSR bisection on
   the candidates of ``k + E`` windows;
@@ -13,6 +14,14 @@
 - ``pallas``: the windowed retile and finalist re-ranking
   (``ops/window.py``, kernels K9 and K3 on the tiling);
 - ``auto``: the JAX package's accelerator branch on every device.
+
+Every selection here is K13 (its plain version on the CPU), which keeps
+``lax.top_k``'s order: the larger value first, equal values to the lower
+index (`lax_topk` narrows a row longer than K13's `MAX_N` to its top-k
+windows first). The windowed methods select windows by maximum the same
+way and keep their candidates in that window order, as JAX's do, so each
+method returns JAX's ids on tied scores too (``torch.topk`` leaves the
+order of ties unspecified).
 """
 from __future__ import annotations
 
@@ -22,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from sibrar_tpu_torch.config.schema import TOPK_METHODS as METHODS
+from sibrar_tpu_torch.ops.exact_topk import MAX_N, exact_topk
+from sibrar_tpu_torch.ops.window import WINDOW, max_like_jax
 from sibrar_tpu_torch.ops.sparse import (
     DeviceCSR,
     csr_contains,
@@ -30,6 +41,32 @@ from sibrar_tpu_torch.ops.sparse import (
 )
 
 NEG = -1e30
+
+
+def lax_topk(x: torch.Tensor, k: int, max_n: int = MAX_N
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` of each row of ``x [R, n]`` (``k' = min(k, n)``): K13
+    on rows of up to ``max_n`` values. A longer row (JAX has no limit)
+    selects its top-k' 128-wide windows by maximum (ties to the lower
+    window), keeps them in catalog order and selects among their values:
+    an item outside them has k' items above it in that order (the windows'
+    maxima), so the result is the same. Half-precision rows rank as f32,
+    which is exact, and keep their dtype. Raises where the maxima or the
+    candidates would not fit in ``max_n`` (k' > 11,571 or n > 190M at
+    K13's `MAX_N`)."""
+    n = x.shape[1]
+    k = min(k, n)
+    xf = x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+    if n <= max_n:
+        v, i = exact_topk(xf.contiguous(), k)
+        return v.to(x.dtype), i
+    if k * WINDOW > max_n or -(-n // WINDOW) > max_n:
+        raise ValueError(f"top-{k} of rows of {n} values: above {max_n} "
+                         f"values a row needs k * {WINDOW} and n / {WINDOW} "
+                         f"of at most {max_n}")
+    cand_v, cand_c = _window_candidates(xf, k, WINDOW, catalog_order=True)
+    v, p = exact_topk(cand_v, k)
+    return v.to(x.dtype), cand_c.gather(1, p)
 
 
 def topk_excluding(scores: torch.Tensor, cols: torch.Tensor,
@@ -43,19 +80,24 @@ def topk_excluding(scores: torch.Tensor, cols: torch.Tensor,
     if c_real < c:
         live = torch.arange(c, device=scores.device) < c_real
         scores = torch.where(live, scores, NEG)
-    return torch.topk(scores, min(k, c_real), dim=1)
+    return lax_topk(scores, min(k, c_real))
 
 
-def _window_candidates(scores: torch.Tensor, m: int, window: int
+def _window_candidates(scores: torch.Tensor, m: int, window: int,
+                       catalog_order: bool = False
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Values and column ids ``[B, m * window]`` of the top-``m`` windows by
-    maximum (the row padded to a ``window`` multiple with -1e30)."""
+    maximum (the row padded to a ``window`` multiple with -1e30), in order
+    of their maxima as JAX keeps them, or with ``catalog_order`` in
+    catalog order."""
     b, c = scores.shape
     pad = (-c) % window
     if pad:
         scores = F.pad(scores, (0, pad), value=NEG)
     sw = scores.view(b, -1, window)
-    widx = torch.topk(sw.amax(-1), min(m, sw.shape[1]), dim=1).indices
+    widx = exact_topk(max_like_jax(sw, -1), min(m, sw.shape[1]))[1]
+    if catalog_order:
+        widx = widx.sort(1).values
     cand_v = sw.gather(1, widx[:, :, None].expand(-1, -1, window))
     cand_c = widx[:, :, None] * window + torch.arange(window,
                                                       device=scores.device)
@@ -69,9 +111,9 @@ def windowed_topk(scores: torch.Tensor, k: int
     ``windowed_topk``)."""
     c = scores.shape[1]
     if k >= c or c <= 2 * 128:
-        return torch.topk(scores, min(k, c), dim=1)
+        return lax_topk(scores, k)
     cand_v, cand_c = _window_candidates(scores, k, 128)
-    v, p = torch.topk(cand_v, k, dim=1)
+    v, p = lax_topk(cand_v, k)
     return v, cand_c.gather(1, p)
 
 
@@ -86,7 +128,7 @@ def windowed_topk_excluded(scores: torch.Tensor, exclude_csr: DeviceCSR,
     cand_v, cand_c = _window_candidates(scores, k + exclude_csr.max_row_len,
                                         64)
     hit = csr_contains(exclude_csr, u_idxs[:, None], cand_c)
-    v, p = torch.topk(torch.where(hit, NEG, cand_v), k, dim=1)
+    v, p = lax_topk(torch.where(hit, NEG, cand_v), k)
     return v, cand_c.gather(1, p)
 
 

@@ -66,7 +66,8 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("-r", "--run_dir", required=True,
-                   help="fitted run directory (holds conf.yml + model.pt)")
+                   help="fitted run directory (conf.yml + model.pt or "
+                        "model.npz)")
     p.add_argument("-u", "--users", default=None,
                    help="comma-separated ids or a file with one id per line "
                         "(default: every user in the split)")

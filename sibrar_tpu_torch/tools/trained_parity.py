@@ -1,7 +1,9 @@
 """The port's side of the trained-quality parity run (no JAX): the best
 validation ndcg@10 of ``sbnet``, ``mf``, ``dmf``, ``dropoutnet``,
 ``ifeatmf``, ``ufeatmf``, ``uprotomf`` and ``ecf`` trained by the port on
-the synthetic artifacts of ``tools/trained_parity.py``.
+the synthetic artifacts of ``tools/trained_parity.py``, and the validation
+ndcg@10 and recall@10 of the eleven matrix algorithms fitted there
+(`MATRIX_HPARAMS`; ``rand`` scores with the run's seed).
 
 Each ``train_port_<family>`` is JAX's ``train_ours_<family>`` line for
 line on the port's API: the same artifact
@@ -17,6 +19,10 @@ ECF's at the toy scale (``--scale toy``: ECF barely learns at mid scale);
     python -m sibrar_tpu_torch.tools.trained_parity --family sbnet mf \
         dmf dropoutnet ifeatmf ufeatmf uprotomf ecf --seeds 0 1 2 3 4 \
         --out port.json [--device cpu] [--scale toy]
+    python -m sibrar_tpu_torch.tools.trained_parity --family uknn iknn \
+        ifknn ease slim p3alpha svd rbmf pop als --seeds 0 --out matrix.json
+    python -m sibrar_tpu_torch.tools.trained_parity --family rand \
+        --seeds 0 1 2 3 4 --out matrix_seeds.json
 
 ``--replay DIR`` trains ECF from JAX's initial parameters on JAX's draws,
 as ``torch_trained_parity.py replay-jax`` recorded them into ``DIR``: the
@@ -26,10 +32,12 @@ packages' arithmetic, not their random streams.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -46,13 +54,15 @@ from sibrar_tpu_torch.data.synthetic import (
     make_synthetic_splits,
     write_reference_artifacts,
 )
-from sibrar_tpu_torch.eval.evaluator import FullEvaluator
+from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
 from sibrar_tpu_torch.models.dmf import DeepMatrixFactorization
 from sibrar_tpu_torch.models.dropoutnet import DropoutNet
 from sibrar_tpu_torch.models.ecf import ECF, hard_topk_mask
 from sibrar_tpu_torch.models.feat_mf import FeatureMF
+from sibrar_tpu_torch.models.matrix_algs import RandomItems
 from sibrar_tpu_torch.models.mf import SGDMatrixFactorization
 from sibrar_tpu_torch.models.protomf import UProtoMF
+from sibrar_tpu_torch.models.registry import get_algorithm
 from sibrar_tpu_torch.models.sbnet import SingleBranchNet
 from sibrar_tpu_torch.models.transplant import transplant
 from sibrar_tpu_torch.train.trainer import Trainer
@@ -94,6 +104,32 @@ MIDSCALE_HPARAMS = {
                      n_prototypes=16),
     "ecf": dict(epochs=10, batch_size=256, embedding_dim=32),
 }
+
+# the matrix algorithms at mid scale: conf/single/knn.yml's KNN, EASE's
+# lambda of Steck (2019), SLIM's and P3alpha's defaults, the `implicit`
+# library's ALS defaults, 100 factors / representatives. ``exact`` names
+# fit without random draws (gate: both metrics within MATRIX_TOLERANCE of
+# JAX's). ``als`` starts from one fixed draw on each side whatever the seed
+# (JAX's PRNGKey(0), the port's generator seeded 0): its seeds cannot
+# differ, so it runs at seed 0 and the paired gate is |delta| <= 0.01 there.
+# ``rand`` draws with the seed and takes the paired-seed gate over 0-4
+_KNN = {"k": 100, "shrinkage": 10.0,
+        "sim_func_params": {"sim_func_name": "cosine"}}
+MATRIX_HPARAMS = {
+    "uknn": _KNN, "iknn": _KNN, "ifknn": dict(_KNN, feature_name="audio"),
+    "ease": {"lam": 500.0},
+    "slim": {"alpha": 1e-3, "l1_ratio": 0.5, "max_iter": 100},
+    "p3alpha": {"alpha": 1.9},
+    "svd": {"n_factors": 100},
+    "rbmf": {"n_representatives": 100, "lam": 1e-2},
+    "pop": {},
+    "als": {"factors": 100, "regularization": 0.01, "alpha": 1.0,
+            "n_iterations": 15},
+    "rand": {},
+}
+EXACT_MATRIX = ("uknn", "iknn", "ifknn", "ease", "slim", "p3alpha", "svd",
+                "rbmf", "pop")
+MATRIX_TOLERANCE = 1e-3
 
 
 def make_artifacts(out_dir: str, n_users: int = 100, n_items: int = 120,
@@ -402,6 +438,32 @@ def replay_port_ecf(artifact_dir: str, rec: dict, hparams: dict,
             "parting": trainer.parting}
 
 
+def train_port_matrix(family: str, artifact_dir: str, seed: int = 0,
+                      hparams: Optional[dict] = None, device="cuda") -> dict:
+    """``{"ndcg", "recall"}`` at 10 on the val split of matrix algorithm
+    ``family`` fitted on the train split (the registry's build, as the CLI
+    fits it; ``rand`` as ``RandomItems(seed)``), users in batches of
+    256."""
+    h = dict(MATRIX_HPARAMS[family], **(hparams or {}))
+    item = (h["feature_name"],) if family == "ifknn" else ()
+    tr = RecDataset.load(artifact_dir, "train", item_feature_definitions=[
+        FeatureDefinition(f, FeatureType.VECTOR) for f in item] or None)
+    va = RecDataset.load(artifact_dir, "val")
+    if family == "rand":
+        alg = RandomItems(seed)
+        alg.device = device
+    else:
+        alg = get_algorithm(family).build(h, tr, device)
+    kwargs = ({"feature_matrix": tr.item_features[h["feature_name"]]
+               .dense_table()} if item else {})
+    alg.fit(matrix=tr.user_sampling_matrix, **kwargs)
+    ev = FullEvaluator(EvalConfig(top_k=[10], metrics=["ndcg", "recall"]),
+                       va, device=device, evaluator_name="val")
+    m = evaluate_model(alg.score_fn(va.items_in_split), ev, 256)
+    return {"ndcg": float(m["val/ndcg@10"]),
+            "recall": float(m["val/recall@10"])}
+
+
 FAMILIES = {"mf": (train_port_mf, MF_HPARAMS),
             "sbnet": (train_port_sbnet, SBNET_HPARAMS),
             "dmf": (train_port_dmf, DMF_HPARAMS),
@@ -410,12 +472,14 @@ FAMILIES = {"mf": (train_port_mf, MF_HPARAMS),
             "ufeatmf": (train_port_ufeatmf, IFMF_HPARAMS),
             "uprotomf": (train_port_uprotomf, PROTO_HPARAMS),
             "ecf": (train_port_ecf, ECF_HPARAMS)}
+for _name, _h in MATRIX_HPARAMS.items():
+    FAMILIES[_name] = (functools.partial(train_port_matrix, _name), _h)
 
 
 def hparams_for(family: str, scale: str) -> dict:
     h = dict(FAMILIES[family][1])
     if scale == "mid":
-        h.update(MIDSCALE_HPARAMS[family])
+        h.update(MIDSCALE_HPARAMS.get(family, {}))
     return h
 
 
@@ -431,15 +495,20 @@ def run(families, seeds, scale: str = "mid", device="cuda",
         for family in families:
             fn = FAMILIES[family][0]
             h = hparams_for(family, scale)
-            runs, secs = {}, {}
+            runs, secs, recall = {}, {}, {}
             for s in seeds:
                 t0 = time.perf_counter()
-                runs[str(s)] = fn(d, seed=s, hparams=h, device=device)
+                r = fn(d, seed=s, hparams=h, device=device)
+                if isinstance(r, dict):  # a matrix algorithm
+                    r, recall[str(s)] = r["ndcg"], r["recall"]
+                runs[str(s)] = r
                 secs[str(s)] = round(time.perf_counter() - t0, 1)
                 log(f"port {family} seed {s}: {runs[str(s)]:.6f} "
                     f"({secs[str(s)]} s)")
             out["families"][family] = {"hparams": h, "runs": runs,
                                        "seconds": secs}
+            if recall:
+                out["families"][family]["recall"] = recall
     return out
 
 

@@ -101,8 +101,9 @@ def test_registry_names_and_kinds_match_jax():
     for name, spec in JAX_ALGORITHMS.items():
         assert (ALGORITHMS[name].name, ALGORITHMS[name].kind) == (
             spec.name, spec.kind)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        get_algorithm("ease").build({}, None, None, 0)
+    ease = get_algorithm("ease").build({"lam": 2.0}, None, "cpu")
+    assert (type(ease).__name__, ease.lam, ease.device) == ("EASE", 2.0,
+                                                            "cpu")
     with pytest.raises(ValueError, match="unknown algorithm"):
         get_algorithm("nope")
 
@@ -260,9 +261,19 @@ def test_cli_runs_mf_with_sparse_tables_and_debug_nans(onion_dir, tmp_path,
 
 
 def test_cli_refuses_what_is_not_ported(onion_dir, tmp_path):
+    """A matrix name now runs (EASE writes its run files); several devices
+    and a missing card are still refused before anything is written."""
+    val, test = main([
+        "-a", "ease", "-c", CONF, "-d", onion_dir, "-t", "train_val_test",
+        "-o", f"results_path={tmp_path}/ease", "-o", "model.lam=500.0",
+        "-o", "run_settings.device=cpu", "-o", "dataset.user_features=[]",
+        "-o", "dataset.item_features=[]", "-o", "eval.group_metrics=[]",
+        "-o", "eval.top_k=[10]"])
+    assert np.isfinite(val["val/ndcg@10"]) and np.isfinite(
+        test["test/ndcg@10"])
+    assert sorted(os.listdir(f"{tmp_path}/ease")) == [
+        "conf.yml", "metrics_test.yml", "metrics_val.yml", "model.npz"]
     base = ["-c", CONF, "-d", onion_dir, "-o", f"results_path={tmp_path}/r"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main(["-a", "ease", *base, "-o", "run_settings.device=cpu"])
     with pytest.raises(NotImplementedError, match="item 8"):
         main(["-a", "sbnet", *base, "-o", "run_settings.device=cpu",
               "-o", "parallel.n_devices=2"])

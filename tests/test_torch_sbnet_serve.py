@@ -313,6 +313,17 @@ for name, c, cls in (
     if name.endswith("protomf"):
         assert reg > 0 and explanations.protomf_post_val(
             zoo_model, "user" if name[0] == "u" else "item", 0)
+from sibrar_tpu_torch.models import matrix_algs
+for name, c in (("iknn", {"k": 3}), ("ifknn", {"k": 3, "feature_name": "genres"}),
+                ("ease", {"lam": 1.0}), ("als", {"factors": 3, "alpha": 1.0,
+                "regularization": 0.1, "n_iterations": 1}),
+                ("rbmf", {"n_representatives": 3}), ("pop", {})):
+    alg = registry.get_algorithm(name).build(c, zoo["train"], "cpu")
+    assert isinstance(alg, matrix_algs.MatrixRecommender)
+    alg.fit(matrix=zoo["train"].user_sampling_matrix,
+            feature_matrix=zoo["train"].item_features["genres"].dense_table())
+    s = alg.score_fn(zoo["val"].items_in_split)(torch.arange(4))
+    assert s.shape == (4, 40) and bool(torch.isfinite(s).all())
 assert stat_tests.paired_t_tests({"a": np.arange(5.0),
                                   "b": np.arange(5.0) ** 2})
 misc.reproducible(3)

@@ -291,15 +291,22 @@ def test_from_run_dir_roundtrip(mf_run):
                                                      kind="stable")[:5]])
 
 
-@pytest.mark.parametrize("change,item", [
-    ({"algorithm": "ease"}, 7), ({"parallel": {"n_devices": 2}}, 8)],
+@pytest.mark.parametrize("change,error,match", [
+    ({"algorithm": "ease", "model": {"lam": 5.0}}, FileNotFoundError,
+     "model.npz"),
+    ({"parallel": {"n_devices": 2}}, NotImplementedError, "queue 1, item 8")],
     ids=["matrix_algorithm", "parallel"])
-def test_from_run_dir_refuses_unported_runs(mf_run, tmp_path, change, item):
+def test_from_run_dir_refuses_unported_runs(mf_run, tmp_path, change, error,
+                                            match):
+    """A ``parallel`` block is refused as not ported (queue 1 item 8). A
+    matrix algorithm is ported: its run directory is read for JAX's
+    ``model.npz``, so one that holds only an MF run's ``model.pt`` is
+    refused for the missing file."""
     with open(os.path.join(mf_run, "conf.yml")) as fh:
         conf = yaml.safe_load(fh)
     with open(tmp_path / "conf.yml", "w") as fh:
         yaml.safe_dump({**conf, **change}, fh)
-    with pytest.raises(NotImplementedError, match=f"queue 1, item {item}"):
+    with pytest.raises(error, match=match):
         Recommender.from_run_dir(str(tmp_path), split="val", device="cpu")
 
 

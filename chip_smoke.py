@@ -147,7 +147,20 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    directories, ``-a ecf -c conf/ecf.yml -t train_val``, ``-t gather`` on
    that run (the pickle's keys, shapes and exclusions) whose metrics must
    equal ``-t test``'s, a gather of the UProtoMFs run and
-   ``stat_tests.compare_gathers`` over the two;
+   ``stat_tests.compare_gathers`` over the two; then the sweeps
+   (`sweep_phase`): ``sweep_agent.main`` in this process on a copy of
+   ``conf/sweeps/sbnet/sbnet_onion18_random_huge_no-user.yml`` (bayes, its
+   seed and parameters) whose three trials train SBNet at the YAML's width
+   on the same artifacts for 100 steps each, validate and test: the trials
+   are a fresh ``TPESampler``'s startup draws, each run's files carry
+   JAX's keys, the best run alone keeps ``model.pt``, and
+   ``torch.cuda.memory_allocated()`` is back within SWEEP_MEMORY_MARGIN of
+   its start after every trial, each trial's time, steps/s, val ndcg@10
+   and peak memory logged; then ``python -m sibrar_tpu_torch.run_agent -p
+   2 --trials-per-worker 2 --devices 0,0``, a bayes sweep with
+   ``shared_history`` over ``mf`` on the mid-scale artifacts, two workers
+   on the one card: both exit 0, both state files, four shared
+   observations, the best two runs keep ``model.pt``;
 9. ``zoo``: DMF, ifeatmf, ufeatmf and DropoutNet, each at the full width
    of its ``conf/single/<name>_onion18.yml`` (the YAML chain's learn /
    dataset / loader blocks too), random weights from a seed, on the same
@@ -198,7 +211,8 @@ Each path (default training, spmm training, the determinism run, fit, the
 four validation paths, serving, the five windowed rankers, the four serving
 modes at each batch size, the probes, the CLI, the reload, ``serve_recs``,
 the bf16 test evaluation, row-sparse MF, the DMF, ProtoMF and ECF CLI
-runs, the gathers, the combine, each zoo family, each matrix run) runs with
+runs, the gathers, the combine, the SBNet sweep, each zoo family, each
+matrix run) runs with
 every launch count set to 0 just before it and read just after; each of
 its kernels must have launched, and kernels of other paths must not.
 
@@ -2447,6 +2461,7 @@ def cli_phase(splits, kernels, count_path, card: str) -> None:
         dmf_cli_phase(data_dir, os.path.join(root, "dmf_run"), kernels,
                       count_path, card)
         zoo_cli_phase(data_dir, root, kernels, count_path, card)
+        sweep_phase(data_dir, root, kernels, count_path, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3737,6 +3752,271 @@ def zoo_cli_phase(data_dir: str, root: str, kernels, count_path,
         f"{cmp.best_model} against {cmp.other_model}, p {cmp.p_value:.3e}, "
         f"Bonferroni threshold {cmp.threshold}, significant "
         f"{cmp.significant}")
+
+
+SWEEP_CONF_PATH = os.path.join(os.path.dirname(os.path.dirname(CONF_PATH)),
+                               "sweeps", "sbnet",
+                               "sbnet_onion18_random_huge_no-user.yml")
+SWEEP_TRIALS, SWEEP_BATCHES = 3, 100  # the SBNet sweep's trials, their steps
+# torch.cuda.memory_allocated() after a trial may stay this far above its
+# value before the first trial: room for the workspaces cuBLAS keeps once
+# made (32 MiB per thread on Hopper: the caller's and autograd's backward
+# thread) and cuBLASLt's (1 MiB), which a process makes on its first GEMMs.
+# The script's earlier phases made them already; a process whose first GEMMs
+# are the first trial's grows by 65 MiB there and by 0 B after the second
+# and third (an H100 at 700 W). A trial whose tensors stayed would hold more
+# than a GiB: its model and AdamW moments, the device data and the encoded
+# catalog.
+SWEEP_MEMORY_MARGIN = 96 * 2**20
+LAUNCH_WORKERS, LAUNCH_TRIALS, LAUNCH_KEEP = 2, 2, 2  # trials per worker
+
+
+def sweep_phase(data_dir: str, root: str, kernels, count_path,
+                card: str) -> None:
+    """The port's sweeps on the card: the paper's SBNet sweep in this
+    process on the CLI phase's onion-scale artifacts (`sbnet_sweep`), then
+    the launcher with two workers on the one card (`launcher_sweep`)."""
+    t0 = time.perf_counter()
+    sbnet_sweep(data_dir, root, kernels, count_path, card)
+    launcher_sweep(root, card)
+    log(f"sweep: {time.perf_counter() - t0:.1f} s on {card}")
+
+
+def sbnet_sweep(data_dir: str, root: str, kernels, count_path,
+                card: str) -> None:
+    """``sweep_agent.main(-c <copy> -o <dir>)`` in this process. The copy of
+    ``conf/sweeps/sbnet/sbnet_onion18_random_huge_no-user.yml`` keeps its
+    method (bayes), seed, metric and parameters; its base config is
+    ``conf/single/sbnet_onion18_huge_no-user.yml`` (full width) on the
+    onion-scale artifacts with the CLI phase's overrides, one epoch of
+    SWEEP_BATCHES steps, SWEEP_TRIALS trials, the best run's model kept.
+    Checks: K1-K7 launched; the trials' parameters are the first
+    suggestions of a fresh ``TPESampler(parameters, seed)`` (its startup
+    draws) and reach each run's ``conf.yml``; each run's files with JAX's
+    keys and finite values, ``model.pt`` in the best run only;
+    ``sweep_state.yml``; the best-trial line; and after every trial
+    ``torch.cuda.memory_allocated()`` within SWEEP_MEMORY_MARGIN of its
+    value before the first."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from sibrar_tpu_torch import experiment
+    from sibrar_tpu_torch.config.loader import nested_dict_get, parse_conf_file
+    from sibrar_tpu_torch.sweep import load_sweep_config
+    from sibrar_tpu_torch.sweep_agent import main as sweep_agent
+    from sibrar_tpu_torch.tpe import TPESampler
+    from sibrar_tpu_torch.train.trainer import Trainer
+
+    raw = parse_conf_file(SWEEP_CONF_PATH)
+    base_config = raw["base_config"]
+    base_config["base_configs"] = CONF_PATH
+    base_config.setdefault("dataset", {}).update(
+        dataset_path=data_dir, user_features=[],
+        item_features=[{"name": n, "type": t} for n, t in CLI_FEATURES])
+    base_config["eval"] = {"group_metrics": []}
+    base_config["learn"] = {"n_epochs": 1,
+                            "max_batches_per_epoch": SWEEP_BATCHES}
+    raw.update(n_trials=SWEEP_TRIALS, keep_top_runs=1)
+    path = os.path.join(root, "sbnet_sweep.yml")
+    with open(path, "w") as fh:  # the file's key order: the TPE's draw order
+        yaml.safe_dump(raw, fh, sort_keys=False)
+    sweep, paper = load_sweep_config(path), load_sweep_config(SWEEP_CONF_PATH)
+    for key in ("method", "seed", "metric", "goal", "parameters"):
+        if getattr(sweep, key) != getattr(paper, key):
+            raise AssertionError(f"SBNet sweep: {key} differs from the paper "
+                                 f"sweep's")
+    if list(sweep.parameters) != list(paper.parameters):
+        raise AssertionError("SBNet sweep: parameters out of the paper "
+                             "sweep's order")
+    sampler = TPESampler(paper.parameters, seed=paper.seed)
+    want = [sampler.suggest() for _ in range(SWEEP_TRIALS)]
+
+    trials = []
+    run_train_val_test, train_epoch = (experiment.run_train_val_test,
+                                       Trainer.train_epoch)
+
+    def timed_epoch(self):
+        torch.cuda.synchronize()
+        t1, steps = time.perf_counter(), self.step
+        out = train_epoch(self)
+        torch.cuda.synchronize()
+        trials[-1]["train_s"] += time.perf_counter() - t1
+        trials[-1]["steps"] += self.step - steps
+        return out
+
+    def trial(conf):
+        torch.cuda.synchronize()
+        trials.append(dict(entry=torch.cuda.memory_allocated(), train_s=0.0,
+                           steps=0))
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        val, test = run_train_val_test(conf)
+        torch.cuda.synchronize()
+        trials[-1].update(wall=time.perf_counter() - t1,
+                          peak=torch.cuda.max_memory_allocated(),
+                          ndcg=val["val/ndcg@10"])
+        return val, test
+
+    results = os.path.join(root, "sbnet_sweep")
+    printed = io.StringIO()
+    reset_counts(kernels)
+    experiment.run_train_val_test, Trainer.train_epoch = trial, timed_epoch
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            sweep_agent(["-c", path, "-o", results])
+    finally:
+        experiment.run_train_val_test = run_train_val_test
+        Trainer.train_epoch = train_epoch
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    final = torch.cuda.memory_allocated()
+    count_path("SBNet sweep", ["segment_gather", "score_wmax",
+                               "gather_windows", "peel_values", "dw_matmul",
+                               "spmm_fwd", "spmm_bwd"])
+    line = printed.getvalue().strip().splitlines()[-1]
+    log(f"SBNet sweep, sweep_agent's last line: {line}")
+    best = json.loads(line)
+
+    records = parse_conf_file(os.path.join(results,
+                                           "sweep_state.yml"))["records"]
+    if ([r["trial"] for r in records] != list(range(SWEEP_TRIALS))
+            or [r["params"] for r in records] != want):
+        raise AssertionError(f"SBNet sweep: trials {records} are not the "
+                             f"TPE's startup draws {want}")
+    runs = sorted(os.path.join(results, d) for d in os.listdir(results)
+                  if os.path.isdir(os.path.join(results, d)))
+    if runs != sorted(r["results_path"] for r in records):
+        raise AssertionError(f"SBNet sweep: run directories {runs}")
+    ev = eval_conf()
+    ranked = sorted(records, key=lambda r: r["metrics"]["val/ndcg@10"],
+                    reverse=True)
+    for rank, rec in enumerate(ranked):
+        run = rec["results_path"]
+        files = sorted(os.listdir(run))
+        model = ["model.pt"] if rank == 0 else []
+        if files != sorted(["conf.yml", "metrics_test.yml",
+                            "metrics_val.yml", *model]):
+            raise AssertionError(f"SBNet sweep trial {rec['trial']}: files "
+                                 f"{files}")
+        conf = parse_conf_file(os.path.join(run, "conf.yml"))
+        for key, value in rec["params"].items():
+            if nested_dict_get(conf, key) != value:
+                raise AssertionError(f"SBNet sweep trial {rec['trial']}: "
+                                     f"conf.yml's {key} is not {value}")
+        for name in ("val", "test"):
+            metrics = parse_conf_file(os.path.join(run,
+                                                   f"metrics_{name}.yml"))
+            if set(metrics) != expected_keys(ev, name) or not all(
+                    np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"SBNet sweep trial {rec['trial']}: "
+                                     f"metrics_{name}.yml keys or values")
+    top = ranked[0]
+    if (best["best_trial"], best["params"], best["metric"], best["value"]) \
+            != (top["trial"], top["params"], "val/ndcg@10",
+                top["metrics"]["val/ndcg@10"]):
+        raise AssertionError(f"SBNet sweep: best line {best}, best record "
+                             f"{top}")
+
+    left = [t["entry"] for t in trials[1:]] + [final]
+    for t, (rec, info) in enumerate(zip(records, trials)):
+        log(f"SBNet sweep trial {t} ({rec['params']}): {info['wall']:.2f} s, "
+            f"{info['steps']} steps in {info['train_s']:.2f} s "
+            f"({info['steps'] / info['train_s']:.2f} steps/s, host, "
+            f"synchronized), val ndcg@10 {info['ndcg']:.6f}, "
+            f"max_memory_allocated {info['peak'] / 2**30:.3f} GiB, "
+            f"memory_allocated before {info['entry']} B, after "
+            f"{left[t]} B ({left[t] - trials[0]['entry']:+d} B against the "
+            f"first trial's start) on {card}")
+    grown = [b - trials[0]["entry"] for b in left]
+    if max(grown) > SWEEP_MEMORY_MARGIN:
+        raise AssertionError(f"SBNet sweep: memory_allocated grew by {grown} "
+                             f"B over the trials (margin "
+                             f"{SWEEP_MEMORY_MARGIN} B)")
+    log(f"SBNet sweep: {SWEEP_TRIALS} trials in {total:.2f} s on {card}; "
+        f"best trial {best['best_trial']}, val ndcg@10 {best['value']:.6f}")
+
+
+def launcher_sweep(root: str, card: str) -> None:
+    """``python -m sibrar_tpu_torch.run_agent -p 2 --trials-per-worker 2
+    --devices 0,0`` from the temporary directory: a bayes sweep with
+    ``shared_history`` over ``mf`` on the mid-scale artifacts of
+    ``tools/trained_parity.py``, both workers on the card. Launch counts
+    do not cross processes, so the check is the files and exit codes: both
+    workers exit 0, each writes its state file, the shared log holds every
+    trial, and global retention leaves LAUNCH_KEEP ``model.pt`` files, the
+    best trials'."""
+    import glob
+
+    import numpy as np
+
+    from sibrar_tpu_torch.config.loader import parse_conf_file, yaml_save
+    from sibrar_tpu_torch.sweep import SharedObservationLog
+    from sibrar_tpu_torch.tools import trained_parity
+
+    data_dir = trained_parity.make_midscale_artifacts(
+        os.path.join(root, "sweep_mid"))
+    results = os.path.join(root, "mf_sweep")
+    path = os.path.join(root, "mf_sweep.yml")
+    n_trials = LAUNCH_WORKERS * LAUNCH_TRIALS
+    yaml_save(path, {
+        "method": "bayes", "shared_history": True, "metric": "val/ndcg@10",
+        "n_trials": n_trials, "keep_top_runs": LAUNCH_KEEP, "seed": SEED,
+        "parameters": {
+            "learn.lr": {"min": 1e-4, "max": 1e-2,
+                         "distribution": "log_uniform"},
+            "model.embedding_dim": {"values": [16, 32, 64]}},
+        "base_config": {
+            "algorithm": "mf",
+            "dataset": {"dataset_path": data_dir, "n_negative_samples": 10},
+            "learn": {"n_epochs": 2, "optimizing_metric": "ndcg@10"},
+            "eval": {"top_k": [10], "metrics": ["ndcg", "recall"],
+                     "group_metrics": []},
+            "loader": {"batch_size": 512, "eval_batch_size": 256},
+            "run_settings": {"device": DEVICE, "seed": SEED}}})
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sibrar_tpu_torch.run_agent", "-c", path,
+         "-o", results, "-p", str(LAUNCH_WORKERS), "--trials-per-worker",
+         str(LAUNCH_TRIALS), "--devices", ",".join(["0"] * LAUNCH_WORKERS)],
+        capture_output=True, text=True, cwd=root, timeout=600,
+        env={**os.environ,
+             "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))})
+    wall = time.perf_counter() - t0
+    log(f"run_agent ({wall:.2f} s, exit {proc.returncode}): "
+        + " | ".join(proc.stdout.strip().splitlines()))
+    if proc.returncode != 0 or any(
+            f"worker {i} finished with code 0" not in proc.stdout
+            for i in range(LAUNCH_WORKERS)):
+        raise AssertionError(f"run_agent: {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-2000:]}")
+    for i in range(LAUNCH_WORKERS):
+        offset = i * LAUNCH_TRIALS
+        state = os.path.join(results, f"sweep_state_t{offset}.yml"
+                             if offset else "sweep_state.yml")
+        trials = [r["trial"] for r in parse_conf_file(state)["records"]]
+        if trials != list(range(offset, offset + LAUNCH_TRIALS)):
+            raise AssertionError(f"run_agent: {state} holds trials {trials}")
+    obs = SharedObservationLog(results).read()
+    if sorted(r["trial"] for r in obs) != list(range(n_trials)) or not all(
+            np.isfinite(r["value"]) for r in obs):
+        raise AssertionError(f"run_agent: observations {obs}")
+    kept = {os.path.dirname(p)
+            for p in glob.glob(os.path.join(results, "*", "model.pt"))}
+    best = {r["results_path"] for r in sorted(
+        obs, key=lambda r: r["value"], reverse=True)[:LAUNCH_KEEP]}
+    if kept != best:
+        raise AssertionError(f"run_agent: model.pt kept in {kept}, the best "
+                             f"runs are {best}")
+    values = ", ".join(f"{r['value']:.6f}" for r in obs)
+    log(f"run_agent: {LAUNCH_WORKERS} workers x {LAUNCH_TRIALS} mf trials "
+        f"on one card in {wall:.2f} s on {card}; {len(obs)} shared "
+        f"observations, val ndcg@10 {values}; model.pt kept in the best "
+        f"{len(kept)}")
 
 
 KNN_CONF_PATH = os.path.join(os.path.dirname(CONF_PATH), "knn.yml")

@@ -7,8 +7,10 @@
   always wins. The merge is deep: dicts merge key by key, any other value
   (lists too) is replaced whole by the side that wins.
 
-Of the port, only this module, ``experiment.py`` and ``run_experiment.py``
-import ``yaml``.
+Of the port, only this module and the CLI layer above it (``experiment.py``,
+``sweep.py`` and the ``python -m`` entry points) import ``yaml``;
+``config/paths.py`` and ``utils/analysis.py`` import it inside their
+functions.
 """
 from __future__ import annotations
 
@@ -89,6 +91,19 @@ def update_nested_dict(d: dict, key: str, value: Any) -> None:
                 f"({nxt!r}); cannot set nested key {key!r}")
         cur = nxt
     cur[keys[-1]] = value
+
+
+def nested_dict_get(d: dict, key: str, default: Any = None) -> Any:
+    """``d['a']['b']['c']`` for the key ``'a.b.c'``, or ``default`` where
+    a level is missing or not a dict."""
+    keys = key.split(".")
+    cur: Any = d
+    for k in keys[:-1]:
+        nxt = cur.get(k) if isinstance(cur, dict) else None
+        if not isinstance(nxt, dict):
+            return default
+        cur = nxt
+    return cur.get(keys[-1], default) if isinstance(cur, dict) else default
 
 
 def get_config(config_path: str, algorithm: str | None = None,

@@ -15,11 +15,11 @@ class ScoreFn:
     def __init__(self, model, items: torch.Tensor):
         self.model = model
         self.items = items
-        self.dot_parts = model.eval_rank_dot_parts(self.user_repr, items)
-
-    @torch.no_grad()
-    def user_repr(self, u_idxs: torch.Tensor) -> torch.Tensor:
-        return self.model.user_repr(u_idxs)
+        # the model's method, not one of self: a bound method of self kept
+        # on self is a reference cycle, which holds the model, its device
+        # data and the encoded catalog until the garbage collector runs
+        self.dot_parts = model.eval_rank_dot_parts(
+            torch.no_grad()(model.user_repr), items)
 
     @torch.no_grad()
     def __call__(self, u_idxs: torch.Tensor) -> torch.Tensor:

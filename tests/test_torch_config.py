@@ -209,3 +209,22 @@ def test_bf16_scores_stay_unported_at_load():
             jax_schema.from_dict(jax_schema.EvalConfig, data)
         with pytest.raises(ValueError, match="unsupported score_dtype"):
             config_from_dict(EvalConfig, data)
+
+
+NESTED = {"learn": {"lr": 0.01, "opt": None}, "model": {"item": {
+    "features": [{"name": "a"}], "dim": 0}}, "flat": 3, "none": None}
+
+
+@pytest.mark.parametrize("key", [
+    "learn.lr", "learn.opt", "learn.missing", "model.item.dim",
+    "model.item.features", "model.item.dim.deeper", "model.user.dim",
+    "flat", "flat.x", "none.x", "absent", "model"])
+def test_nested_dict_get_matches_jax(key):
+    """``nested_dict_get`` (JAX ``config/loader.py:100``): the value at a
+    dotted key, or the default where a level is missing or not a dict."""
+    from sibrar_tpu.config.loader import nested_dict_get as jax_get
+    from sibrar_tpu_torch.config.loader import nested_dict_get
+
+    for default in (None, "dflt"):
+        assert nested_dict_get(NESTED, key, default) == jax_get(
+            NESTED, key, default)

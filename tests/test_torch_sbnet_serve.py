@@ -328,6 +328,17 @@ assert stat_tests.paired_t_tests({"a": np.arange(5.0),
                                   "b": np.arange(5.0) ** 2})
 misc.reproducible(3)
 assert schema.DatasetSplitType("cold_start_item").is_cold_start
+from sibrar_tpu_torch import tpe
+from sibrar_tpu_torch.config import paths
+from sibrar_tpu_torch.utils import analysis, process
+sampler = tpe.TPESampler({"x": {"min": 0.0, "max": 1.0},
+                          "c": {"values": [["a"], ["a", "b"]]}}, seed=0,
+                         n_startup=2)
+for _ in range(4):
+    p = sampler.suggest()
+    sampler.observe(p, p["x"])
+assert paths.get_dataset_path("ml1m", "random", "/d") == "/d/ml1m/random_split"
+assert callable(process.on_parent_exit()) and callable(analysis.filter_by)
 assert feature.build_feature(schema.FeatureDefinition(
     "g", schema.FeatureType.TAG), ["a|b", "b"], 3).n_categories == 2
 assert probe_roll.PROBES["segment"]("cpu")

@@ -150,7 +150,7 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    ``stat_tests.compare_gathers`` over the two; then the sweeps
    (`sweep_phase`): ``sweep_agent.main`` in this process on a copy of
    ``conf/sweeps/sbnet/sbnet_onion18_random_huge_no-user.yml`` (bayes, its
-   seed and parameters) whose three trials train SBNet at the YAML's width
+   seed and parameters) whose two trials train SBNet at the YAML's width
    on the same artifacts for 100 steps each, validate and test: the trials
    are a fresh ``TPESampler``'s startup draws, each run's files carry
    JAX's keys, the best run alone keeps ``model.pt``, and
@@ -160,7 +160,23 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    2 --trials-per-worker 2 --devices 0,0``, a bayes sweep with
    ``shared_history`` over ``mf`` on the mid-scale artifacts, two workers
    on the one card: both exit 0, both state files, four shared
-   observations, the best two runs keep ``model.pt``;
+   observations, the best two runs keep ``model.pt``; then the mesh
+   (`mesh_phase`): four ranks launched by torchrun on the one card as a
+   (data 2, item 2) mesh over gloo (the collectives gloo takes on CUDA
+   tensors probed and logged) on the same artifacts and run directory:
+   the CLI run's ``model.pt`` validated on the mesh, both towers' kernels
+   row-sliced (metrics equal to one device's on the same
+   representations within 1e-5, and within MESH_TP_ATOL of the CLI's
+   single-process validation; for 1,024 users the sharded dot chain's
+   values bit-equal and ids equal to the unsharded chain's), MESH_STEPS
+   train steps against the same steps in this process (the first step's
+   loss within MESH_FIRST_RTOL, every step's within MESH_LOSS_RTOL), 1,024
+   test users served on the mesh against
+   one device (the same lists up to ties of the tensor-parallel
+   representations), K1-K7 and K13 launched on every rank; then ``python
+   -m sibrar_tpu_torch.run_experiment -t train_val_test`` under torchrun
+   with ``parallel.enabled`` (MESH_CLI_BATCHES steps): exit 0, the four
+   run files once;
 9. ``zoo``: DMF, ifeatmf, ufeatmf and DropoutNet, each at the full width
    of its ``conf/single/<name>_onion18.yml`` (the YAML chain's learn /
    dataset / loader blocks too), random weights from a seed, on the same
@@ -225,6 +241,7 @@ no CPU mode: without a CUDA device it exits with code 1.
 from __future__ import annotations
 
 import contextlib
+import copy
 import importlib.util
 import json
 import math
@@ -2462,6 +2479,8 @@ def cli_phase(splits, kernels, count_path, card: str) -> None:
                       count_path, card)
         zoo_cli_phase(data_dir, root, kernels, count_path, card)
         sweep_phase(data_dir, root, kernels, count_path, card)
+        mesh_phase(data_dir, run_dir, root, splits, val_metrics, kernels,
+                   count_path, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3757,7 +3776,9 @@ def zoo_cli_phase(data_dir: str, root: str, kernels, count_path,
 SWEEP_CONF_PATH = os.path.join(os.path.dirname(os.path.dirname(CONF_PATH)),
                                "sweeps", "sbnet",
                                "sbnet_onion18_random_huge_no-user.yml")
-SWEEP_TRIALS, SWEEP_BATCHES = 3, 100  # the SBNet sweep's trials, their steps
+# the SBNet sweep's trials (two, so that the mesh phase fits the script's
+# time limit) and their steps
+SWEEP_TRIALS, SWEEP_BATCHES = 2, 100
 # torch.cuda.memory_allocated() after a trial may stay this far above its
 # value before the first trial: room for the workspaces cuBLAS keeps once
 # made (32 MiB per thread on Hopper: the caller's and autograd's backward
@@ -4467,6 +4488,521 @@ def quality_phase(card: str) -> None:
     log(f"quality: {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------- the mesh
+MESH_RANKS, MESH_ITEM = 4, 2  # data 2 x item 2 on the one card
+MESH_STEPS = 20  # mesh train steps held to the same steps in one process
+MESH_USERS = 1024  # users of the bit-equal dot check and the served lists
+MESH_CLI_BATCHES = 60  # steps of the torchrun train_val_test
+# per-step loss, mesh against one process: the first step starts from the
+# same weights (the forward's sums in another order), then AdamW's
+# sign-like first steps carry the gradients' rounding into the weights and
+# the two runs drift apart (1.3e-3 to 1.8e-3 relative by step 20 on an
+# H100). AdamW hardly sees a gradient's scale, so the loss cannot tell a
+# sound step from a faulty one: the first step's gradients can
+MESH_FIRST_RTOL, MESH_LOSS_RTOL = 1e-5, 5e-3
+# the first step's averaged gradients against one process's,
+# ||mesh - one|| / ||one|| over this rank's leaves (its rows of the sliced
+# kernels), and over the sliced kernels alone. Batch norm's mean removal
+# amplifies any rounding most in the item tower's first-layer kernel:
+# one process's two sound first-layer paths (dense, INTERACTION_SPMM) are
+# that far apart too, and the phase logs it as the floor. Each fault
+# planted on the same step must read above its limit
+MESH_GRAD_RTOL, MESH_SLICE_GRAD_RTOL = 1e-3, 5e-2
+# validation of one model.pt on the mesh against one process: the towers'
+# row-parallel sums round their representations otherwise, and JAX holds
+# tensor-parallel runs to 2e-4
+MESH_TP_ATOL = 2e-4
+# the kernels each mesh call must launch on every rank, counted from 0
+# just before the call and read just after it
+MESH_WINDOWS = {
+    "validate": ("segment_gather", "score_wmax", "gather_windows",
+                 "peel_values", "spmm_fwd", "exact_topk"),
+    "dot": ("score_wmax", "gather_windows", "peel_values", "exact_topk"),
+    "train": ("segment_gather", "dw_matmul", "spmm_fwd", "spmm_bwd"),
+    "serve": ("segment_gather", "score_wmax", "gather_windows",
+              "peel_values", "exact_topk"),
+}
+
+
+def torchrun(args: list, timeout: float, log_path: str) -> int:
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    MESH_RANKS`` with ``args``, its output in ``log_path`` (echoed after
+    it ends); returns its exit code. torchrun stops its ranks itself."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(MESH_RANKS), *args]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p)}
+    with open(log_path, "w") as fh:
+        try:
+            rc = subprocess.run(cmd, stdout=fh, stderr=subprocess.STDOUT,
+                                timeout=timeout, cwd=here, env=env).returncode
+        except subprocess.TimeoutExpired:
+            rc = 124
+    with open(log_path) as fh:
+        for line in fh:
+            log(f"  | {line.rstrip()}")
+    return rc
+
+
+def mesh_phase(data_dir: str, run_dir: str, root: str, splits,
+               val_metrics: dict, kernels, count_path, card: str) -> None:
+    """SBNet onion18 on a (data 2, item 2) mesh of four ranks sharing the
+    card (gloo: NCCL refuses two ranks on one device), launched by torchrun
+    on the CLI phase's artifacts and run directory (`mesh_rank`): the
+    run's model.pt validated on the mesh (metrics within 1e-5 of one
+    device's on the same representations and within MESH_TP_ATOL of the
+    CLI's single-process validation; for MESH_USERS users the sharded dot
+    chain's values, its flagged rows redone as the evaluator redoes them,
+    bit-equal and ids equal to the unsharded one on the same
+    representations), MESH_STEPS train steps on the mesh against the same
+    steps in this process (the first step's gradients within
+    MESH_GRAD_RTOL, the sliced kernels' within MESH_SLICE_GRAD_RTOL, and
+    planted faults beyond them; its loss within MESH_FIRST_RTOL, every
+    step's within MESH_LOSS_RTOL), and the test split served on the mesh
+    against one device. Each of the four mesh calls counts its own launches, before
+    any single-device reference runs, and must launch its kernels of
+    MESH_WINDOWS on every rank. Then ``python -m
+    sibrar_tpu_torch.run_experiment -t train_val_test`` under torchrun with
+    ``parallel.enabled``: exit 0, and the four run files once."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    train = splits["train"]
+    tdata = train.to_device(DEVICE)
+    ref = sbnet_trainer(train, tdata, max_batches_per_epoch=MESH_STEPS)
+    first, step = {}, ref.optimizer.step
+
+    def keep_first_grads():  # the gradients the first step applies
+        if not first:
+            first.update({n: p.grad.detach().cpu()
+                          for n, p in ref.model.named_parameters()
+                          if p.grad is not None})
+        step()
+
+    ref.optimizer.step = keep_first_grads
+    ref.train_epoch()
+    ref_losses = ref.epoch_losses[:, 0].cpu().tolist()
+    grads = os.path.join(root, "mesh_grads.pt")
+    torch.save(first, grads)
+    # the floor: the same first step in one process through the other
+    # sound first-layer path, against the one above, leaf by leaf
+    from sibrar_tpu_torch.models import layers
+
+    alt = sbnet_trainer(train, tdata, max_batches_per_epoch=1)
+    flag, layers.INTERACTION_SPMM = layers.INTERACTION_SPMM, True
+    try:
+        alt.optimizer.zero_grad()
+        alt.forward_backward(torch.randperm(
+            int(tdata.train_users.shape[0]), generator=alt.gen,
+            device=alt.device)[:alt.batch_size])
+    finally:
+        layers.INTERACTION_SPMM = flag
+    floor = {n: [float((p.grad.cpu() - first[n]).square().sum()),
+                 float(first[n].square().sum())]
+             for n, p in alt.model.named_parameters() if n in first}
+    del ref, alt, tdata, first
+    torch.cuda.empty_cache()
+    args = os.path.join(root, "mesh_args.json")
+    out_dir = os.path.join(root, "mesh_out")
+    os.makedirs(out_dir)
+    with open(args, "w") as fh:
+        json.dump({"data_dir": data_dir, "run_dir": run_dir,
+                   "out_dir": out_dir, "val_metrics": val_metrics,
+                   "ref_losses": ref_losses, "grads": grads,
+                   "grad_floor": floor,
+                   "device": DEVICE,
+                   "steps": MESH_STEPS, "users": MESH_USERS}, fh)
+    t1 = time.perf_counter()
+    rc = torchrun([os.path.abspath(__file__), "mesh-rank", args], 600,
+                  os.path.join(root, "mesh_ranks.log"))
+    wall = time.perf_counter() - t1
+    if rc != 0:
+        raise AssertionError(f"mesh ranks exited {rc}")
+    results = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            results.append(json.load(fh))
+    for window, needed in MESH_WINDOWS.items():
+        total = {name: 0 for name in read_counts(kernels)}
+        for res in results:
+            counts = res["launches"][window]
+            missing = [n for n in needed if counts[n] == 0]
+            if missing:
+                raise AssertionError(f"rank {res['rank']}'s mesh {window} "
+                                     f"did not launch {missing}")
+            for n, c in counts.items():
+                total[n] += c
+        count_path(f"mesh {window} ({MESH_RANKS} ranks)", list(needed),
+                   counts=total)
+    r0 = results[0]
+    log(f"mesh: {MESH_RANKS} ranks (data {MESH_RANKS // MESH_ITEM} x item "
+        f"{MESH_ITEM}), backend {r0['backend']}, on {card}; torchrun "
+        f"{wall:.1f} s; gloo on CUDA tensors: {r0['gloo_cuda']}")
+    for res in results:
+        log(f"mesh rank {res['rank']}: " + json.dumps(
+            {k: res[k] for k in ("times", "peak_gib", "val_max_diff",
+                                 "dot_rows", "train", "grad_gap",
+                                 "serve")}))
+
+    t1 = time.perf_counter()
+    cli_dir = os.path.join(root, "mesh_run")
+    rc = torchrun([
+        "-m", "sibrar_tpu_torch.run_experiment", "-a", "sbnet", "-c",
+        CONF_PATH, "-d", data_dir, "-n", "onion18", "-t", "train_val_test",
+        "-o", f"results_path={cli_dir}", "-o", "dataset.user_features=[]",
+        "-o", "dataset.item_features=[" + ", ".join(
+            f"{{name: {n}, type: {t}}}" for n, t in CLI_FEATURES) + "]",
+        "-o", "eval.group_metrics=[]", "-o", "learn.n_epochs=1",
+        "-o", f"learn.max_batches_per_epoch={MESH_CLI_BATCHES}",
+        "-o", "parallel.enabled=true",
+        "-o", f"parallel.item_parallelism={MESH_ITEM}",
+        "-o", f"run_settings.device={'tpu' if DEVICE == 'cuda' else 'cpu'}"],
+        600,
+        os.path.join(root, "mesh_cli.log"))
+    files = sorted(os.listdir(cli_dir)) if os.path.isdir(cli_dir) else []
+    if rc != 0 or files != ["conf.yml", "metrics_test.yml",
+                            "metrics_val.yml", "model.pt"]:
+        raise AssertionError(f"torchrun train_val_test: exit {rc}, files "
+                             f"{files}")
+    from sibrar_tpu_torch.config.loader import parse_conf_file
+
+    test = parse_conf_file(os.path.join(cli_dir, "metrics_test.yml"))
+    if not all(np.isfinite(v) for v in test.values()):
+        raise AssertionError("torchrun train_val_test: metrics not finite")
+    log(f"mesh CLI (torchrun, {MESH_RANKS} ranks, {MESH_CLI_BATCHES} steps, "
+        f"validation and test on the mesh): {time.perf_counter() - t1:.1f} s "
+        f"on {card}; test ndcg@10 {test['test/ndcg@10']:.6f}")
+    log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+
+
+def mesh_rank(args_path: str) -> int:
+    """One rank of `mesh_phase` (``chip_smoke.py mesh-rank ARGS``, under
+    torchrun): writes ``rank{r}.json`` with its checks, times and launch
+    counts, and raises on a failed check."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from sibrar_tpu_torch import full_f32
+    from sibrar_tpu_torch.data.dataset import RecDataset
+    from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
+    from sibrar_tpu_torch.experiment import _load_split, _run_conf
+    from sibrar_tpu_torch.config.loader import load_split_type
+    from sibrar_tpu_torch.models.sbnet import SingleBranchNet
+    from sibrar_tpu_torch.ops import _cuda, dw, exact_topk, peel, sparse, spmm
+    from sibrar_tpu_torch.ops import window
+    from sibrar_tpu_torch.ops.window import pad_catalog
+    from sibrar_tpu_torch.parallel import distributed as pdist
+    from sibrar_tpu_torch.parallel.mesh import (
+        batch_group,
+        catalog_slice,
+        make_mesh,
+        shard_rows,
+        sharded_masked_topk,
+        sharded_masked_topk_dot,
+    )
+    from sibrar_tpu_torch.serve import Recommender
+    from sibrar_tpu_torch.train.scoring import make_score_fn
+    from sibrar_tpu_torch.train.trainer import Trainer
+
+    with open(args_path) as fh:
+        args = json.load(fh)
+    if not pdist.initialize_distributed():
+        raise RuntimeError("mesh-rank runs under torchrun")
+    rank = dist.get_rank()
+    dev = torch.device(args["device"])
+    on_card = dev.type == "cuda"
+    full_f32()
+    if on_card:
+        _cuda.build()  # loads what the parent built
+    times = {}
+    out = {"rank": rank, "backend": dist.get_backend(), "launches": {}}
+    counted = {"segment_gather": sparse.segment_gather,
+               "score_wmax": window.score_wmax,
+               "gather_windows": peel.gather_windows,
+               "peel_values": peel.peel_values, "dw_matmul": dw.dw_matmul,
+               "spmm_fwd": spmm.spmm_fwd, "spmm_bwd": spmm.spmm_bwd,
+               "exact_topk": exact_topk.exact_topk,
+               "window_max": peel.window_max}
+
+    # the port's collectives call gloo on CUDA tensors as they are: check
+    # that it takes each of them here (every rank tries the same ones, so
+    # a refusal is symmetric) and name the one it refuses
+    gloo_cuda = {}
+    if on_card and dist.get_backend() == "gloo":
+        x = torch.ones(4, device=dev)
+        for op, call in (
+                ("all_reduce", lambda: dist.all_reduce(x.clone())),
+                ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+                ("all_gather", lambda: dist.all_gather(
+                    [torch.empty_like(x) for _ in range(dist.get_world_size())],
+                    x))):
+            try:
+                call()
+                torch.cuda.synchronize()
+                gloo_cuda[op] = "yes"
+            except RuntimeError as e:
+                gloo_cuda[op] = f"no ({str(e).splitlines()[0][:80]})"
+    out["gloo_cuda"] = gloo_cuda
+    if any(v != "yes" for v in gloo_cuda.values()):
+        raise AssertionError(f"gloo refuses CUDA tensors: {gloo_cuda}")
+    mesh = make_mesh(MESH_RANKS, item_parallelism=MESH_ITEM)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def phase(name, fn):
+        sync()
+        dist.barrier()
+        t = time.perf_counter()
+        res = fn()
+        sync()
+        times[name] = round(time.perf_counter() - t, 3)
+        return res
+
+    t = time.perf_counter()
+    conf = _run_conf(args["run_dir"])
+    split_type = load_split_type(conf.dataset.dataset_path)
+    ds = {s: _load_split(conf, s, split_type) for s in ("train", "val",
+                                                        "test")}
+    dd = {s: d.to_device(dev) for s, d in ds.items()}
+    times["load"] = round(time.perf_counter() - t, 3)
+
+    def trainer(split: str, seed: int, **learn):
+        model = SingleBranchNet.build_from_conf(conf.model, ds["train"],
+                                                dd["train"], seed=seed)
+        ev = FullEvaluator(conf.eval, ds[split], dd[split],
+                           evaluator_name=split, mesh=mesh)
+        learn_conf = copy.deepcopy(conf.learn)
+        for k, v in learn.items():
+            setattr(learn_conf, k, v)
+        return Trainer(model, ds["train"], learn_conf, conf.dataset,
+                       batch_size=conf.loader.batch_size, seed=seed,
+                       device_data=dd["train"], val_evaluator=ev,
+                       eval_batch_size=conf.loader.eval_batch_size,
+                       mesh=mesh,
+                       tower_min_rows=conf.parallel.tower_min_rows)
+
+    def counted_call(name, fn):
+        """``fn()`` with the launch counts set to 0 just before it and read
+        into ``out["launches"][name]`` just after it."""
+        for kernel in counted.values():
+            kernel.launches = 0
+        res = fn()
+        out["launches"][name] = {n: kernel.launches
+                                   for n, kernel in counted.items()}
+        return res
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    # 1. validation of the CLI run's model.pt on the mesh
+    val = trainer("val", conf.run_settings.seed)
+    val.load(args["run_dir"])
+    if not val._tp:
+        raise AssertionError("no tower kernel was row-sliced")
+    metrics = phase("validate", lambda: counted_call("validate",
+                                                     val.validate))
+    # the same representations (the mesh's) ranked on one device: every
+    # rank runs all users through the single-device evaluator, its item
+    # group computing the tensor-parallel user rows together
+    score_fn = val.make_score_fn()
+    items = score_fn.items  # this rank's catalog slice
+    c = ds["val"].n_items_in_split
+    lo, local_c = catalog_slice(c, mesh)
+    whole = torch.cat(pdist.all_gather(items.contiguous(),
+                                       mesh.item_group))[:c]
+
+    def unsharded(u):
+        return score_fn.dot_parts[0](u) @ whole.T
+
+    unsharded.dot_parts = (score_fn.dot_parts[0], whole)
+    same_reprs = phase("validate_unsharded", lambda: evaluate_model(
+        unsharded, FullEvaluator(conf.eval, ds["val"], dd["val"],
+                                 evaluator_name="val"),
+        conf.loader.eval_batch_size))
+    want = args["val_metrics"]
+    for other in (same_reprs, want):
+        if set(metrics) != set(other):
+            raise AssertionError(f"mesh validation keys differ: "
+                                 f"{sorted(set(metrics) ^ set(other))}")
+    out["val_max_diff"] = {
+        "same_representations": max(abs(metrics[k] - same_reprs[k])
+                                    for k in want),
+        "single_process": max(abs(metrics[k] - want[k]) for k in want)}
+    if out["val_max_diff"]["same_representations"] > 1e-5:
+        raise AssertionError(f"mesh validation differs from one device's "
+                             f"on the same representations: "
+                             f"{out['val_max_diff']}")
+    if out["val_max_diff"]["single_process"] > MESH_TP_ATOL:
+        raise AssertionError(f"mesh validation differs from the single-"
+                             f"process one: {out['val_max_diff']}")
+    # the sharded dot chain against the unsharded one on the same user and
+    # item representations, every row: the rows the peel flags redone as
+    # the evaluator redoes them (the per-shard scatter over K2's scores),
+    # the unsharded chain redoing its own; values bit-equal, ids equal
+    users = shard_rows(dd["val"].users_in_split[:args["users"]], mesh)
+    u = score_fn.dot_parts[0](users)
+    cols, mask = sparse.csr_row_gather(dd["val"].exclude_csr, users)
+    k = max(conf.eval.top_k)
+    items_p = pad_catalog(items)
+
+    def sharded_dot():
+        v, i, ok = sharded_masked_topk_dot(u, items_p, cols, mask, k, mesh,
+                                           n_catalog=c, local_c=local_c)
+        bad = (~ok).nonzero().squeeze(1)  # shared by the item group
+        if bad.numel():
+            s = window.score_wmax(u[bad], items_p)[0][:, :local_c]
+            v[bad], i[bad] = sharded_masked_topk(s, cols[bad], mask[bad], k,
+                                                 mesh, use_peel=False)
+        return v, i, ok
+
+    v, i, ok = counted_call("dot", sharded_dot)
+    wv, wi, _ = peel.peel_masked_topk_dot(u, whole, cols, mask, k)
+    if not (torch.equal(v, wv) and torch.equal(i, wi)):
+        apart = ((v != wv) | (i != wi)).any(1)
+        raise AssertionError(
+            f"sharded dot chain differs from the unsharded one on the same "
+            f"representations: {int((apart & ok).sum())} of "
+            f"{int(ok.sum())} peel-exact rows and {int((apart & ~ok).sum())} "
+            f"of {int((~ok).sum())} redone rows; values up to "
+            f"{float((v - wv).abs().max())} apart")
+    out["dot_rows"] = {"compared": int(users.shape[0]),
+                       "peel_exact": int(ok.sum())}
+    del score_fn, items, items_p, whole, val
+
+    # 2. MESH_STEPS train steps against the same steps in one process; the
+    # first step's averaged gradients against the ones one process applied,
+    # and what four faults of the averaging would have given
+    tr = trainer("val", 0, max_batches_per_epoch=args["steps"])
+    ref_grads = torch.load(args["grads"], map_location=dev, weights_only=True)
+    names = {id(p): n for n, p in tr.model.named_parameters()}
+    sliced = tr._tp
+    for n, (lo, hi, _) in sliced.items():
+        ref_grads[n] = ref_grads[n][lo:hi]
+    gaps, average = {}, tr._average_grads
+
+    def floor(only) -> float:  # one process's two first-layer paths
+        num, den = (sum(args["grad_floor"][n][j] for n in only)
+                    for j in (0, 1))
+        return (num / max(den, 1e-30)) ** 0.5
+
+    def gap(grads: dict, only=None) -> float:
+        """||grads - ref_grads|| / ||ref_grads|| over the leaves
+        (``only`` of them)."""
+        num = den = 0.0
+        for n, g in grads.items():
+            if only is None or n in only:
+                w = ref_grads.get(n, torch.zeros_like(g))
+                num += float((g - w).square().sum())
+                den += float(w.square().sum())
+        return (num / max(den, 1e-30)) ** 0.5
+
+    def checked_average():
+        if gaps:
+            return average()
+        params = tr.optimizer.params
+        raw = {names[id(p)]: p.grad.clone() if p.grad is not None
+               else torch.zeros_like(p) for p in params}
+        average()
+        got = {names[id(p)]: p.grad for p in params}
+        n_batch = batch_group(mesh, tr._flat)[2]
+        over_world = {n: pdist.all_reduce(raw[n].clone(),
+                                          group=mesh.world_group)
+                      / MESH_RANKS for n in sliced}
+        worst = max(got, key=lambda n: float(
+            (got[n] - ref_grads.get(n, torch.zeros_like(got[n]))).norm()))
+        gaps.update({
+            "whole": gap(got), "sliced": gap(got, sliced),
+            "floor_whole": floor(args["grad_floor"]),
+            "floor_sliced": floor(sliced),
+            **{f"sliced {n}": gap(got, (n,)) for n in sliced},
+            "worst_leaf": worst, "worst_leaf_gap": gap(got, (worst,)),
+            "faults": {
+                "not_averaged": gap(raw),
+                "summed": gap({n: g * n_batch for n, g in got.items()}),
+                "slices_not_averaged": gap(raw, sliced),
+                "slices_over_world": gap(over_world)}})
+
+    tr._average_grads = checked_average
+    phase("train", lambda: counted_call("train", tr.train_epoch))
+    out["grad_gap"] = gaps
+    if not (gaps["whole"] <= MESH_GRAD_RTOL
+            and gaps["sliced"] <= MESH_SLICE_GRAD_RTOL):
+        raise AssertionError(f"mesh gradients differ from one process's: "
+                             f"{gaps}")
+    blind = [f for f, g in gaps["faults"].items() if not g > (
+        MESH_SLICE_GRAD_RTOL if f.startswith("slices") else MESH_GRAD_RTOL)]
+    if blind:
+        raise AssertionError(f"the gradient gate does not see {blind}: "
+                             f"{gaps}")
+    del ref_grads
+    got = tr.epoch_losses[:, 0].cpu().numpy()
+    ref = np.asarray(args["ref_losses"])
+    rel = float(np.max(np.abs(got - ref) / np.abs(ref)))
+    out["train"] = {"steps": len(got), "max_rel_loss_diff": rel,
+                    "ms_per_step": round(1e3 * times["train"] / len(got), 3),
+                    "first": float(got[0]), "last": float(got[-1])}
+    first = abs(got[0] - ref[0]) / abs(ref[0])
+    out["train"]["first_rel_loss_diff"] = float(first)
+    if (not np.isfinite(got).all() or rel > MESH_LOSS_RTOL
+            or first > MESH_FIRST_RTOL):
+        raise AssertionError(f"mesh train losses {got} against one "
+                             f"process's {ref}")
+    del tr
+
+    # 4. the test split served on the mesh against one device
+    model = SingleBranchNet.build_from_conf(conf.model, ds["train"],
+                                            dd["train"], seed=0)
+    model.load_state_dict(torch.load(os.path.join(args["run_dir"],
+                                                  "model.pt"),
+                                     map_location=dev, weights_only=True))
+    one_fn = make_score_fn(model, dd["test"].catalog)
+    serving = trainer("test", 0)
+    serving.load(args["run_dir"])
+    mesh_fn = serving.make_score_fn()
+    rec_users = np.asarray(ds["test"].users_in_split)[:args["users"]]
+    rec = Recommender(mesh_fn, ds["test"], dd["test"], k=k, batch_size=1024,
+                      mesh=mesh)
+    if on_card and not rec.use_dot:  # C = 100,352: the dot chain's
+        raise AssertionError("the mesh Recommender took the scores path")
+    ids, vals = phase("serve", lambda: counted_call(
+        "serve", lambda: rec.recommend(rec_users, return_scores=True)))
+    one = Recommender(one_fn, ds["test"], dd["test"], k=k, batch_size=1024)
+    wids, wvals = one.recommend(rec_users, return_scores=True)
+    catalog = np.asarray(ds["test"].items_in_split)
+    inv = np.full(ds["test"].n_items, -1, np.int64)
+    inv[catalog] = np.arange(len(catalog))
+    pos = inv[ids]
+    scores = one_fn(torch.as_tensor(rec_users, device=dev)).gather(
+        1, torch.as_tensor(pos, device=dev)).cpu().numpy()
+    # the mesh ranks with its own (tensor-parallel) representations: each
+    # list must hold the single device's top-k up to the rounding of those
+    # representations (ties within 1e-5 relative)
+    tol = 1e-5 * np.abs(wvals).max()
+    same = np.array_equal(ids, wids)
+    if not same and not (np.abs(vals - wvals).max() <= tol
+                         and np.abs(scores - wvals).max() <= tol):
+        raise AssertionError("mesh lists differ from one device's beyond "
+                             "ties")
+    out["serve"] = {"users": len(rec_users), "ids_equal": bool(same),
+                    "rows_differing": int((ids != wids).any(1).sum()),
+                    "max_abs_value_diff": float(np.abs(vals - wvals).max())}
+    out["peak_gib"] = (round(torch.cuda.max_memory_allocated() / 2**30, 3)
+                       if on_card else None)
+    out["times"] = times
+    with open(os.path.join(args["out_dir"], f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    log(f"rank {rank}: launches {json.dumps(out['launches'])}")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4618,8 +5154,11 @@ def main() -> int:
     check_one_slot(train.n_items, dev)
     launches = {name: 0 for name, _, _, _ in kernels}
 
-    def count_path(path: str, needed: list, absent: tuple = ()) -> dict:
-        counts = read_counts(kernels)
+    def count_path(path: str, needed: list, absent: tuple = (),
+                   counts: dict | None = None) -> dict:
+        """Gate and add the launches of a path: this process's counters,
+        or ``counts`` other processes reported."""
+        counts = read_counts(kernels) if counts is None else counts
         log(f"launches, {path}: {counts}")
         missing = [n for n in needed if counts[n] == 0]
         if missing:
@@ -4791,4 +5330,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["mesh-rank"]:  # one rank of mesh_phase
+        sys.exit(mesh_rank(sys.argv[2]))
     sys.exit(main())

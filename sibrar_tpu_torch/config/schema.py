@@ -7,8 +7,10 @@ annotations, unknown keys ignored, ``validate()``). Standard library only.
 Fields that only the TPU package acts on are accepted and ignored:
 ``learn.epoch_scan_chunk`` (the port runs its steps eagerly),
 ``loader.num_workers`` / ``prefetch_factor`` / ``shuffle`` (batches are
-drawn on the device), ``parallel.*`` while it asks for one device, and
-``run_settings.device: tpu``, which means the card (`experiment.py`).
+drawn on the device) and ``run_settings.device: tpu``, which means the card
+(`experiment.py`). ``parallel.*`` sets the device mesh of a run under
+torchrun (`parallel.mesh.make_mesh_from_config`); in one process it asks
+for one device, whatever it says.
 """
 from __future__ import annotations
 
@@ -19,7 +21,6 @@ from typing import Any, Optional
 
 # the exact top-k strategies of ``ops/topk.py`` (``eval.topk_method``)
 TOPK_METHODS = ("auto", "full", "scatter", "noscatter", "peel", "pallas")
-NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item {})"
 
 
 class FeatureType(str, enum.Enum):
@@ -196,8 +197,12 @@ class DatasetConfig:
 
 @dataclass
 class ParallelConfig:
-    """The multi-device block. ``enabled: null`` and ``n_devices: null``
-    (auto) mean one device here; more is not ported."""
+    """The multi-device block (`parallel.mesh.make_mesh_from_config`):
+    ``enabled: null`` turns the mesh on for a world of more than one rank
+    on CUDA, ``n_devices`` caps the ranks, ``item_parallelism`` fixes the
+    item axis, ``adjust_batch_sizes`` rounds the train batch up to divide
+    over the mesh, ``shard_towers`` / ``tower_min_rows`` row-slice the
+    interaction towers' kernels over the item axis."""
 
     enabled: Optional[bool] = None
     n_devices: Optional[int] = None

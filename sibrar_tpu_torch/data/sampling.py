@@ -21,6 +21,7 @@ from sibrar_tpu_torch.ops.sparse import (
     contains_rows_pregather,
     csr_contains,
 )
+from sibrar_tpu_torch.parallel.mesh import local_draw
 
 
 def _bad_mask(csr: DeviceCSR, users: torch.Tensor, cand: torch.Tensor,
@@ -149,7 +150,8 @@ def sample_k_modalities(gen: Optional[torch.Generator], shape: tuple,
     shape = tuple(shape)
 
     def randint(high):
-        return torch.randint(0, high, shape, generator=gen, device=device)
+        return local_draw(lambda s: torch.randint(
+            0, high, s, generator=gen, device=device), shape)
 
     if k == 1:
         return randint(n_modalities).unsqueeze(-1)
@@ -162,7 +164,8 @@ def sample_k_modalities(gen: Optional[torch.Generator], shape: tuple,
         second = randint(n_modalities - 1)
         second = torch.where(second >= central, second + 1, second)
     pair = torch.stack([first, second], dim=-1)
-    flip = torch.rand(shape, generator=gen, device=device) < 0.5
+    flip = local_draw(lambda s: torch.rand(s, generator=gen, device=device),
+                      shape) < 0.5
     return torch.where(flip.unsqueeze(-1), pair.flip(-1), pair)
 
 

@@ -26,7 +26,17 @@ batch. Everything runs eagerly, one batch after the other.
 K15 in place of K2, on the dot path and the scores path alike, so both
 rank the same scores; without ``dot_parts`` it warns and stays in f32.
 
-Not in this slice: the item-sharded ``mesh`` (ROADMAP.md queue 1, item 8).
+On a device mesh (``mesh=``, `parallel.mesh.make_mesh`) every rank runs the
+same global batches: each takes its data-axis rows (`shard_rows`) and its
+item-axis slice of the catalog, selects per shard and merges the candidates
+over the item group (`parallel.mesh.sharded_masked_topk`, or
+`sharded_masked_topk_dot` on the dot path), redoes the rows the peel flags
+(flags the item group shares) with the per-shard scatter, and keeps its
+rows' per-user metrics. `FullEvaluator.get_results` gathers them over the
+data axis in batch order and ORs the coverage flags, so every rank returns
+the single-device results up to summation order. A scorer built on the mesh
+(``score_fn.mesh``) gives this rank's catalog columns; any other gives the
+whole catalog, and this rank keeps its columns.
 """
 from __future__ import annotations
 
@@ -37,7 +47,6 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from sibrar_tpu_torch.config.schema import NOT_PORTED
 from sibrar_tpu_torch.data.dataset import DeviceData, RecDataset
 from sibrar_tpu_torch.eval.metrics import (
     DISTRIBUTION_METRICS,
@@ -48,8 +57,18 @@ from sibrar_tpu_torch.eval.metrics import (
 from sibrar_tpu_torch.ops.gemm_probe import score_bf16
 from sibrar_tpu_torch.ops.peel import peel_masked_topk_dot, peel_viable
 from sibrar_tpu_torch.ops.sparse import csr_contains_rows, csr_row_gather
-from sibrar_tpu_torch.ops.topk import masked_topk
-from sibrar_tpu_torch.ops.window import WINDOW, pad_catalog
+from sibrar_tpu_torch.ops.topk import NEG, masked_topk
+from sibrar_tpu_torch.ops.window import WINDOW, pad_catalog, score_wmax
+from sibrar_tpu_torch.parallel import distributed as pdist
+from sibrar_tpu_torch.parallel.mesh import (
+    ITEM_AXIS,
+    catalog_slice,
+    shard_catalog,
+    shard_rows,
+    sharded_dot_viable,
+    sharded_masked_topk,
+    sharded_masked_topk_dot,
+)
 
 
 def natsort_key(s: str):
@@ -59,16 +78,17 @@ def natsort_key(s: str):
 class FullEvaluator:
     """Batch-incremental metric accumulation over full-catalog rankings,
     on the device of its `DeviceData` (the card unless ``device`` says
-    otherwise). ``config`` is an `EvalConfig` (``train/trainer.py``)."""
+    otherwise). ``config`` is an `EvalConfig` (``train/trainer.py``).
+    ``mesh`` shards batches over its data axis and the catalog over its
+    item axis; the eager `eval_batch` / `eval_batch_from_topk` then take
+    this rank's rows (and its catalog columns)."""
 
     def __init__(self, config, dataset: RecDataset,
                  device_data: Optional[DeviceData] = None,
                  evaluator_name: Optional[str] = None, mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"the item-sharded evaluator is {NOT_PORTED.format(8)}")
         config.validate()
+        self.mesh = mesh
         self.config = config
         self.name = evaluator_name
         self.dataset = dataset
@@ -113,6 +133,7 @@ class FullEvaluator:
         self._per_user_users: list = []
         self._valid: list = []
         self._cov_flags: Dict[str, torch.Tensor] = {}
+        self._batch_rows: list[int] = []
 
     def _metrics_from_topk(self, topk_idx: torch.Tensor,
                            u_idxs: torch.Tensor):
@@ -129,7 +150,11 @@ class FullEvaluator:
 
     def _eval_batch(self, scores: torch.Tensor, u_idxs: torch.Tensor):
         """``(metrics, cov)`` of one batch on the scores path; rows the peel
-        flags are redone with the scatter top-k."""
+        flags are redone with the scatter top-k. On a mesh ``scores`` is
+        this rank's tile (its rows, its catalog columns)."""
+        if self.mesh is not None:
+            return self._metrics_from_topk(
+                self._sharded_topk(scores, u_idxs), u_idxs)
         _, topk_idx, ok = masked_topk(scores, self.data.exclude_csr, u_idxs,
                                       self.k_max, method=self.method,
                                       return_ok=True)
@@ -142,6 +167,46 @@ class FullEvaluator:
                     scores[bad], self.data.exclude_csr, u_idxs[bad],
                     self.k_max, method="scatter")
         return self._metrics_from_topk(topk_idx, u_idxs)
+
+    def _pad_columns(self, scores: torch.Tensor) -> torch.Tensor:
+        """A tile's columns past the catalog (its padding to the item
+        axis) at -1e30."""
+        lo, local_c = catalog_slice(self.dataset.n_items_in_split, self.mesh)
+        live = self.dataset.n_items_in_split - lo
+        if live >= local_c:
+            return scores
+        return torch.cat([scores[:, :live], scores.new_full(
+            (scores.shape[0], local_c - live), NEG)], dim=1)
+
+    def _sharded_topk(self, scores: torch.Tensor, u_idxs: torch.Tensor
+                      ) -> torch.Tensor:
+        """Top-``k_max`` catalog positions of this rank's rows from its tile
+        ``scores``: `sharded_masked_topk` (the peel per shard where
+        ``topk_method`` allows it and `peel_viable`, an explicit other
+        method forcing the scatter), the rows it flags redone with the
+        scatter."""
+        scores = self._pad_columns(scores)
+        cols, mask = csr_row_gather(self.data.exclude_csr, u_idxs)
+        use_peel = None if self._peel_possible else False
+        _, topk_idx, ok = sharded_masked_topk(
+            scores, cols, mask, self.k_max, self.mesh, use_peel=use_peel,
+            return_ok=True)
+        return self._redo_flagged(topk_idx, ok, lambda rows: scores[rows],
+                                  cols, mask)
+
+    def _redo_flagged(self, topk_idx, ok, scores_of, cols, mask):
+        """``topk_idx`` with the rows ``ok`` flags redone by the per-shard
+        scatter over their tiles ``scores_of(rows)``; the item group
+        shares the flags, so its ranks redo together."""
+        if not self._peel_possible:
+            return topk_idx
+        bad = (~ok).nonzero().squeeze(1)
+        self.redo_rows.append(int(bad.numel()))
+        if bad.numel():
+            topk_idx[bad] = sharded_masked_topk(
+                scores_of(bad), cols[bad], mask[bad], self.k_max, self.mesh,
+                use_peel=False)[1]
+        return topk_idx
 
     def make_dot_eval_batch(self, user_repr_fn: Callable,
                             items: torch.Tensor,
@@ -157,6 +222,9 @@ class FullEvaluator:
             return None
         n_catalog = self.dataset.n_items_in_split
         csr = self.data.exclude_csr
+        if self.mesh is not None and self.mesh.shape[ITEM_AXIS] > 1:
+            return self._sharded_dot_eval_batch(user_repr_fn, items,
+                                                score_dtype)
         if (items.shape[0] != n_catalog
                 or not peel_viable(n_catalog, self.k_max, csr.max_row_len)):
             return None
@@ -169,6 +237,44 @@ class FullEvaluator:
                 user_repr_fn(u_idxs), items_p, cols, mask, self.k_max,
                 c_real=n_catalog, score_dtype=score_dtype)
             self.redo_rows.append(int((~ok).sum()))
+            return self._metrics_from_topk(topk_idx, u_idxs)
+
+        return eval_batch
+
+    def _sharded_dot_eval_batch(self, user_repr_fn: Callable,
+                                items: torch.Tensor,
+                                score_dtype: Optional[str]
+                                ) -> Optional[Callable]:
+        """The dot path on an item-sharded mesh: every shard runs K2 (K15)
+        and the peel on its slice (`sharded_masked_topk_dot`); flagged rows
+        are redone by the per-shard scatter over the same kernel's scores.
+        ``items`` is this rank's slice or the whole catalog (sliced here).
+        None where `sharded_dot_viable` fails."""
+        n_catalog = self.dataset.n_items_in_split
+        lo, local_c = catalog_slice(n_catalog, self.mesh)
+        if not sharded_dot_viable(n_catalog, self.k_max,
+                                  self.data.exclude_csr.max_row_len,
+                                  self.mesh):
+            return None
+        if items.shape[0] == n_catalog:
+            items = shard_catalog(items, self.mesh)
+        if items.shape[0] != local_c:
+            return None
+        items_p = pad_catalog(items)
+        score = score_bf16 if score_dtype == "bfloat16" else score_wmax
+
+        def eval_batch(u_idxs: torch.Tensor):
+            u = user_repr_fn(u_idxs)
+            cols, mask = csr_row_gather(self.data.exclude_csr, u_idxs)
+            _, topk_idx, ok = sharded_masked_topk_dot(
+                u, items_p, cols, mask, self.k_max, self.mesh,
+                n_catalog=n_catalog, local_c=local_c,
+                score_dtype=score_dtype)
+            topk_idx = self._redo_flagged(
+                topk_idx, ok,
+                lambda rows: self._pad_columns(
+                    score(u[rows], items_p)[0][:, :local_c]),
+                cols, mask)
             return self._metrics_from_topk(topk_idx, u_idxs)
 
         return eval_batch
@@ -195,6 +301,7 @@ class FullEvaluator:
         self._accumulate(u_idxs, valid, metrics, cov)
 
     def _accumulate(self, u_idxs, valid, metrics, cov) -> None:
+        self._batch_rows.append(int(u_idxs.shape[0]))
         self._per_user_users.append(u_idxs)
         self._valid.append(np.ones(int(u_idxs.shape[0]), bool)
                            if valid is None else np.asarray(valid, bool))
@@ -209,6 +316,26 @@ class FullEvaluator:
     # ------------------------------------------------------------- results
     def _key(self, base: str) -> str:
         return f"{self.name}/{base}" if self.name else base
+
+    def _gather_ranks(self, per_user, cov, users, valid):
+        """Every data rank's per-user values in global batch order (each
+        batch's rows rank after rank, as `shard_rows` split them), the
+        coverage flags OR-ed over the data axis."""
+        group = self.mesh.data_group
+
+        def interleave(x):
+            parts = pdist.all_gather(x.contiguous(), group)
+            out, start = [], 0
+            for rows in self._batch_rows:
+                out += [p[..., start:start + rows] for p in parts]
+                start += rows
+            return torch.cat(out, -1) if out else x
+
+        cov = pdist.all_reduce(cov.to(torch.int32), "max", group) > 0
+        users = interleave(users) if users.numel() else users
+        valid = torch.as_tensor(valid, device=self.device)
+        return (interleave(per_user), cov, users,
+                interleave(valid).cpu().numpy())
 
     def get_results(self, return_raw_results: bool = False):
         """Means (and population stds with ``compute_std``) of the per-user
@@ -231,6 +358,10 @@ class FullEvaluator:
         users = (torch.cat(self._per_user_users)
                  if self._group_features and self._per_user_users
                  else torch.zeros(0, device=dev))
+        if self.mesh is not None:
+            per_user, cov, users, valid = self._gather_ranks(
+                per_user, cov, users, valid)
+            n = len(valid)
         # user ids < 2**24 are exact in f32
         host = torch.cat([per_user.flatten(), cov.float().flatten(),
                           users.float()]).cpu().numpy()
@@ -294,7 +425,7 @@ def evaluate_model(score_fn: Callable[[torch.Tensor], torch.Tensor],
             sd)
         sd = None
     else:
-        score_fn = _bf16_scorer(*dot_parts, evaluator.dataset.n_items_in_split)
+        score_fn = _bf16_scorer(*dot_parts, getattr(score_fn, "mesh", None))
     users = evaluator.data.users_in_split
     n = int(users.shape[0])
     bs = min(batch_size, max(n, 1))
@@ -302,24 +433,37 @@ def evaluate_model(score_fn: Callable[[torch.Tensor], torch.Tensor],
     if pad:
         users = torch.cat([users, users[-1:].expand(pad)])
     valid = np.arange(n + pad) < n
+    mesh = evaluator.mesh
     dot_batch = (evaluator.make_dot_eval_batch(*dot_parts, score_dtype=sd)
                  if dot_parts is not None else None)
+    local_cols = getattr(score_fn, "mesh", None) is not None
     for start in range(0, n + pad, bs):
-        u = users[start:start + bs]
-        metrics, cov = (dot_batch(u) if dot_batch is not None
-                        else evaluator._eval_batch(score_fn(u), u))
-        evaluator._accumulate(u, valid[start:start + bs], metrics, cov)
+        u = shard_rows(users[start:start + bs], mesh)
+        v = valid[start:start + bs]
+        if mesh is not None:
+            v = shard_rows(torch.from_numpy(v), mesh, fill=False).numpy()
+        if dot_batch is not None:
+            metrics, cov = dot_batch(u)
+        else:
+            scores = score_fn(u)
+            if mesh is not None and not local_cols:
+                scores = shard_catalog(scores, mesh, dim=1, fill=NEG)
+            metrics, cov = evaluator._eval_batch(scores, u)
+        evaluator._accumulate(u, v, metrics, cov)
     return evaluator.get_results()
 
 
-def _bf16_scorer(user_repr_fn: Callable, items: torch.Tensor, c: int
+def _bf16_scorer(user_repr_fn: Callable, items: torch.Tensor, mesh=None
                  ) -> Callable:
-    """``fn(u_idxs) -> [B, c]``: K15's scores of the dot parts, the catalog
-    padded once to a 128 multiple (K15's tile)."""
+    """``fn(u_idxs) -> [B, C]``: K15's scores of the dot parts ``[C, D]``
+    (on a mesh this rank's slice, ``fn.mesh`` set), the catalog padded
+    once to a 128 multiple (K15's tile)."""
+    c = items.shape[0]
     items_p = pad_catalog(items, WINDOW)
 
     def score_fn(u_idxs: torch.Tensor) -> torch.Tensor:
         scores = score_bf16(user_repr_fn(u_idxs), items_p)[0]
         return scores if scores.shape[1] == c else scores[:, :c].contiguous()
 
+    score_fn.mesh = mesh
     return score_fn

@@ -29,8 +29,17 @@ when there is none, ``cpu`` runs on the CPU. ``run_settings.debug_nans``
 makes the trainer raise ``FloatingPointError`` at the first train step
 with a NaN in its loss, gradients or updated parameters (JAX's
 ``jax_debug_nans`` traps the operation that made it; see
-``train/trainer.py``). Not ported: several devices (raises, naming its
-``ROADMAP.md`` queue 1 item, 8).
+``train/trainer.py``).
+
+``parallel``: under torchrun (`parallel.distributed.initialize_distributed`)
+`_make_run_mesh` turns the block into a (data, item) mesh
+(`parallel.mesh.make_mesh_from_config`; None for one device, as in JAX),
+rounding ``loader.batch_size`` up to the mesh's rank count where
+``adjust_batch_sizes`` allows, and the trainer, evaluators and scorers
+run on it (``shard_towers`` / ``tower_min_rows`` slice the tower
+kernels). Every rank returns the same metrics; only rank 0 writes
+``conf.yml``, ``model.pt``, the metrics files, the gather payload and
+W&B, into the run directory rank 0 names.
 """
 from __future__ import annotations
 
@@ -50,7 +59,6 @@ from sibrar_tpu_torch.config.loader import (
     yaml_save,
 )
 from sibrar_tpu_torch.config.schema import (
-    NOT_PORTED,
     DatasetSplitType,
     ExperimentConfig,
     as_dict,
@@ -59,7 +67,18 @@ from sibrar_tpu_torch.data.dataset import RecDataset
 from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
 from sibrar_tpu_torch.models.protomf import UIProtoMFsCombine
 from sibrar_tpu_torch.models.registry import AlgorithmSpec, get_algorithm
-from sibrar_tpu_torch.ops.topk import masked_topk
+from sibrar_tpu_torch.ops.sparse import csr_row_gather
+from sibrar_tpu_torch.ops.topk import NEG, masked_topk
+from sibrar_tpu_torch.parallel import distributed as pdist
+from sibrar_tpu_torch.parallel.mesh import (
+    batch_multiple,
+    gather_rows,
+    make_mesh_from_config,
+    pad_to_multiple,
+    shard_catalog,
+    shard_rows,
+    sharded_masked_topk,
+)
 from sibrar_tpu_torch.train.trainer import Trainer
 from sibrar_tpu_torch.utils.misc import (
     generate_id,
@@ -88,11 +107,35 @@ def resolve_device(conf: ExperimentConfig) -> torch.device:
     return torch.device("cuda")
 
 
-def _check_ported(conf: ExperimentConfig) -> None:
-    par = conf.parallel
-    if par.enabled or (par.n_devices or 1) > 1:
-        raise NotImplementedError(f"runs on several devices are "
-                                  f"{NOT_PORTED.format(8)}")
+def _tower_kwargs(conf: ExperimentConfig) -> dict:
+    """Trainer kwargs for tensor-parallel interaction towers."""
+    p = conf.parallel
+    if p is None:
+        return {}
+    return {"shard_towers": p.shard_towers,
+            "tower_min_rows": p.tower_min_rows}
+
+
+def _make_run_mesh(conf: ExperimentConfig):
+    """``conf.parallel`` as a mesh (None for one device), with
+    ``loader.batch_size`` rounded up to the mesh's rank count where
+    ``parallel.adjust_batch_sizes`` allows (else a batch that does not
+    divide raises)."""
+    mesh = make_mesh_from_config(conf.parallel)
+    if mesh is None:
+        return None
+    mult = batch_multiple(mesh)
+    if conf.loader.batch_size % mult:
+        if not conf.parallel.adjust_batch_sizes:
+            raise ValueError(
+                f"loader.batch_size={conf.loader.batch_size} does not divide "
+                f"over the mesh ({mult} devices); set "
+                f"parallel.adjust_batch_sizes or fix the batch size")
+        new = pad_to_multiple(conf.loader.batch_size, mult)
+        logger.info("rounding loader.batch_size %d -> %d to divide over the "
+                    "%d-device mesh", conf.loader.batch_size, new, mult)
+        conf.loader.batch_size = new
+    return mesh
 
 
 def _fit_matrix_algorithm(alg, train_ds: RecDataset) -> None:
@@ -111,8 +154,9 @@ def _saved_scorer(conf: ExperimentConfig, spec: AlgorithmSpec,
                   train_ds: RecDataset, evaluator: FullEvaluator,
                   run_dir: str, device: torch.device):
     """The scorer of a fitted run over ``evaluator``'s split: an ``sgd``
-    model with ``model.pt`` loaded and its catalog encoded once, or a
-    matrix algorithm from ``model.npz``."""
+    model with ``model.pt`` loaded and its catalog encoded once (on
+    ``evaluator.mesh``, its tower kernels sliced), or a matrix algorithm
+    from ``model.npz``."""
     if spec.kind == "matrix":
         alg = spec.build(conf.model, train_ds, device)
         alg.load(run_dir)
@@ -120,9 +164,13 @@ def _saved_scorer(conf: ExperimentConfig, spec: AlgorithmSpec,
     train_data = train_ds.to_device(device)
     model = spec.build(conf.model, train_ds, train_data,
                        conf.run_settings.seed)
+    mesh = evaluator.mesh
     trainer = Trainer(model, train_ds, conf.learn, conf.dataset,
+                      batch_size=pad_to_multiple(conf.loader.batch_size,
+                                                 batch_multiple(mesh)),
                       seed=conf.run_settings.seed, device_data=train_data,
-                      val_evaluator=evaluator)
+                      val_evaluator=evaluator, mesh=mesh,
+                      **_tower_kwargs(conf))
     trainer.load(run_dir)
     return trainer.make_score_fn()
 
@@ -137,18 +185,24 @@ def _load_split(conf: ExperimentConfig, split_set: str,
 
 
 def _results_path(conf: ExperimentConfig) -> str:
+    """The run directory: ``results_path``, or one named after the run id
+    (rank 0's, on every rank); only rank 0 makes it."""
     if not conf.results_path:
+        run_id = pdist.broadcast_object(conf.run_id or generate_id())
         conf.results_path = os.path.join(
             "results", conf.dataset_name, conf.split_type.dir_name,
-            conf.algorithm, conf.run_id or generate_id())
-    os.makedirs(conf.results_path, exist_ok=True)
+            conf.algorithm, run_id)
+    if pdist.is_main():
+        os.makedirs(conf.results_path, exist_ok=True)
     return conf.results_path
 
 
 def _maybe_wandb(conf: ExperimentConfig):
-    """A live wandb run, or None when it is not asked for or wandb is not
-    installed (with a warning)."""
+    """A live wandb run, or None when it is not asked for, on a rank other
+    than 0, or when wandb is not installed (with a warning)."""
     if not (conf.wandb.use_wandb or conf.run_settings.use_wandb):
+        return None
+    if not pdist.is_main():  # one W&B run per experiment: rank 0's
         return None
     try:
         import wandb
@@ -214,8 +268,9 @@ def _post_val_fn(conf: ExperimentConfig, results_path: str):
     def post_val(model, epoch: int) -> dict:
         out = {}
         for entity in entities:
-            out.update(protomf_post_val(model, entity, epoch,
-                                        results_dir=results_path))
+            out.update(protomf_post_val(
+                model, entity, epoch,
+                results_dir=results_path if pdist.is_main() else None))
         return out
 
     return post_val
@@ -227,19 +282,21 @@ def run_train_val(conf: ExperimentConfig, log_fn=None) -> dict:
     reproducible(conf.run_settings.seed)
     device = resolve_device(conf)
     spec = get_algorithm(conf.algorithm)
-    _check_ported(conf)
+    mesh = _make_run_mesh(conf)  # may round the batch size: conf.yml after
     results_path = _results_path(conf)
-    yaml_save(os.path.join(results_path, "conf.yml"), as_dict(conf))
+    if pdist.is_main():
+        yaml_save(os.path.join(results_path, "conf.yml"), as_dict(conf))
     split_type = load_split_type(conf.dataset.dataset_path)
     train_ds = _load_split(conf, "train", split_type)
     val_ds = _load_split(conf, "val", split_type)
     evaluator = FullEvaluator(conf.eval, val_ds, device=device,
-                              evaluator_name="val")
+                              evaluator_name="val", mesh=mesh)
     wandb_run = _maybe_wandb(conf)
     if spec.kind == "matrix":
         alg = spec.build(conf.model, train_ds, device)
         _fit_matrix_algorithm(alg, train_ds)
-        alg.save(results_path)
+        if pdist.is_main():
+            alg.save(results_path)
         metrics = evaluate_model(alg.score_fn(val_ds.items_in_split),
                                  evaluator, conf.loader.eval_batch_size)
         (log_fn or _make_log_fn(conf, wandb_run))(metrics)
@@ -255,20 +312,23 @@ def run_train_val(conf: ExperimentConfig, log_fn=None) -> dict:
         results_path=results_path,
         log_fn=log_fn or _make_log_fn(conf, wandb_run),
         train_evaluator=(FullEvaluator(conf.eval, train_ds, train_data,
-                                       evaluator_name="train")
+                                       evaluator_name="train", mesh=mesh)
                          if conf.train_eval else None),
         post_val_fn=_post_val_fn(conf, results_path),
         profile_dir=(os.path.join(results_path, "profile")
-                     if conf.profile_training else None),
-        debug_nans=conf.run_settings.debug_nans)
+                     if conf.profile_training and pdist.is_main() else None),
+        debug_nans=conf.run_settings.debug_nans, mesh=mesh,
+        **_tower_kwargs(conf))
     return _write_val(conf, results_path, trainer.fit(), wandb_run)
 
 
 def _write_val(conf: ExperimentConfig, results_path: str, metrics: dict,
                wandb_run) -> dict:
-    yaml_save(os.path.join(results_path, "metrics_val.yml"), metrics)
+    if pdist.is_main():
+        yaml_save(os.path.join(results_path, "metrics_val.yml"), metrics)
     log_info_results(metrics)
     _finish(wandb_run)
+    pdist.barrier()  # the run's files exist before any rank reads them
     return metrics
 
 
@@ -278,13 +338,13 @@ def run_test(conf: ExperimentConfig, log_fn=None) -> dict:
     reproducible(conf.run_settings.seed)
     device = resolve_device(conf)
     spec = get_algorithm(conf.algorithm)
-    _check_ported(conf)
+    mesh = _make_run_mesh(conf)
     results_path = _results_path(conf)
     split_type = load_split_type(conf.dataset.dataset_path)
     train_ds = _load_split(conf, "train", split_type)
     test_ds = _load_split(conf, "test", split_type)
     evaluator = FullEvaluator(conf.eval, test_ds, device=device,
-                              evaluator_name="test")
+                              evaluator_name="test", mesh=mesh)
     wandb_run = _maybe_wandb(conf)
     if wandb_run is not None and hasattr(wandb_run, "define_metric"):
         # a running W&B run rejects test/* at step 0 without its own axis
@@ -294,7 +354,8 @@ def run_test(conf: ExperimentConfig, log_fn=None) -> dict:
         _saved_scorer(conf, spec, train_ds, evaluator, results_path, device),
         evaluator, conf.loader.eval_batch_size)
     (log_fn or _make_log_fn(conf, wandb_run))(metrics)
-    yaml_save(os.path.join(results_path, "metrics_test.yml"), metrics)
+    if pdist.is_main():
+        yaml_save(os.path.join(results_path, "metrics_test.yml"), metrics)
     log_info_results(metrics)
     _finish(wandb_run)
     return metrics
@@ -326,7 +387,8 @@ def run_combine_experiment(u_run_dir: str, i_run_dir: str,
     eval_ds = _load_split(u_conf, split_set,
                           load_split_type(u_conf.dataset.dataset_path))
     evaluator = FullEvaluator(u_conf.eval, eval_ds, device=device,
-                              evaluator_name=split_set)
+                              evaluator_name=split_set,
+                              mesh=_make_run_mesh(u_conf))
     metrics = evaluate_model(UIProtoMFsCombine(u_score, i_score), evaluator,
                              u_conf.loader.eval_batch_size)
     log_info_results(metrics)
@@ -352,13 +414,13 @@ def run_gather(conf: ExperimentConfig, split_set: str = "test",
     reproducible(conf.run_settings.seed)
     device = resolve_device(conf)
     spec = get_algorithm(conf.algorithm)
-    _check_ported(conf)
+    mesh = _make_run_mesh(conf)
     results_path = _results_path(conf)
     split_type = load_split_type(conf.dataset.dataset_path)
     train_ds = _load_split(conf, "train", split_type)
     eval_ds = _load_split(conf, split_set, split_type)
     evaluator = FullEvaluator(conf.eval, eval_ds, device=device,
-                              evaluator_name=split_set)
+                              evaluator_name=split_set, mesh=mesh)
     score_fn = _saved_scorer(conf, spec, train_ds, evaluator, results_path,
                              device)
 
@@ -377,10 +439,17 @@ def run_gather(conf: ExperimentConfig, split_set: str = "test",
             if pad > 0:
                 u = torch.cat([u, u[-1:].expand(pad)])
                 valid = np.concatenate([valid, np.zeros(pad, bool)])
-            scores = score_fn(u)
-            v, i = masked_topk(scores, evaluator.data.exclude_csr, u, k)
-            top_idx.append(i.to(torch.int32).cpu().numpy()[valid])
-            top_logits.append(v.cpu().numpy()[valid])
+            if mesh is None:
+                scores = score_fn(u)
+                v, i = masked_topk(scores, evaluator.data.exclude_csr, u, k)
+                vg, ig = v, i
+            else:  # this rank's rows and catalog columns, lists gathered
+                scores, u, v, i, vg, ig, valid_l = _gather_batch_mesh(
+                    score_fn, evaluator, u, valid, k)
+            top_idx.append(ig.to(torch.int32).cpu().numpy()[valid])
+            top_logits.append(vg.cpu().numpy()[valid])
+            if mesh is not None:
+                valid = valid_l
             if k >= evaluator.k_max:
                 evaluator.eval_batch_from_topk(u, i, valid=valid)
             else:
@@ -409,13 +478,36 @@ def run_gather(conf: ExperimentConfig, split_set: str = "test",
         "items_in_split": np.asarray(eval_ds.items_in_split),
     }
     out = os.path.join(results_path, out_name or f"gather_{split_set}.pkl")
-    with open(out, "wb") as fh:
-        pickle.dump(payload, fh)
+    if pdist.is_main():
+        with open(out, "wb") as fh:
+            pickle.dump(payload, fh)
     log_info_results(metrics)
     return payload
 
 
-def load_for_serving(run_dir: str, split: str = "test", device=None):
+def _gather_batch_mesh(score_fn, evaluator: FullEvaluator, u: torch.Tensor,
+                       valid: np.ndarray, k: int):
+    """One `run_gather` batch on a mesh: this rank's rows ``u`` and its
+    tile of scores, the per-shard scatter top-k of its rows (ids clamped
+    into the catalog), and the batch's lists gathered over the data axis.
+    Returns ``(tile, rows, v, i, v_all, i_all, valid rows)``."""
+    mesh = evaluator.mesh
+    b = u.shape[0]
+    u = shard_rows(u, mesh)
+    valid_l = shard_rows(torch.from_numpy(valid), mesh, fill=False).numpy()
+    scores = score_fn(u)
+    if getattr(score_fn, "mesh", None) is None:
+        scores = shard_catalog(scores, mesh, dim=1, fill=NEG)
+    scores = evaluator._pad_columns(scores)
+    cols, mask = csr_row_gather(evaluator.data.exclude_csr, u)
+    v, i = sharded_masked_topk(scores, cols, mask, k, mesh)
+    i = i.clamp(max=evaluator.dataset.n_items_in_split - 1)
+    return (scores, u, v, i, gather_rows(v, mesh, b), gather_rows(i, mesh, b),
+            valid_l)
+
+
+def load_for_serving(run_dir: str, split: str = "test", device=None,
+                     mesh=None):
     """A fitted run directory rebuilt for serving (JAX
     ``Recommender.from_run_dir``): ``conf.yml``, the train split and the
     serving ``split`` (``"val"`` or ``"test"``, which sets the catalog and
@@ -423,16 +515,15 @@ def load_for_serving(run_dir: str, split: str = "test", device=None):
     the catalog encoded once, or a matrix algorithm from ``model.npz``.
     ``device`` defaults to the run's ``run_settings.device``
     (`resolve_device`). Returns ``(score_fn, dataset, device_data, k)``,
-    ``k`` the largest ``eval.top_k``. A ``parallel`` block raises (queue 1
-    item 8)."""
+    ``k`` the largest ``eval.top_k``. With ``mesh`` the scorer is this
+    rank's (`train.scoring.make_score_fn` on the mesh)."""
     conf = _run_conf(run_dir)
     spec = get_algorithm(conf.algorithm)
-    _check_ported(conf)
     device = resolve_device(conf) if device is None else torch.device(device)
     split_type = load_split_type(conf.dataset.dataset_path)
     train_ds = _load_split(conf, "train", split_type)
     serve_ds = _load_split(conf, split, split_type)
     evaluator = FullEvaluator(conf.eval, serve_ds, device=device,
-                              evaluator_name=split)
+                              evaluator_name=split, mesh=mesh)
     return (_saved_scorer(conf, spec, train_ds, evaluator, run_dir, device),
             serve_ds, evaluator.data, max(conf.eval.top_k))

@@ -25,6 +25,7 @@ from sibrar_tpu_torch.models.layers import (
     feature_module_from,
     interaction_tower_from,
 )
+from sibrar_tpu_torch.parallel.mesh import local_draw
 
 
 @dataclass
@@ -65,8 +66,9 @@ class DropoutNetEntity(RecModel):
         scale = None
         if self.training:
             if keep is None:
-                keep = torch.bernoulli(torch.full(
-                    idxs.shape[:1], 0.5, device=idxs.device), generator=gen)
+                keep = local_draw(lambda shape: torch.bernoulli(torch.full(
+                    shape, 0.5, device=idxs.device), generator=gen),
+                    idxs.shape[:1])
             keep = keep.to(torch.float32).reshape(
                 idxs.shape[:1] + (1,) * idxs.ndim)
             scale = keep.expand(*idxs.shape, 1)

@@ -16,6 +16,12 @@ import torch
 from torch import nn
 
 from sibrar_tpu_torch.ops.dw import dense_first_matmul
+from sibrar_tpu_torch.parallel import distributed as pdist
+from sibrar_tpu_torch.parallel.mesh import (
+    batch_sharded,
+    local_draw,
+    reduce_batch,
+)
 from sibrar_tpu_torch.ops.sparse import (
     DeviceCSR,
     csr_row_gather,
@@ -133,7 +139,10 @@ class BatchNorm(nn.Module):
     variance) and moves the running statistics by
     ``0.9 * running + 0.1 * batch``, the variance biased too, which is where
     ``nn.BatchNorm1d`` (unbiased) differs. Eval mode uses the running
-    statistics."""
+    statistics. In a data-parallel step (`parallel.mesh.batch_shard`) the
+    sums of ``x``, ``x^2`` and the row count are reduced over the batch's
+    ranks first, so the statistics are the global batch's, as GSPMD gives
+    them in JAX."""
 
     def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -147,8 +156,15 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             flat = x.reshape(-1, x.shape[-1])
-            mean = flat.mean(0)
-            var = ((flat * flat).mean(0) - mean * mean).clamp(min=0.0)
+            if batch_sharded():  # the global batch's statistics
+                sums = reduce_batch(torch.stack([flat.sum(0),
+                                                 (flat * flat).sum(0)]))
+                count = reduce_batch(flat.new_tensor(float(flat.shape[0])))
+                mean, mean_sq = sums / count
+            else:
+                mean = flat.mean(0)
+                mean_sq = (flat * flat).mean(0)
+            var = (mean_sq - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean)
@@ -162,11 +178,14 @@ class BatchNorm(nn.Module):
 def dropout(x: torch.Tensor, rate: float,
             gen: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout with the keep mask drawn from ``gen``: kept entries
-    scaled by ``1 / (1 - rate)`` (flax ``nn.Dropout``)."""
+    scaled by ``1 / (1 - rate)`` (flax ``nn.Dropout``). In a data-parallel
+    step the mask is the global batch's, this rank's rows of it."""
     if gen is None:
         raise ValueError("train-mode dropout needs a torch.Generator")
     keep_prob = 1.0 - rate
-    keep = torch.bernoulli(torch.full_like(x, keep_prob), generator=gen)
+    keep = local_draw(lambda shape: torch.bernoulli(
+        torch.full(shape, keep_prob, dtype=x.dtype, device=x.device),
+        generator=gen), x.shape)
     return torch.where(keep.bool(), x / keep_prob, 0.0)
 
 
@@ -322,16 +341,24 @@ class InteractionTower(nn.Module):
     path's K1, K6 and K7. Which one runs follows the JAX package's static
     gate, with the break-even factor a parameter.
 
-    ``normalize`` divides each row by its L2 norm: the bag and spmm paths
-    divide the row sum by ``max(sqrt(nnz), 1e-8)``, the dense path divides
-    the densified row by ``max(||row||, 1e-8)`` before the matmul (so K5
-    gets rows that are not 0/1). ``scale`` (``idxs.shape + (1,)``, given
+    ``normalize`` divides each row by its L2 norm, ``max(sqrt(nnz),
+    1e-8)``: the bag and spmm paths divide the row sum, the dense path the
+    densified row before the matmul (so K5 gets rows that are not 0/1). ``scale`` (``idxs.shape + (1,)``, given
     to `forward`) multiplies the pre-bias sum on every path: DropoutNet's
     preference dropout. ``torch_default_init`` draws the kernel and the bias
     from U(+-1/sqrt(n_cols)) and builds ``rest`` with the same init;
     otherwise the kernel is kaiming-uniform and the bias zero. The kernel is
     drawn first, then the bias (only under ``torch_default_init``), then
-    ``rest``."""
+    ``rest``.
+
+    Tensor parallel (`set_row_slice`, from `parallel.mesh.shard_tower_state`):
+    the kernel holds rows ``[lo, hi)`` of the full one, every path keeps
+    the row's columns in that range (the dense path densifies only them),
+    and the ``[R, h]`` partial sums add up over the item group in the
+    forward; the backward passes the gradient through unchanged
+    (Megatron's row-parallel layer), so K5 / K7 compute this slice's
+    kernel gradient. Every rank of the item group must run the tower on the
+    same rows."""
 
     def __init__(self, csr: DeviceCSR, layer_sizes: Sequence[int],
                  gen: torch.Generator, *, activation_fn: str = "relu",
@@ -357,12 +384,20 @@ class InteractionTower(nn.Module):
             _uniform_(self.bias, 1.0 / math.sqrt(n), gen)
         else:  # kaiming, zero bias
             _uniform_(self.kernel, math.sqrt(6.0 / n), gen)
+        # kernel rows [lo, hi) of the full one, partial sums reduced over
+        # the group: all of them on one device
+        self.row_slice: tuple = (0, n, pdist.SOLO)
         self.rest = None
         if len(layer_sizes) > 1:
             self.rest = PolyLinear(list(layer_sizes), gen,
                                    activation_fn=activation_fn,
                                    output_fn=output_fn,
                                    torch_default_init=torch_default_init)
+
+    def set_row_slice(self, lo: int, hi: int, group) -> None:
+        """The kernel now holds rows ``[lo, hi)``; partial sums reduce over
+        ``group``."""
+        self.row_slice = (lo, hi, group)
 
     def use_bag(self, n_rows: int) -> bool:
         h = self.kernel.shape[1]
@@ -376,18 +411,7 @@ class InteractionTower(nn.Module):
     def forward(self, idxs: torch.Tensor,
                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.kernel.shape[1]
-        if self.use_bag(idxs.numel()) or INTERACTION_SPMM:
-            cols, mask = csr_row_gather(self.csr, idxs.reshape(-1))
-            pre = spmm_onehot(cols, mask, self.kernel)
-            if self.normalize:  # ||0/1 row|| = sqrt(nnz)
-                nnz = mask.sum(-1, keepdim=True).float()
-                pre = pre / nnz.sqrt().clamp(min=1e-8)
-        else:
-            vec = csr_rows_to_dense(self.csr, idxs.reshape(-1))
-            if self.normalize:
-                norm = torch.linalg.vector_norm(vec, dim=-1, keepdim=True)
-                vec = vec / norm.clamp(min=1e-8)
-            pre = dense_first_matmul(vec, self.kernel)
+        pre = self._first_layer(idxs.reshape(-1))
         pre = pre.reshape(*idxs.shape, h)
         if scale is not None:
             pre = pre * scale
@@ -395,6 +419,28 @@ class InteractionTower(nn.Module):
         if self.rest is None:
             return self.out_fn(x) if self.out_fn is not None else x
         return self.rest(self.act(x))
+
+    def _first_layer(self, rows: torch.Tensor) -> torch.Tensor:
+        """``[R, h]`` first-layer sums of ``rows`` from the kernel rows
+        this module holds (`row_slice`), reduced over its group; the path
+        (bag, dense, spmm) follows the full row length."""
+        lo, hi, group = self.row_slice
+        cols, mask = csr_row_gather(self.csr, rows)
+        lc = cols - lo
+        lmask = mask & (lc >= 0) & (lc < hi - lo)
+        lc = torch.where(lmask, lc, 0)
+        nnz = mask.sum(-1, keepdim=True).float()
+        if self.use_bag(rows.numel()) or INTERACTION_SPMM:
+            pre = spmm_onehot(lc, lmask, self.kernel)
+            if self.normalize:
+                pre = pre / nnz.sqrt().clamp(min=1e-8)
+        else:
+            vec = torch.zeros((rows.shape[0], hi - lo), device=rows.device)
+            vec.scatter_add_(1, lc.long(), lmask.float())
+            if self.normalize:  # the full 0/1 row's norm, sqrt(nnz)
+                vec = vec / nnz.sqrt().clamp(min=1e-8)
+            pre = dense_first_matmul(vec, self.kernel)
+        return pdist.reduce_forward(pre, group)
 
 
 class InteractionVectorModule(nn.Module):

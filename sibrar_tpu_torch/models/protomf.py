@@ -33,6 +33,7 @@ from sibrar_tpu_torch.models.layers import (
     embedding_init_,
     l2_normalize,
 )
+from sibrar_tpu_torch.parallel.mesh import gather_batch
 
 
 # ----------------------------------------------------------------- cosines
@@ -75,8 +76,9 @@ def _proto_reg(sim: torch.Tensor, n_prototypes: int
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(proto_loss, batch_loss)`` of a ``[..., P]`` similarity. ``amin``
     splits a minimum's gradient evenly among ties, as JAX's ``min`` does
-    (a train batch repeats users and items, so rows tie exactly)."""
-    dis = (2.0 - sim).reshape(-1, n_prototypes)
+    (a train batch repeats users and items, so rows tie exactly). Both are
+    over the global batch in a data-parallel step."""
+    dis = gather_batch((2.0 - sim).reshape(-1, n_prototypes))
     return dis.amin(0).mean(), dis.amin(1).mean()
 
 

@@ -29,6 +29,7 @@ from sibrar_tpu_torch.models.layers import (
     interaction_tower_from,
     l2_normalize,
 )
+from sibrar_tpu_torch.parallel.mesh import row_offset
 from sibrar_tpu_torch.train.losses import info_nce
 
 
@@ -171,6 +172,12 @@ class SingleBranchNetEntity(RecModel):
         if delta is None:  # stays on the device: no host sync
             delta = torch.randint(0, p, (), generator=gen,
                                   device=flat.device)
+        # a data-parallel rank's rows start at global position `offset`: a
+        # row's slot is (position - delta) mod P, so shifting delta by the
+        # offset routes each row as the global batch does
+        offset = row_offset(t)
+        if offset:
+            delta = (delta - offset) % p
         pos = torch.arange(g * p, device=flat.device)
         blocks = flat[(pos + delta) % (g * p)].reshape(g, p)  # roll by -delta
         assign: dict[int, list[tuple[int, int]]] = {}

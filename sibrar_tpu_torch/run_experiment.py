@@ -11,6 +11,13 @@ YAML); the dataset name defaults to the artifact directory's name.
 ``--split_set`` split, top ``--gather_k``) run; ``-a uiprotomfs_combine
 --u_run_dir U --i_run_dir I`` evaluates the score sum of two fitted runs
 and takes no ``-d`` / ``-c``.
+
+Under torchrun every rank runs it on its own card, as a (data, item) mesh
+where ``parallel`` turns one on (`parallel.distributed`):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m sibrar_tpu_torch.run_experiment -a sbnet -c ... -d ... \
+        -o parallel.enabled=true -o parallel.item_parallelism=2
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from sibrar_tpu_torch.experiment import (
     run_train_val_test,
 )
 from sibrar_tpu_torch.models.registry import ALGORITHMS
+from sibrar_tpu_torch.parallel.distributed import initialize_distributed
 
 RUNS = {"train_val": run_train_val, "test": run_test,
         "train_val_test": run_train_val_test}
@@ -42,6 +50,7 @@ def main(argv=None):
     """Parse ``argv`` and run; returns the run's metrics (a pair for
     ``train_val_test``)."""
     logging.basicConfig(level=logging.INFO, format="%(message)s")
+    initialize_distributed()
     parser = argparse.ArgumentParser(
         description="sibrar_tpu_torch experiment runner")
     parser.add_argument("--algorithm", "-a", required=True,

@@ -28,8 +28,16 @@ m <= 768. The port's `peel_viable` has no VMEM gates, so its fused and
 unfused forms coincide, and the port takes the [B, C] path wherever JAX
 does (``tests/test_torch_windowed.py`` pins the JAX fact).
 
-Not in this slice: the multi-device path (``mesh``; ROADMAP.md queue 1,
-item 8).
+On a device mesh (``mesh=``; JAX ``serve.py:217-277``) each served batch
+shards its users over the data axis and the catalog over the item axis:
+a dot-product model takes the per-shard dot chain
+(`parallel.mesh.sharded_masked_topk_dot`, K2 or K15 and the peel) where
+`sharded_dot_viable`, with a per-shard scatter redo of the rows the peel
+flags; any other scorer, and int8, ranks its tile's scores with the
+per-shard scatter (`sharded_masked_topk`). Ids are clamped into the
+catalog, the lists are gathered, and every rank returns all of them.
+``selection="approx"`` warns and serves exact there, as JAX does. A mesh
+whose item axis is 1 runs the single-device path on each rank's rows.
 """
 from __future__ import annotations
 
@@ -41,7 +49,6 @@ import torch
 import torch.nn.functional as F
 
 from sibrar_tpu_torch import full_f32
-from sibrar_tpu_torch.config.schema import NOT_PORTED
 from sibrar_tpu_torch.data.dataset import DeviceData, RecDataset
 from sibrar_tpu_torch.ops.exact_topk import exact_topk
 from sibrar_tpu_torch.ops.gemm_probe import score_bf16
@@ -53,6 +60,16 @@ from sibrar_tpu_torch.ops.sparse import (
 )
 from sibrar_tpu_torch.ops.topk import NEG, masked_topk, resolve_method
 from sibrar_tpu_torch.ops.window import pad_catalog, score_wmax
+from sibrar_tpu_torch.parallel.mesh import (
+    ITEM_AXIS,
+    catalog_slice,
+    gather_rows,
+    shard_catalog,
+    shard_rows,
+    sharded_dot_viable,
+    sharded_masked_topk,
+    sharded_masked_topk_dot,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -140,7 +157,9 @@ class Recommender:
     recall 1.0, at or above any ``recall_target``; JAX's CPU path gives
     the same lists. As in JAX, approx never takes the fused dot path.
 
-    ``mesh`` (several devices) raises ``NotImplementedError``."""
+    ``mesh`` serves on every rank of a device mesh (see the module's
+    docstring); ``score_fn`` may be a mesh scorer (``score_fn.mesh``, its
+    ``dot_parts`` this rank's catalog slice) or a whole-catalog one."""
 
     def __init__(self, score_fn: Callable, dataset: RecDataset,
                  device_data: Optional[DeviceData] = None, *,
@@ -148,9 +167,6 @@ class Recommender:
                  exclude_seen: bool = True, device="cuda", mesh=None,
                  dtype: Optional[str] = None, selection: str = "exact",
                  recall_target: float = 0.95):
-        if mesh is not None:
-            raise NotImplementedError(f"serving on a device mesh is "
-                                      f"{NOT_PORTED.format(8)}")
         if selection not in ("exact", "approx"):
             raise ValueError(f"unknown selection mode {selection!r} "
                              "(expected 'exact' or 'approx')")
@@ -179,6 +195,15 @@ class Recommender:
             self.csr = DeviceCSR.empty(dataset.n_users,
                                        dataset.n_items_in_split, self.device)
         self.c = dataset.n_items_in_split
+        self.mesh = mesh
+        self._sharded = mesh is not None and mesh.shape[ITEM_AXIS] > 1
+        if self._sharded and selection == "approx":
+            logger.warning("selection='approx' is a single-device knob; the "
+                           "mesh path selects exactly per shard; serving "
+                           "exact")
+            self.selection = "exact"
+        self._lo, self._local_c = catalog_slice(self.c, mesh)
+        self._local_cols = getattr(score_fn, "mesh", None) is not None
         dot_parts = getattr(score_fn, "dot_parts", None)
         self.dtype = None if dtype == "float32" else dtype
         if self.dtype is not None and dot_parts is None:
@@ -186,33 +211,78 @@ class Recommender:
                            "dot_parts; serving stays in the score_fn's own "
                            "precision", self.dtype)
             self.dtype = None
-        self.use_dot = (dot_parts is not None and selection == "exact"
+        self.use_dot = (dot_parts is not None and self.selection == "exact"
                         and self.dtype != "int8"
-                        and peel_viable(self.c, self.k, self.csr.max_row_len))
+                        and (sharded_dot_viable(
+                            self.c, self.k, max(self.csr.max_row_len, 1),
+                            mesh) if self._sharded else peel_viable(
+                            self.c, self.k, self.csr.max_row_len)))
         self._peel_scores = resolve_method(
             "auto", self.c, self.k, self.csr.max_row_len) == "peel"
         self._dot = dot_parts is not None
         if self._dot:
             self.user_repr_fn, items = dot_parts
+            if self._sharded and items.shape[0] == self.c:
+                items = shard_catalog(items, mesh)
             if self.dtype == "int8":  # quantized once, held instead
                 self.q_items, self.s_items = quantize_items_int8(items)
             else:  # padded ONCE to the GEMM's chunk multiple
                 self.items = pad_catalog(items)
 
     def _scores(self, u_idxs: torch.Tensor) -> torch.Tensor:
-        """The scores path's ``[B, C]`` scores of a batch."""
+        """The scores path's ``[B, C]`` scores of a batch (on an
+        item-sharded mesh this rank's ``[B, local_c]`` columns, those past
+        the catalog at -1e30)."""
         if not self._dot:
-            return self.score_fn(u_idxs)
-        u_repr = self.user_repr_fn(u_idxs)
-        if self.dtype == "int8":
-            return int8_scores(u_repr, self.q_items, self.s_items)
-        score = score_bf16 if self.dtype == "bfloat16" else score_wmax
-        scores = score(u_repr, self.items)[0]
-        return scores if scores.shape[1] == self.c else (
-            scores[:, :self.c].contiguous())
+            scores = self.score_fn(u_idxs)
+            if self._sharded and not self._local_cols:
+                scores = shard_catalog(scores, self.mesh, dim=1, fill=NEG)
+        else:
+            u_repr = self.user_repr_fn(u_idxs)
+            if self.dtype == "int8":
+                scores = int8_scores(u_repr, self.q_items, self.s_items)
+            else:
+                score = score_bf16 if self.dtype == "bfloat16" else score_wmax
+                scores = score(u_repr, self.items)[0]
+                width = self._local_c if self._sharded else self.c
+                if scores.shape[1] != width:
+                    scores = scores[:, :width].contiguous()
+        live = self.c - self._lo
+        if self._sharded and live < self._local_c:
+            scores = torch.cat([scores[:, :live], scores.new_full(
+                (scores.shape[0], self._local_c - live), NEG)], dim=1)
+        return scores
+
+    def _sharded_step(self, u_idxs: torch.Tensor):
+        """This rank's rows of a batch on an item-sharded mesh."""
+        cols, mask = csr_row_gather(self.csr, u_idxs)
+        if self.use_dot:
+            v, i, ok = sharded_masked_topk_dot(
+                self.user_repr_fn(u_idxs), self.items, cols, mask, self.k,
+                self.mesh, n_catalog=self.c, local_c=self._local_c,
+                score_dtype=self.dtype)
+            bad = (~ok).nonzero().squeeze(1)  # shared by the item group
+            self.redo_rows.append(int(bad.numel()))
+            if bad.numel():
+                v[bad], i[bad] = sharded_masked_topk(
+                    self._scores(u_idxs[bad]), cols[bad], mask[bad], self.k,
+                    self.mesh, use_peel=False)
+        else:
+            v, i = sharded_masked_topk(self._scores(u_idxs), cols, mask,
+                                       self.k, self.mesh, use_peel=False)
+        return v, i.clamp(max=self.c - 1)
 
     @torch.no_grad()
     def _step(self, u_idxs: torch.Tensor):
+        if self.mesh is not None:
+            u = shard_rows(u_idxs, self.mesh)
+            v, i = (self._sharded_step(u) if self._sharded
+                    else self._local_step(u))
+            b = u_idxs.shape[0]
+            return gather_rows(v, self.mesh, b), gather_rows(i, self.mesh, b)
+        return self._local_step(u_idxs)
+
+    def _local_step(self, u_idxs: torch.Tensor):
         if self.use_dot:
             cols, mask = csr_row_gather(self.csr, u_idxs)
             v, i, ok = peel_masked_topk_dot(
@@ -276,10 +346,16 @@ class Recommender:
         (`experiment.load_for_serving`). ``split`` picks the catalog and
         exclusion context: ``"test"`` excludes train + val interactions,
         ``"val"`` train only. ``device`` defaults to the run's
-        ``run_settings.device``; ``k`` to the largest ``eval.top_k``."""
-        from sibrar_tpu_torch.experiment import load_for_serving
+        ``run_settings.device``; ``k`` to the largest ``eval.top_k``. The
+        run's ``parallel`` block applies to serving too (a mesh under
+        torchrun, none in one process); pass ``mesh=None`` for one
+        device."""
+        from sibrar_tpu_torch.experiment import _run_conf, load_for_serving
+        from sibrar_tpu_torch.parallel.mesh import make_mesh_from_config
 
-        score_fn, dataset, device_data, k = load_for_serving(run_dir, split,
-                                                             device)
+        if "mesh" not in kwargs:
+            kwargs["mesh"] = make_mesh_from_config(_run_conf(run_dir).parallel)
+        score_fn, dataset, device_data, k = load_for_serving(
+            run_dir, split, device, mesh=kwargs["mesh"])
         kwargs.setdefault("k", k)
         return cls(score_fn, dataset, device_data, **kwargs)

@@ -16,7 +16,9 @@ places).
         -u users.txt -k 100 --dtype bfloat16 --scores -o recs.jsonl
 
 ``--selection approx`` ranks exactly on the port (K13 after the exact
-exclusion fill): recall 1.0, at or above any ``--recall_target``.
+exclusion fill): recall 1.0, at or above any ``--recall_target``. Under
+torchrun the run's ``parallel`` block serves on a mesh
+(`serve.Recommender`), and rank 0 writes the lists.
 """
 from __future__ import annotations
 
@@ -27,6 +29,10 @@ import sys
 
 import numpy as np
 
+from sibrar_tpu_torch.parallel.distributed import (
+    initialize_distributed,
+    is_main,
+)
 from sibrar_tpu_torch.serve import Recommender
 
 
@@ -64,6 +70,7 @@ def _write(out, users, ids, scores, k: int, jsonl: bool,
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
+    initialize_distributed()
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("-r", "--run_dir", required=True,
                    help="fitted run directory (conf.yml + model.pt or "
@@ -107,6 +114,8 @@ def main(argv=None) -> int:
         exclude_seen=not args.include_seen)
     users = _parse_users(args.users, rec.dataset)
     ids, scores = rec.recommend(users, k=args.k, return_scores=True)
+    if not is_main():
+        return 0
 
     out = sys.stdout if args.out == "-" else open(args.out, "w")
     try:

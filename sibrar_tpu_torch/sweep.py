@@ -44,6 +44,7 @@ from sibrar_tpu_torch.config.loader import (
     yaml_save,
 )
 from sibrar_tpu_torch.config.schema import ExperimentConfig
+from sibrar_tpu_torch.parallel import distributed as pdist
 from sibrar_tpu_torch.tpe import TPESampler, _sample_value
 from sibrar_tpu_torch.utils.misc import generate_id
 
@@ -148,6 +149,8 @@ def sample_trials(sweep: SweepConfig) -> list[dict[str, Any]]:
 
 
 def _remove_model_files(results_path: str) -> None:
+    if not pdist.is_main():  # rank 0 owns a run's files under torchrun
+        return
     for f in glob.glob(os.path.join(results_path, "model.*")):
         os.remove(f)
 
@@ -200,7 +203,8 @@ def run_sweep(sweep: SweepConfig, results_base: str,
         conf_dict = extend_by_base_configs(conf_dict)
         for key, value in params.items():
             _apply_param(conf_dict, key, value)
-        run_id = generate_id(postfix=f"t{trial_offset + t}")
+        run_id = pdist.broadcast_object(
+            generate_id(postfix=f"t{trial_offset + t}"))
         conf_dict["run_id"] = run_id
         conf_dict["results_path"] = os.path.join(results_base, run_id)
         conf = config_from_dict(ExperimentConfig, conf_dict)
@@ -221,17 +225,19 @@ def run_sweep(sweep: SweepConfig, results_base: str,
             m = records[-1]["metrics"].get(sweep.metric)
             val = None if m is None else sign * float(m)
             sampler.observe(params, val)
-            if shared_log is not None:
+            if shared_log is not None and pdist.is_main():
                 shared_log.append({
                     "trial": trial_offset + t, "params": params,
                     "value": val,
                     "metric": None if m is None else float(m),
                     "results_path": conf.results_path})
+            pdist.barrier()  # every rank reads the same log next trial
         # one state file per worker: workers share results_base
         state_name = (f"sweep_state_t{trial_offset}.yml" if trial_offset
                       else "sweep_state.yml")
-        yaml_save(os.path.join(results_base, state_name),
-                  {"records": [dict(r) for r in records]})
+        if pdist.is_main():
+            yaml_save(os.path.join(results_base, state_name),
+                      {"records": [dict(r) for r in records]})
 
     # the sentinel ranks a trial without the metric last under either goal
     records.sort(key=lambda r: sign * r["metrics"].get(sweep.metric,

@@ -12,7 +12,9 @@ trial as one JSON line (``best_trial``, ``params``, ``metric``,
 trials (``python -m sibrar_tpu_torch.run_agent`` starts one worker per
 shard); ``--wandb-agent`` runs one trial as a ``wandb agent`` worker
 instead (`sweep.wandb_train_val_agent`). The port compiles nothing at run
-time, so there is no compilation cache to enable.
+time, so there is no compilation cache to enable. Under torchrun each
+trial runs on the mesh its ``parallel`` block asks for; rank 0 keeps the
+sweep's files and prints the line.
 """
 from __future__ import annotations
 
@@ -20,9 +22,14 @@ import argparse
 import json
 
 from sibrar_tpu_torch import sweep as sweeps
+from sibrar_tpu_torch.parallel.distributed import (
+    initialize_distributed,
+    is_main,
+)
 
 
 def main(argv=None):
+    initialize_distributed()
     parser = argparse.ArgumentParser(description="sibrar_tpu_torch sweep "
                                                  "agent")
     parser.add_argument("--sweep_conf", "-c", default=None)
@@ -47,9 +54,10 @@ def main(argv=None):
                                trial_offset=args.trial_offset,
                                max_trials=args.max_trials)
     best = records[0]
-    print(json.dumps({"best_trial": best["trial"], "params": best["params"],
-                      "metric": sweep.metric,
-                      "value": best["metrics"].get(sweep.metric)}))
+    if is_main():
+        print(json.dumps({"best_trial": best["trial"],
+                          "params": best["params"], "metric": sweep.metric,
+                          "value": best["metrics"].get(sweep.metric)}))
 
 
 if __name__ == "__main__":

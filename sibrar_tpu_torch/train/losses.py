@@ -14,6 +14,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from sibrar_tpu_torch.parallel.mesh import gather_batch
+
 
 def _aggregate(x: torch.Tensor, aggregator: str) -> torch.Tensor:
     if aggregator == "mean":
@@ -72,7 +74,12 @@ def info_nce(first_emb: torch.Tensor, second_emb: torch.Tensor, *,
              temperature: float = 1.0,
              aggregator: str = "mean") -> torch.Tensor:
     """Symmetric InfoNCE over ``[..., m, d]`` pairs: the contrast set is the
-    last-but-one axis, the diagonal holds the positives."""
+    last-but-one axis, the diagonal holds the positives. Where that axis is
+    the batch (``[B, d]`` pairs), a data-parallel step contrasts the global
+    batch (`parallel.mesh.gather_batch`)."""
+    if first_emb.ndim == 2:
+        first_emb = gather_batch(first_emb)
+        second_emb = gather_batch(second_emb)
     logits = torch.einsum("...md,...nd->...mn", first_emb,
                           second_emb) / temperature
     m = logits.shape[-1]

@@ -28,6 +28,20 @@ runs after the step's forward and backward (and again after its update),
 so it names the first tensor of the step that holds one, not the
 operation that made it, and it waits for the device twice per step (one
 read of all the NaN flags after the backward, one after the update).
+
+On a device mesh (``mesh=``, `parallel.mesh.make_mesh`) every rank runs
+this loop (SPMD). Each step draws the global batch's negatives, routing and
+dropout masks from the same generator on every rank and keeps the rank's
+own rows; the batch shards over every rank, or over the data axis when
+interaction-tower kernels are row-sliced over the item axis
+(`parallel.mesh.shard_tower_state`, ``shard_towers``). The rec loss is
+taken over the gathered logits, batch norm and the batch-wide losses see
+the global batch, and the gradients are averaged over the batch's ranks
+(one all-reduce) before the optimizer steps, so the step computes what
+the single-device step computes up to summation order. An epoch's tail
+batch is cut to a multiple of the batch's ranks (at most ranks - 1 pairs
+sit out that epoch). Validation results are the same on every rank;
+only rank 0 writes files.
 """
 from __future__ import annotations
 
@@ -46,6 +60,16 @@ from sibrar_tpu_torch.config.schema import (  # noqa: F401 (re-exported)
 from sibrar_tpu_torch.data.dataset import DeviceData, RecDataset
 from sibrar_tpu_torch.data.sampling import sample_negatives
 from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
+from sibrar_tpu_torch.parallel import distributed as pdist
+from sibrar_tpu_torch.parallel.mesh import (
+    batch_group,
+    batch_multiple,
+    batch_shard,
+    full_rows,
+    gather_batch,
+    shard_rows,
+    shard_tower_state,
+)
 from sibrar_tpu_torch.train import scoring
 from sibrar_tpu_torch.train.losses import build_rec_loss
 from sibrar_tpu_torch.train.row_adam import (
@@ -148,7 +172,12 @@ class Trainer:
     passes the model); ``results_path`` receives ``model.pt`` whenever the
     best model changes. ``debug_nans`` raises ``FloatingPointError`` at the
     first step with a NaN in its loss, gradients or updated parameters
-    (``run_settings.debug_nans``)."""
+    (``run_settings.debug_nans``).
+
+    ``mesh`` runs the trainer on every rank of a device mesh; the batch
+    size must divide over its ranks. With ``shard_towers`` the kernels of
+    interaction towers with at least ``tower_min_rows`` rows are
+    row-sliced over the item axis."""
 
     def __init__(self, model, train_data: RecDataset, learn: LearningConfig,
                  dataset_conf: DatasetConfig, batch_size: int = 128,
@@ -161,8 +190,18 @@ class Trainer:
                  train_evaluator: Optional[FullEvaluator] = None,
                  post_val_fn: Optional[Callable[[Any, int], dict]] = None,
                  profile_dir: Optional[str] = None,
-                 debug_nans: bool = False):
+                 debug_nans: bool = False, mesh=None,
+                 shard_towers: bool = True, tower_min_rows: int = 8192):
+        if mesh is not None and batch_size % batch_multiple(mesh):
+            raise ValueError(
+                f"batch_size {batch_size} must divide over the mesh "
+                f"({batch_multiple(mesh)} devices)")
+        for ev in (val_evaluator, train_evaluator):
+            if ev is not None and ev.mesh is not mesh:
+                raise ValueError("the trainer and its evaluators must share "
+                                 "one mesh (or none)")
         self.model = model
+        self.mesh = mesh
         self.train_dataset = train_data
         self.data = (device_data if device_data is not None
                      else train_data.to_device(device))
@@ -202,12 +241,28 @@ class Trainer:
         self.profile_dir = profile_dir
         self.debug_nans = debug_nans
         self._rows: dict = {}  # this step's injected rows: name -> (ids, rows)
+        self.shard_towers = shard_towers
+        self.tower_min_rows = tower_min_rows
+        self._apply_tower_sharding()
+
+    def _apply_tower_sharding(self) -> None:
+        """Row-slice the tower kernels and their moments over the item axis
+        (`parallel.mesh.shard_tower_state`); ``_tp`` maps each sliced
+        parameter to ``(lo, hi, rows)``. Batches shard over every rank
+        (``_flat``) unless a kernel is sliced."""
+        self._tp = (shard_tower_state(self.model, self.mesh,
+                                      min_rows=self.tower_min_rows,
+                                      optimizer=self.optimizer)
+                    if self.shard_towers else {})
+        self._flat = not self._tp
 
     def train_step(self, idxs: torch.Tensor) -> torch.Tensor:
         """One optimizer step on the pairs ``idxs``; returns the device
         tensor ``[total, rec_loss, reg_loss]``."""
         self.optimizer.zero_grad()
         out = self.forward_backward(idxs)
+        if self.mesh is not None:
+            self._average_grads()
         if self.debug_nans:
             self._check_nans({
                 ("loss", "total, rec, reg"): out,
@@ -220,6 +275,10 @@ class Trainer:
         self.optimizer.step()
         for name, (ids, rows) in self._rows.items():
             g = rows.grad if rows.grad is not None else torch.zeros_like(rows)
+            if self.mesh is not None:  # every rank steps every touched row
+                group, _, n = batch_group(self.mesh, self._flat)
+                ids = torch.cat(pdist.all_gather(ids, group))
+                g = torch.cat(pdist.all_gather(g.contiguous(), group)) / n
             row_adam_update(self.tables[name].weight.data,
                             self.row_state[name], ids, g, self.step + 1,
                             lr=self.learn.lr, wd=self.learn.wd)
@@ -229,6 +288,22 @@ class Trainer:
                               for n, p in self.model.named_parameters()})
         self.step += 1
         return out
+
+    def _average_grads(self) -> None:
+        """Average every dense gradient over the batch's ranks, in one
+        all-reduce (a parameter without a gradient counts as zeros)."""
+        group, _, n = batch_group(self.mesh, self._flat)
+        params = self.optimizer.params
+        if not params:
+            return
+        flat = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).reshape(-1)
+                          for p in params])
+        pdist.all_reduce(flat, group=group).div_(n)
+        start = 0
+        for p in params:
+            p.grad = flat[start:start + p.numel()].view_as(p)
+            start += p.numel()
 
     def draw_batch(self, idxs: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -250,10 +325,13 @@ class Trainer:
         """The train step up to its gradients: draws (`draw_batch`), train
         forward, loss, backward into ``.grad`` (and, for row-sparse tables,
         into the injected rows' ``.grad``); returns ``[total, rec_loss,
-        reg_loss]``."""
+        reg_loss]``. On a mesh ``idxs`` is the global batch: the draws are
+        its, the forward runs this rank's rows and the rec loss the
+        gathered logits."""
         u, i_global = self.draw_batch(idxs)
-        labels = torch.zeros(i_global.shape, device=self.device)
-        labels[:, 0] = 1.0
+        if self.mesh is not None:
+            u = shard_rows(u, self.mesh, flat=self._flat)
+            i_global = shard_rows(i_global, self.mesh, flat=self._flat)
         self.model.train()
         source = {"user": u, "item": i_global}
         self._rows = {}
@@ -263,10 +341,14 @@ class Trainer:
             self._rows[name] = (ids, rows.requires_grad_())
             self.tables[name].rows = rows
         try:
-            logits, reg = self.model(u, i_global, gen=self.gen)
+            with batch_shard(self.mesh, self._flat):
+                logits, reg = self.model(u, i_global, gen=self.gen)
+                logits = gather_batch(logits)
         finally:
             for table in self.tables.values():
                 table.rows = None
+        labels = torch.zeros(logits.shape, device=self.device)
+        labels[:, 0] = 1.0
         loss = self.rec_loss(logits, labels)
         total = loss + reg
         total.backward()
@@ -277,7 +359,10 @@ class Trainer:
         holding a NaN, naming it and this step (counted from 0). The
         tensors' flags are read from the device at once."""
         flags = torch.stack([torch.isnan(t).any()
-                             for t in tensors.values()]).cpu()
+                             for t in tensors.values()]).int()
+        if self.mesh is not None:  # every rank raises, or none
+            pdist.all_reduce(flags, "max", self.mesh.world_group)
+        flags = flags.cpu()
         if bool(flags.any()):
             what, name = list(tensors)[int(flags.nonzero()[0])]
             raise FloatingPointError(
@@ -307,6 +392,13 @@ class Trainer:
         if n_batches == 0:  # fewer interactions than one batch: tail only
             n_batches, tail = 1, 0
             self.batch_size = min(self.batch_size, n_inter)
+        if self.mesh is not None:  # whole rows for every rank of the batch
+            ranks = batch_group(self.mesh, self._flat)[2]
+            tail -= tail % ranks
+            self.batch_size -= self.batch_size % ranks
+            if self.batch_size == 0:
+                raise ValueError(f"{n_inter} interactions do not fill one "
+                                 f"row for each of {ranks} ranks")
         bs = self.batch_size
         perm = torch.randperm(n_inter, generator=self.gen, device=self.device)
         losses = [self.train_step(perm[k * bs:(k + 1) * bs])
@@ -317,6 +409,10 @@ class Trainer:
                 perm[n_batches * bs:n_batches * bs + tail]))
             weights.append(tail / bs)
         self.epoch_losses = torch.stack(losses)
+        if self.mesh is not None:  # the regularizers' rank means, averaged
+            group, _, n = batch_group(self.mesh, self._flat)
+            self.epoch_losses = pdist.all_reduce(self.epoch_losses,
+                                                 group=group) / n
         w = torch.tensor(weights, device=self.device).unsqueeze(1)
         total, rec, reg = ((self.epoch_losses * w).sum(0) / w.sum()).tolist()
         return {"train/loss": total, "train/rec_loss": rec,
@@ -328,7 +424,8 @@ class Trainer:
         scorer (with ``dot_parts`` where the model ranks like a dot)."""
         return scoring.make_score_fn(self.model,
                                      self.val_evaluator.data.catalog,
-                                     item_chunk)
+                                     item_chunk, mesh=self.mesh,
+                                     flat=self._flat)
 
     def validate(self) -> dict:
         return evaluate_model(self.make_score_fn(), self.val_evaluator,
@@ -419,21 +516,46 @@ class Trainer:
                 self.save(self.results_path)
 
     # --------------------------------------------------------- persistence
+    def _full(self, state: dict) -> dict:
+        """``state`` with the row-sliced kernels put back together over the
+        item group (a collective: every rank calls it)."""
+        if not self._tp:
+            return state
+        return {k: full_rows(v, self.mesh) if k in self._tp else v
+                for k, v in state.items()}
+
+    def _local(self, state: dict) -> dict:
+        """``state`` with this rank's rows of the sliced kernels."""
+        if not self._tp:
+            return state
+        return {k: v[self._tp[k][0]:self._tp[k][1]] if k in self._tp else v
+                for k, v in state.items()}
+
+    def _full_moments(self, name: str, st: dict) -> dict:
+        if name not in self._tp:
+            return st
+        return {k: full_rows(t, self.mesh) for k, t in st.items()}
+
     def save(self, path: str) -> None:
         """The best state (else the current one) as ``path/model.pt``: the
-        model's state dict, parameters and batch-norm statistics."""
-        os.makedirs(path, exist_ok=True)
-        state = (self.best_state if self.best_state is not None
-                 else self.model.state_dict())
-        torch.save(state, os.path.join(path, "model.pt"))
+        model's state dict, parameters and batch-norm statistics. On a
+        mesh rank 0 writes the file a single-device run writes, the
+        kernel slices put back together."""
+        state = self._full(self.best_state if self.best_state is not None
+                           else self.model.state_dict())
+        if pdist.is_main():
+            os.makedirs(path, exist_ok=True)
+            torch.save(state, os.path.join(path, "model.pt"))
+        pdist.barrier()  # the file exists before any rank reads it
 
     def load(self, path: str) -> None:
         state = torch.load(os.path.join(path, "model.pt"),
                            map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state)
+        self.model.load_state_dict(self._local(state))
 
     def state_dict(self) -> dict:
-        """The whole training state, as tensors and numbers: parameters
+        """The whole training state, as tensors and numbers (the row-sliced
+        kernels and their moments whole, on a mesh): parameters
         and batch-norm statistics, the optimizer's step count and moments
         (by parameter name), the row moments of sparse tables, the state
         of the trainer's generator (on its device: every draw of training
@@ -441,26 +563,30 @@ class Trainer:
         first validation), value and epoch."""
         names = {p: n for n, p in self.model.named_parameters()}
         return {
-            "model": self.model.state_dict(),
+            "model": self._full(self.model.state_dict()),
             "optimizer": {"count": self.optimizer.count,
-                          "state": {names[p]: st for p, st in
+                          "state": {names[p]: self._full_moments(names[p], st)
+                                    for p, st in
                                     self.optimizer.state.items()}},
             "rows": self.row_state,
             "generator": self.gen.get_state(),
             "step": self.step,
-            "best": {"state": self.best_state, "value": self.best_value,
-                     "epoch": self.best_epoch}}
+            "best": {"state": (None if self.best_state is None
+                               else self._full(self.best_state)),
+                     "value": self.best_value, "epoch": self.best_epoch}}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         """Restore `state_dict`'s state in place (tensors keep their
         dtype and move to this trainer's device)."""
-        self.model.load_state_dict(state["model"])
+        self.model.load_state_dict(self._local(state["model"]))
         params = dict(self.model.named_parameters())
         self.optimizer.count = int(state["optimizer"]["count"])
         for name, st in state["optimizer"]["state"].items():
+            lo, hi, _ = self._tp.get(name, (None, None, None))
             for key, t in st.items():
-                self.optimizer.state[params[name]][key] = t.to(self.device)
+                self.optimizer.state[params[name]][key] = t[lo:hi].to(
+                    self.device)
         for name, st in state["rows"].items():
             for key, t in st.items():
                 self.row_state[name][key].copy_(t)
@@ -468,8 +594,8 @@ class Trainer:
         self.step = int(state["step"])
         best = state["best"]
         self.best_state = (None if best["state"] is None else
-                           {k: v.to(self.device)
-                            for k, v in best["state"].items()})
+                           {k: v.to(self.device) for k, v in
+                            self._local(best["state"]).items()})
         self.best_value = float(best["value"])
         self.best_epoch = int(best["epoch"])
 
@@ -478,8 +604,11 @@ class Trainer:
         ``path/train_state.pt``, for resuming mid-training: the JAX
         package's ``save_checkpoint`` state in a torch format that
         ``torch.load(..., weights_only=True)`` reads."""
-        os.makedirs(path, exist_ok=True)
-        torch.save(self.state_dict(), os.path.join(path, CHECKPOINT))
+        state = self.state_dict()
+        if pdist.is_main():
+            os.makedirs(path, exist_ok=True)
+            torch.save(state, os.path.join(path, CHECKPOINT))
+        pdist.barrier()
 
     def load_checkpoint(self, path: str) -> None:
         """Resume from `save_checkpoint`'s file; raises

@@ -36,6 +36,7 @@ from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
 from sibrar_tpu_torch.models.sbnet import SingleBranchNet
 from sibrar_tpu_torch.models.transplant import transplant
 from sibrar_tpu_torch.ops.topk import METHODS
+from sibrar_tpu_torch.parallel.mesh import make_mesh
 from sibrar_tpu_torch.train.scoring import make_score_fn
 from sibrar_tpu_torch.train.trainer import (
     DatasetConfig,
@@ -258,9 +259,11 @@ def test_evaluator_refuses_unported_options(slice_, caplog):
         evaluate_model(sf, ev, batch_size=64)
     with pytest.raises(ValueError, match="topk_method"):
         _port_evaluator(slice_, dict(topk_method="approx"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        FullEvaluator(EvalConfig(), slice_["tval"], slice_["tdata"],
-                      mesh=object())
+    # the item-sharded evaluator is ported (tests/test_torch_parallel.py);
+    # on a one-rank mesh (one process) it gives the metrics of no mesh
+    assert evaluate_model(sf, FullEvaluator(
+        EvalConfig(top_k=KS), slice_["tval"], slice_["tdata"],
+        evaluator_name="val", mesh=make_mesh(1)), batch_size=64) == got
     feats = slice_["tval"].user_features
     feats["age"] = FeatureTable(np.zeros((N_USERS, 2), np.float32),
                                 "numeric")

@@ -261,8 +261,10 @@ def test_cli_runs_mf_with_sparse_tables_and_debug_nans(onion_dir, tmp_path,
 
 
 def test_cli_refuses_what_is_not_ported(onion_dir, tmp_path):
-    """A matrix name now runs (EASE writes its run files); several devices
-    and a missing card are still refused before anything is written."""
+    """A matrix name now runs (EASE writes its run files); a ``parallel``
+    block asking for two devices runs on one in a single process, as in
+    JAX (no mesh), with the same metrics; a missing card is still refused
+    before anything is written."""
     val, test = main([
         "-a", "ease", "-c", CONF, "-d", onion_dir, "-t", "train_val_test",
         "-o", f"results_path={tmp_path}/ease", "-o", "model.lam=500.0",
@@ -273,10 +275,15 @@ def test_cli_refuses_what_is_not_ported(onion_dir, tmp_path):
         test["test/ndcg@10"])
     assert sorted(os.listdir(f"{tmp_path}/ease")) == [
         "conf.yml", "metrics_test.yml", "metrics_val.yml", "model.npz"]
+    par = main([
+        "-a", "ease", "-c", CONF, "-d", onion_dir, "-t", "train_val",
+        "-o", f"results_path={tmp_path}/par", "-o", "model.lam=500.0",
+        "-o", "run_settings.device=cpu", "-o", "dataset.user_features=[]",
+        "-o", "dataset.item_features=[]", "-o", "eval.group_metrics=[]",
+        "-o", "eval.top_k=[10]", "-o", "parallel.enabled=true",
+        "-o", "parallel.n_devices=2"])
+    assert par == val
     base = ["-c", CONF, "-d", onion_dir, "-o", f"results_path={tmp_path}/r"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(["-a", "sbnet", *base, "-o", "run_settings.device=cpu",
-              "-o", "parallel.n_devices=2"])
     if not torch.cuda.is_available():  # base.yml's device: tpu
         with pytest.raises(RuntimeError, match="is_available"):
             main(["-a", "sbnet", *base])

@@ -228,6 +228,9 @@ from sibrar_tpu_torch.train.trainer import (DatasetConfig, EvalConfig,
 from sibrar_tpu_torch.models import mf
 from sibrar_tpu_torch.data.synthetic import make_synthetic_splits
 from sibrar_tpu_torch.tools import trained_parity
+from sibrar_tpu_torch.parallel import distributed, mesh
+assert mesh.make_mesh().shape == {"data": 1, "item": 1}
+assert not distributed.initialize_distributed()
 conf = copy.deepcopy(MODEL_CONF)
 conf["shared_common_dim"] = 8
 conf["user"]["embedding_dim"] = 8

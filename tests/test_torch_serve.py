@@ -17,6 +17,7 @@ it, and runs the port cannot serve raise naming their queue item."""
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
 
@@ -36,6 +37,7 @@ from sibrar_tpu_torch.data.synthetic import (
     write_reference_artifacts,
 )
 from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
+from sibrar_tpu_torch.parallel.mesh import make_mesh
 from sibrar_tpu_torch.run_experiment import main as run_experiment
 from sibrar_tpu_torch.serve import (
     Recommender,
@@ -209,8 +211,12 @@ def test_validation_messages_match_jax(kw):
 def test_mesh_and_unknown_dtype_raise():
     _, tval = _splits()
     _, ts, _, _ = _scorers(tval.n_users, tval.n_items_in_split)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        Recommender(ts, tval, device="cpu", mesh=object())
+    # a one-rank mesh (one process) serves the lists of no mesh
+    users = np.asarray(tval.users_in_split)
+    np.testing.assert_array_equal(
+        Recommender(ts, tval, device="cpu", mesh=make_mesh(1)).recommend(
+            users),
+        Recommender(ts, tval, device="cpu").recommend(users))
     with pytest.raises(ValueError, match="serving dtype 'float16'"):
         Recommender(ts, tval, device="cpu", dtype="float16")
 
@@ -294,18 +300,29 @@ def test_from_run_dir_roundtrip(mf_run):
 @pytest.mark.parametrize("change,error,match", [
     ({"algorithm": "ease", "model": {"lam": 5.0}}, FileNotFoundError,
      "model.npz"),
-    ({"parallel": {"n_devices": 2}}, NotImplementedError, "queue 1, item 8")],
+    ({"parallel": {"enabled": True, "n_devices": 2}}, None, None)],
     ids=["matrix_algorithm", "parallel"])
 def test_from_run_dir_refuses_unported_runs(mf_run, tmp_path, change, error,
                                             match):
-    """A ``parallel`` block is refused as not ported (queue 1 item 8). A
-    matrix algorithm is ported: its run directory is read for JAX's
+    """A matrix algorithm is ported: its run directory is read for JAX's
     ``model.npz``, so one that holds only an MF run's ``model.pt`` is
-    refused for the missing file."""
+    refused for the missing file. A ``parallel`` block now loads: in one
+    process it asks for one device (no mesh, as in JAX), and the run
+    serves its own lists."""
     with open(os.path.join(mf_run, "conf.yml")) as fh:
         conf = yaml.safe_load(fh)
     with open(tmp_path / "conf.yml", "w") as fh:
         yaml.safe_dump({**conf, **change}, fh)
+    if error is None:
+        shutil.copy(os.path.join(mf_run, "model.pt"), tmp_path)
+        rec = Recommender.from_run_dir(str(tmp_path), split="val",
+                                       device="cpu")
+        assert rec.mesh is None
+        want = Recommender.from_run_dir(mf_run, split="val", device="cpu")
+        users = np.asarray(rec.dataset.users_in_split)
+        np.testing.assert_array_equal(rec.recommend(users),
+                                      want.recommend(users))
+        return
     with pytest.raises(error, match=match):
         Recommender.from_run_dir(str(tmp_path), split="val", device="cpu")
 

@@ -18,8 +18,11 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    tiling at the validation paths' (B = 1,024, C = 100,352), and the
    windowed rankers' kernels at serving width (K10 ``score_windows`` and K12
    ``fused_score_wmax`` at B = 1,024, C = 100,352, D = 256, each bit-equal to
-   K2's scores; K3 as ``gather_windows_rows`` and K11 ``recover_winners`` at
-   the test split's m = 160 windows and k = 100 winners; the plane peel's
+   K2's scores; K3 as ``gather_windows_rows`` at the test split's m = 160
+   windows; K11 ``recover_winners`` at the end of the dot path's selection,
+   m = 168 windows and k = 100 winners, with planted rows (NaN winners, an
+   in-window tie, a -inf winner, an incomplete row) and at B = kk = m = 1,
+   kk = 37 and 601, ids and row flags bit-equal; the plane peel's
    corrected-wmax branch and its redo from the planes, bit-equal to the dot
    path's; K13 ``exact_topk`` over the [1,024, 100,352] scores, on short
    rows, at k = n, on all-ones NaN rows, on rows not 16-byte aligned, on
@@ -81,13 +84,12 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    K13's plain version);
 6. on the same weights, serves batches of 1,024 test users through the
    windowed rankers: ``peel.peel_masked_topk`` (K10, K3 on the planes, K4,
-   K3), the same with ``peel.RECOVER_KERNEL`` (K11 instead of the last K3),
-   ``window.pallas_masked_topk`` (K10, K3 on the tiling),
+   K11), ``window.pallas_masked_topk`` (K10, K3 on the tiling),
    ``score.fused_masked_topk`` (K12) and ``exact_topk`` over K2's scores
    after the exclusion fill (K13), and holds each list to the
    ``Recommender``'s for the same users: values bit-equal, ids equal up to
    exact ties, no excluded item; then profiles the plane peel's device time
-   per batch with each winner recovery; then the ``Recommender``'s other
+   per batch; then the ``Recommender``'s other
    modes at B = 256 and 1,024 (`serving_modes`): ``dtype="bfloat16"`` (K15
    and the peel; K15 within ``D 2^-24 (|u~| @ |i~|^T)`` of the rounded
    operands' exact product at the serving shapes, lists the exact top-k of
@@ -112,8 +114,8 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    turns with ``torch.roll``) are logged apart; then every mode of the
    three GEMM probes is timed through their ``run`` entry points (CUDA
    events; the bisect's kernels under ``torch.profiler``), the roll probes
-   and ``try_mask`` must report ok, and ``try_recover`` must find K11
-   bit-equal to plain at m = 168;
+   and ``try_mask`` must report ok, and ``try_recover`` must find K11's ids
+   and row flags bit-equal to plain at m = 168;
 8. runs the port's CLI end to end from artifacts (`cli_phase`): the
    onion-scale splits written by the port's ``write_reference_artifacts``
    (~0.9 GB, deleted at the end), each split loaded by ``RecDataset.load``
@@ -230,7 +232,10 @@ the bf16 test evaluation, row-sparse MF, the DMF, ProtoMF and ECF CLI
 runs, the gathers, the combine, the SBNet sweep, each zoo family, each
 matrix run) runs with
 every launch count set to 0 just before it and read just after; each of
-its kernels must have launched, and kernels of other paths must not.
+its kernels must have launched, and kernels of other paths must not. On
+every path that peels, each selection ends in one K11 launch (as many as
+K4's) and none gathers the winners' rows through K3
+(``peel.gather_subwindows``).
 
 Output: progress lines, then one JSON line with a row per kernel, the card's
 name and power limit, and as the last line
@@ -324,6 +329,10 @@ RANKER_BATCHES = 3  # batches of 1,024 test users per windowed ranker
 MODE_BATCHES = 4  # timed request batches per serving mode and batch size
 INT8_CPU_USERS = 64  # users whose int8 product is checked against the CPU's
 RELOAD_USERS = 1024  # test users served from the CLI's run directory
+# K11's windows a row: the margin path's m at E = 61-68 exclusions (the
+# onion splits' longest rows give 144-160), as its probe and JAX's
+# measurements of its Pallas kernel take it
+RECOVER_M = 168
 TURNS, TURN_ITERS = 7, 200  # rounds x calls of a host-bound events loop
 F32_EPS = 2.0 ** -24
 # H100 SXM peaks (NVIDIA data sheet; at 700 W): HBM bytes/s, f32 FLOP/s
@@ -386,6 +395,21 @@ def bound(n_bytes: float, n_ops: float = 0.0,
     t_ops = n_ops / flops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def winner_rows(p, t: int) -> int:
+    """The distinct (row, window) pairs among K11's winners at positions
+    ``p [B, kk]`` of ``t`` peeled values a window: the window rows that it
+    must read from HBM (a row shared by several winners is read once)."""
+    s = (p // t).sort(dim=1).values
+    return s.shape[0] + int((s[:, 1:] != s[:, :-1]).sum())
+
+
+def recover_bytes(rows: int, b: int, m: int, kk: int) -> int:
+    """K11's bytes, each once: 512 of ``g`` and 4 of ``widx`` a distinct
+    winner row; ``p`` (8), ``v`` (4) and ``idx`` (8) a winner; ``last``
+    (4 a window) and ``ok`` (1) a user row."""
+    return rows * (128 * 4 + 4) + b * kk * (8 + 4 + 8) + b * (m * 4 + 1)
 
 
 def exact(name: str, got, want) -> float:
@@ -523,6 +547,7 @@ def check_kernels(data, dev, e_val: int) -> dict:
         **bound(b * m * (128 + t + 1) * 4))
     check_peel_edges(dev)
     rows_out.update(check_eval_kernels(scores, e_val))
+    rows_out.update(check_recover(scores, wmax))
     rows_out.update(check_ranker_kernels(u, items, scores, wmax, m))
     return rows_out
 
@@ -686,8 +711,86 @@ def check_eval_kernels(scores, e_val: int) -> dict:
     return out
 
 
+def check_recover(scores, wmax) -> dict:
+    """K11 at the end of a dot-path selection (B = 1,024, kk = K, m =
+    RECOVER_M): its inputs from the peel's own stages on K2's scores (K3
+    with 2 % dead lanes, K4, the stable merge, whose ``v`` and ``p`` are
+    row slices), with rows planted: a NaN winner, a NaN k-th value, an
+    in-window tie, a -inf winner on dead lanes, a window whose deepest
+    value beats the k-th winner; then B = kk = m = 1, and kk = 37 and 601
+    (not multiples of its 4 warps; 601 past its 128 winners a pass). Ids
+    and row flags bit-equal to the plain version everywhere; the planted
+    rows flagged."""
+    import torch
+
+    from sibrar_tpu_torch.ops import peel
+    from sibrar_tpu_torch.tools import _common
+
+    dev = scores.device
+    b = scores.shape[0]
+    m, t = RECOVER_M, peel.PEEL_T
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    widx = (peel._topk_stable(wmax, m)[1].sort(dim=1).values
+            .to(torch.int32).contiguous())
+    dead = torch.rand(b, m, 128, device=dev, generator=gen) < 0.02
+    g = peel.gather_windows(scores, widx, dead)
+    vals_flat, last = peel.peel_values_grouped(g, t)
+    v, p = peel._topk_stable(vals_flat, K)
+    slot = (p[:, [0, K - 1]] // t).tolist()
+    v[0, 5], v[1, K - 1] = math.nan, math.nan
+    lane = int((g[2, slot[2][0]] == v[2, 0]).nonzero()[0])
+    g[2, slot[2][0], (lane + 1) % 128] = v[2, 0]  # a tie in its window
+    g[3, slot[3][1], :3] = float("-inf")
+    v[3, K - 1] = float("-inf")
+    last[4, 7] = v[4, K - 1] + 1.0  # incomplete
+    planted = 5
+
+    errs = []
+
+    def held(label, *args):
+        got = peel.recover_winners(*args)
+        errs.append(exact(f"K11 recover_winners {label}", got,
+                          peel.recover_plain(*args)))
+        return got
+
+    idx, ok = held(f"B={b} m={m} kk={K}", g, widx, p, t, v, last)
+    if ok[:planted].any():
+        raise AssertionError(f"K11: a planted row passed: {ok[:planted]}")
+    n_ok = int(ok[planted:].sum())
+    g1 = g[:1, :1].contiguous()
+    held("B=kk=m=1", g1, widx[:1, :1].contiguous(),
+         torch.zeros(1, 1, dtype=torch.int64, device=dev), t,
+         g1[:, 0, :1].clone(), last[:1, :1].contiguous())
+    for kk in (37, 601):
+        vk, pk = peel._topk_stable(vals_flat, kk)
+        held(f"kk={kk}", g, widx, pk, t, vk, last)
+    args = (g, widx, p, t, v, last)
+    rows = winner_rows(p, t)
+    out = dict(
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: peel.recover_winners(*args), 50),
+        plain_ms=cuda_ms(lambda: peel.recover_plain(*args), 50),
+        library_ms=None,
+        **bound(recover_bytes(rows, b, m, K)))
+    device = _common.device_ops_ms(lambda: peel.recover_winners(*args), dev,
+                                   50, "recover_winners")
+    torch.cuda.synchronize()  # host time of an enqueue, the wrapper's
+    t0 = time.perf_counter()
+    for _ in range(200):
+        peel.recover_winners(*args)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    log(f"K11 recover_winners B={b} m={m} kk={K} t={t}: ids and row flags "
+        f"bit-equal to plain (planted rows 0-{planted - 1} flagged, "
+        f"{n_ok} of {b - planted} others ok), also at B = kk = m = 1 and "
+        f"kk = 37, 601; {rows} distinct winner rows of {b * K} winners; "
+        f"device time per launch (profiler) {device}; host "
+        f"{host_us:.1f} us per call (200 enqueued, no sync); {out}")
+    return {"recover_winners": out}
+
+
 def check_ranker_kernels(u, items, scores, wmax, m: int) -> dict:
-    """K10, K3 as ``gather_windows_rows``, K11, K12 and K13 against their
+    """K10, K3 as ``gather_windows_rows``, K12 and K13 against their
     plain versions at serving width (``scores, wmax`` are K2's of ``u @
     items.T``, B = 1,024, C = 100,352, D = 256; ``m`` the test split's
     window count): K10's planes and K12's transposed scores bit-equal to
@@ -752,28 +855,6 @@ def check_ranker_kernels(u, items, scores, wmax, m: int) -> dict:
     log(f"K3 as gather_windows_rows B={b} m={m}, dead lanes on copy: "
         f"bit-equal; {out['gather_windows_rows']}")
 
-    # K11: K winners per user, their values planted from random lanes of
-    # random slots (so every one hits), one row of values that miss
-    slots = torch.randint(0, m, (b, K), device=dev, generator=gen,
-                          dtype=torch.int32)
-    lanes = torch.randint(0, 128, (b, K), device=dev, generator=gen)
-    v = g.reshape(b, -1).gather(1, slots.long() * 128 + lanes)
-    v[0] = float("nan")
-    got = peel.recover_winners(g, widx, slots, v)
-    out["recover_winners"] = dict(
-        max_abs_err=exact("K11 recover_winners", got,
-                          peel.recover_winners_plain(g, widx, slots, v)),
-        ms=cuda_ms(lambda: peel.recover_winners(g, widx, slots, v), 50),
-        plain_ms=cuda_ms(lambda: peel.recover_winners_plain(g, widx, slots,
-                                                            v), 50),
-        library_ms=None,
-        **bound(b * K * (128 * 4 + 4 + 4 + 4 + 3 * 4)))
-    device = _common.device_ops_ms(
-        lambda: peel.recover_winners(g, widx, slots, v), dev, 50,
-        "recover_winners")
-    log(f"K11 recover_winners B={b} m={m} kk={K}: bit-equal (lanes, counts "
-        f"up to {int(got[1].max())}, windows); device time per launch "
-        f"(profiler) {device}; {out['recover_winners']}")
     del g, dead, sw_t
     check_plane_peel(u, items, gen)
     check_score_edges(items, gen)
@@ -1232,7 +1313,8 @@ def serving_modes(f32_recs, score_fn, split, data, kernels, count_path,
     c = items.shape[0]
     csr = data.exclude_csr
     catalog_items = np.asarray(split.items_in_split)
-    peel_k = ["segment_gather", "gather_windows", "peel_values", "spmm_fwd"]
+    peel_k = ["segment_gather", "gather_windows", "peel_values",
+              "recover_winners", "spmm_fwd"]
     # K13 may launch on the peel's paths: it selects the rows they redo
     modes = (
         ("bf16", dict(dtype="bfloat16"), peel_k + ["score_bf16"],
@@ -1241,11 +1323,12 @@ def serving_modes(f32_recs, score_fn, split, data, kernels, count_path,
          ("score_wmax", "score_bf16")),
         ("approx", dict(selection="approx"),
          ["segment_gather", "score_wmax", "exact_topk", "spmm_fwd"],
-         ("score_bf16", "window_max", "gather_windows", "peel_values")),
+         ("score_bf16", "window_max", "gather_windows", "peel_values",
+          "recover_winners")),
         ("approx int8", dict(dtype="int8", selection="approx"),
          ["segment_gather", "exact_topk", "spmm_fwd"],
          ("score_wmax", "score_bf16", "window_max", "gather_windows",
-          "peel_values")))
+          "peel_values", "recover_winners")))
     exact_recs = {("f32", bs): rec for bs, rec in f32_recs.items()}
     t_phase = time.perf_counter()
     for bs in BATCHES:
@@ -1417,14 +1500,6 @@ def windowed_rankers(rec, score_fn, split, data, kernels, count_path,
     def peel_planes(ur, cols, mask):
         return peel.peel_masked_topk(ur, items, cols, mask, K)[:2]
 
-    def peel_recover(ur, cols, mask):
-        flag = peel.RECOVER_KERNEL
-        try:
-            peel.RECOVER_KERNEL = True
-            return peel_planes(ur, cols, mask)
-        finally:
-            peel.RECOVER_KERNEL = flag
-
     def tiled(ur, cols, mask):
         return window.pallas_masked_topk(ur, items, cols, mask, K)
 
@@ -1437,27 +1512,25 @@ def windowed_rankers(rec, score_fn, split, data, kernels, count_path,
         return xtopk.exact_topk(scatter_fill_rows(scores, cols, mask,
                                                   fill=-1e30), K)
 
-    peel_k = ["segment_gather", "score_windows", "gather_windows_rows",
-              "peel_values"]
     # K13 may launch on the plane peel: it selects the rows the peel redoes
     others = ("score_wmax", "fused_score_wmax", "window_scores_from",
               "window_max")
     paths = (
-        ("peel_masked_topk", peel_planes, peel_k + ["gather_windows"],
-         others + ("recover_winners", "gather_windows_tiled")),
-        ("peel_masked_topk, RECOVER_KERNEL", peel_recover,
-         peel_k + ["recover_winners"],
+        ("peel_masked_topk", peel_planes,
+         ["segment_gather", "score_windows", "gather_windows_rows",
+          "peel_values", "recover_winners"],
          others + ("gather_windows", "gather_windows_tiled")),
         ("pallas_masked_topk", tiled,
          ["segment_gather", "score_windows", "gather_windows_tiled"],
          others + ("gather_windows_rows", "peel_values", "recover_winners",
                    "exact_topk")),
         ("fused_masked_topk", fused, ["segment_gather", "fused_score_wmax"],
-         ("score_wmax", "score_windows", "exact_topk", "peel_values")),
+         ("score_wmax", "score_windows", "exact_topk", "peel_values",
+          "recover_winners")),
         ("exact_topk after the exclusion fill", exact_fill,
          ["segment_gather", "score_wmax", "exact_topk"],
          ("score_windows", "fused_score_wmax", "peel_values",
-          "gather_windows")))
+          "recover_winners", "gather_windows")))
     wants = [rec.recommend(users, return_scores=True) for users in batches]
     catalog_items = rec._catalog_items
     position = np.zeros(int(catalog_items.max()) + 1, dtype=np.int64)
@@ -1499,17 +1572,18 @@ def windowed_rankers(rec, score_fn, split, data, kernels, count_path,
             f"Recommender's, no excluded item, {differ} rows differ on "
             f"exact ties")
     recovery_device_time(batches, user_fn, csr, data.catalog.device,
-                         peel_planes, peel_recover)
+                         peel_planes)
 
 
-def recovery_device_time(batches, user_fn, csr, dev, default, recover
-                         ) -> None:
-    """Device busy ms per batch of the plane peel with each winner recovery
-    (K3 + four compares, or K11 under ``RECOVER_KERNEL``), under the
-    profiler over the same batches' user vectors and exclusions, default
-    first (device time repeats within 0.001 ms: one session each)."""
+def recovery_device_time(batches, user_fn, csr, dev, peel_fn) -> None:
+    """Device busy ms per batch of the plane peel, whose selections end in
+    K11, under the profiler over the same batches' user vectors and
+    exclusions (device time repeats within 0.001 ms: one session). A pass
+    before it counts K11's distinct winner rows on these trained scores,
+    and its bound with each row read once against one read a winner."""
     import torch
 
+    from sibrar_tpu_torch.ops import peel
     from sibrar_tpu_torch.ops.sparse import csr_row_gather
 
     with torch.no_grad():
@@ -1517,14 +1591,38 @@ def recovery_device_time(batches, user_fn, csr, dev, default, recover
         for users in batches:
             u_t = torch.as_tensor(users, device=dev)
             inputs.append((user_fn(u_t), *csr_row_gather(csr, u_t)))
-        busy = {"default": [], "K11": []}
-        for name in ("default", "K11"):
-            fn = default if name == "default" else recover
-            busy[name].append(profile_window(
-                lambda f=fn: [f(*args) for args in inputs], len(inputs),
-                f"batches of 1,024, plane peel, {name} recovery"))
-    log(f"plane peel device ms per batch of 1,024: default recovery "
-        f"{busy['default']}, K11 {busy['K11']}")
+        seen = []  # (distinct rows, B, m, kk) of each K11 call
+        real = peel.recover_winners
+
+        def counted(g, widx, p, t, v, last):
+            seen.append((winner_rows(p, t), *g.shape[:2], p.shape[1]))
+            peel.recover_winners = real  # its count is read by that name
+            try:
+                return real(g, widx, p, t, v, last)
+            finally:
+                peel.recover_winners = counted
+
+        peel.recover_winners = counted
+        try:
+            for args in inputs:
+                peel_fn(*args)
+        finally:
+            peel.recover_winners = real
+        busy = profile_window(lambda: [peel_fn(*args) for args in inputs],
+                              len(inputs),
+                              "batches of 1,024, plane peel, K11 recovery")
+    if not seen:
+        raise AssertionError("the plane peel made no K11 call")
+    rows = sum(r for r, *_ in seen)
+    winners = sum(b * kk for _, b, _, kk in seen)
+    once = sum(bound(recover_bytes(*x))["bound_ms"] for x in seen)
+    each = sum(bound(recover_bytes(b * kk, b, m, kk))["bound_ms"]
+               for _, b, m, kk in seen)
+    log(f"plane peel device ms per batch of 1,024 (K11 recovery): {busy}; "
+        f"K11 on these trained scores: {len(seen)} calls, {rows} distinct "
+        f"winner rows of {winners} winners ({100 * rows / winners:.2f} %), "
+        f"bound {once / len(seen):.5f} ms a call (a row read once; "
+        f"{each / len(seen):.5f} ms with one row read a winner)")
 
 
 def check_excluded(split, users, ids) -> None:
@@ -1615,7 +1713,8 @@ def fit_phase(model, train, tdata, val, vdata, kernels, count_path):
     total = time.perf_counter() - t0
     count_path("fit (train steps, dot-path validations)",
                ["segment_gather", "score_wmax", "gather_windows",
-                "peel_values", "dw_matmul", "spmm_fwd", "spmm_bwd"],
+                "peel_values", "recover_winners", "dw_matmul", "spmm_fwd",
+                "spmm_bwd"],
                ("window_max", "window_scores_from", "gather_windows_tiled"))
     n_users = int(vdata.users_in_split.shape[0])
     for rec, wall in zip(records, walls):
@@ -1658,17 +1757,18 @@ def eval_paths(fitter, val, vdata, kernels, count_path) -> dict:
     def scores_fn(u):  # the same scorer without dot parts
         return score_fn(u)
 
-    peel_k = ["segment_gather", "gather_windows", "peel_values"]
+    peel_k = ["segment_gather", "gather_windows", "peel_values",
+              "recover_winners"]
     tiled = ("window_scores_from", "gather_windows_tiled")
     paths = (("dot", "auto", score_fn, peel_k + ["score_wmax"],
               ("window_max",) + tiled),
              ("scores", "auto", scores_fn, peel_k + ["window_max"],
               ("score_wmax",) + tiled),
              ("pallas", "pallas", scores_fn, ["segment_gather", *tiled],
-              ("window_max", "peel_values", "score_wmax")),
+              ("window_max", "peel_values", "recover_winners", "score_wmax")),
              ("full", "full", scores_fn, ["segment_gather", "exact_topk"],
-              ("window_max", "peel_values", "score_wmax", "gather_windows")
-              + tiled))
+              ("window_max", "peel_values", "recover_winners", "score_wmax",
+               "gather_windows") + tiled))
     out = {}
     for path, method, fn, needed, absent in paths:
         conf = eval_conf(topk_method=method)
@@ -2277,7 +2377,7 @@ def probes_phase(kernels, count_path) -> dict:
                 raise AssertionError(f"try_mask {dtype_name} b={rows}: "
                                      "differs from torch.where")
     got = probe_pred_input.try_recover(DEVICE)
-    if not (got["lane"] and got["nhit"] and got["wsel"]):
+    if not (got["idx"] and got["ok"]):
         raise AssertionError(f"try_recover: K11 differs from plain: {got}")
     count_path("probes path",
                [*(f"score_{v}" for v in gemm_probe.VARIANTS),
@@ -2429,8 +2529,8 @@ def cli_phase(splits, kernels, count_path, card: str) -> None:
         total = time.perf_counter() - t0
         count_path("CLI train_val_test", ["segment_gather", "score_wmax",
                                           "gather_windows", "peel_values",
-                                          "dw_matmul", "spmm_fwd",
-                                          "spmm_bwd"])
+                                          "recover_winners", "dw_matmul",
+                                          "spmm_fwd", "spmm_bwd"])
 
         files = sorted(os.listdir(run_dir))
         if files != ["conf.yml", "metrics_test.yml", "metrics_val.yml",
@@ -2513,7 +2613,8 @@ def reload_phase(run_dir: str, root: str, splits, kernels, count_path,
     conf = get_config(os.path.join(run_dir, "conf.yml"))
     test, train = splits["test"], splits["train"]
     users = np.asarray(test.users_in_split)[:RELOAD_USERS]
-    peel_k = ["segment_gather", "gather_windows", "peel_values", "spmm_fwd"]
+    peel_k = ["segment_gather", "gather_windows", "peel_values",
+              "recover_winners", "spmm_fwd"]
     reset_counts(kernels)
     t0 = time.perf_counter()
     rec = Recommender.from_run_dir(run_dir)
@@ -2571,7 +2672,7 @@ def reload_phase(run_dir: str, root: str, splits, kernels, count_path,
     t_eval = time.perf_counter() - t0
     count_path("test evaluation, score_dtype bfloat16",
                ["segment_gather", "gather_windows", "peel_values",
-                "score_bf16"], ("score_wmax",))
+                "recover_winners", "score_bf16"], ("score_wmax",))
     if set(bf16) != expected_keys(conf.eval, "test") or not all(
             np.isfinite(v) for v in bf16.values()):
         raise AssertionError("bf16 test metrics: keys differ from JAX's or "
@@ -2697,8 +2798,11 @@ def mf_sparse_phase(data_dir: str, run_dir: str, kernels, count_path,
 
 
 def reset_counts(kernels) -> None:
+    from sibrar_tpu_torch.ops import peel
+
     for _, fn, _, _ in kernels:
         fn.launches = 0
+    peel.gather_subwindows.launches = 0  # K3's, off every peel path
 
 
 def read_counts(kernels) -> dict:
@@ -3181,7 +3285,8 @@ def zoo_conf_path(name: str) -> str:
 # (UIProtoMFs has no dot parts, as in JAX), which must not launch K2
 ZOO_KERNELS = {
     "dmf": ["segment_gather", "dw_matmul", "spmm_fwd", "spmm_bwd",
-            "score_wmax", "gather_windows", "peel_values"],
+            "score_wmax", "gather_windows", "peel_values",
+            "recover_winners"],
     "ifeatmf": ["spmm_fwd", "spmm_bwd", "score_wmax"],
     "ufeatmf": ["spmm_fwd", "spmm_bwd", "score_wmax"],
     "dropoutnet": ["segment_gather", "dw_matmul", "spmm_fwd", "spmm_bwd",
@@ -3897,8 +4002,9 @@ def sbnet_sweep(data_dir: str, root: str, kernels, count_path,
     total = time.perf_counter() - t0
     final = torch.cuda.memory_allocated()
     count_path("SBNet sweep", ["segment_gather", "score_wmax",
-                               "gather_windows", "peel_values", "dw_matmul",
-                               "spmm_fwd", "spmm_bwd"])
+                               "gather_windows", "peel_values",
+                               "recover_winners", "dw_matmul", "spmm_fwd",
+                               "spmm_bwd"])
     line = printed.getvalue().strip().splitlines()[-1]
     log(f"SBNet sweep, sweep_agent's last line: {line}")
     best = json.loads(line)
@@ -4045,7 +4151,7 @@ KNN_CONF_PATH = os.path.join(os.path.dirname(CONF_PATH), "knn.yml")
 # the exclusion rows (K1), then the peel over the scores (K8, K3, K4) at
 # C = 100,352; at C <= 4,096 `masked_topk` takes ``full`` (K1, K13)
 MATRIX_PEEL_KERNELS = ["segment_gather", "window_max", "gather_windows",
-                       "peel_values"]
+                       "peel_values", "recover_winners"]
 MATRIX_FULL_KERNELS = ["segment_gather", "exact_topk"]
 MATRIX_ABSENT = ("score_wmax", "score_bf16")
 MATRIX_SAMPLE_ROWS = 8  # similarity rows held to the host recomputation
@@ -4516,11 +4622,12 @@ MESH_TP_ATOL = 2e-4
 # just before the call and read just after it
 MESH_WINDOWS = {
     "validate": ("segment_gather", "score_wmax", "gather_windows",
-                 "peel_values", "spmm_fwd", "exact_topk"),
-    "dot": ("score_wmax", "gather_windows", "peel_values", "exact_topk"),
+                 "peel_values", "recover_winners", "spmm_fwd", "exact_topk"),
+    "dot": ("score_wmax", "gather_windows", "peel_values", "recover_winners",
+            "exact_topk"),
     "train": ("segment_gather", "dw_matmul", "spmm_fwd", "spmm_bwd"),
     "serve": ("segment_gather", "score_wmax", "gather_windows",
-              "peel_values", "exact_topk"),
+              "peel_values", "recover_winners", "exact_topk"),
 }
 
 
@@ -4723,7 +4830,9 @@ def mesh_rank(args_path: str) -> int:
     counted = {"segment_gather": sparse.segment_gather,
                "score_wmax": window.score_wmax,
                "gather_windows": peel.gather_windows,
-               "peel_values": peel.peel_values, "dw_matmul": dw.dw_matmul,
+               "peel_values": peel.peel_values,
+               "recover_winners": peel.recover_winners,
+               "dw_matmul": dw.dw_matmul,
                "spmm_fwd": spmm.spmm_fwd, "spmm_bwd": spmm.spmm_bwd,
                "exact_topk": exact_topk.exact_topk,
                "window_max": peel.window_max}
@@ -4792,9 +4901,13 @@ def mesh_rank(args_path: str) -> int:
         into ``out["launches"][name]`` just after it."""
         for kernel in counted.values():
             kernel.launches = 0
+        peel.gather_subwindows.launches = 0
         res = fn()
         out["launches"][name] = {n: kernel.launches
                                    for n, kernel in counted.items()}
+        if peel.gather_subwindows.launches:
+            raise AssertionError(f"mesh {name}: winner rows gathered "
+                                 "through K3 (gather_subwindows)")
         return res
 
     if on_card:
@@ -5158,12 +5271,20 @@ def main() -> int:
                    counts: dict | None = None) -> dict:
         """Gate and add the launches of a path: this process's counters,
         or ``counts`` other processes reported."""
-        counts = read_counts(kernels) if counts is None else counts
+        if counts is None:
+            counts = read_counts(kernels)
+            if peel.gather_subwindows.launches:
+                raise AssertionError(f"the {path} gathered winner rows "
+                                     "through K3 (gather_subwindows)")
         log(f"launches, {path}: {counts}")
         missing = [n for n in needed if counts[n] == 0]
         if missing:
             raise AssertionError(f"kernels not launched by the {path}: "
                                  f"{missing}")
+        if ("peel_values" in needed
+                and counts["recover_winners"] != counts["peel_values"]):
+            raise AssertionError(f"the {path}'s selections did not each end "
+                                 f"in one K11 launch: {counts}")
         stray = [n for n in absent if counts[n]]
         if stray:
             raise AssertionError(f"{path} launched {stray}")
@@ -5270,9 +5391,9 @@ def main() -> int:
             f"batches (host clock, after one warm-up) on {card}; redone rows "
             f"per batch {rec.redo_rows}")
     count_path("serving path", ["segment_gather", "score_wmax",
-                                "gather_windows", "peel_values"],
-               ("score_windows", "gather_windows_rows", "recover_winners",
-                "fused_score_wmax"))  # K13 selects any row the peel redoes
+                                "gather_windows", "peel_values",
+                                "recover_winners"],
+               ("score_windows", "gather_windows_rows", "fused_score_wmax"))  # K13 selects any row the peel redoes
     for bs, rec in recs.items():
         users = users_all[start:start + PROFILE_BATCHES * bs]
         start += len(users)

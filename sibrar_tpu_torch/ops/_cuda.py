@@ -40,7 +40,8 @@ _SIGNATURES = {
     "sibrar_score_wmax": [_P, _P, _I, _I, _I, _P, _P, _P],
     "sibrar_score_windows": [_P, _P, _I, _I, _I, _P, _P, _P],
     "sibrar_fused_score_wmax": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "sibrar_recover_winners": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "sibrar_recover_winners": [_P, _P, _P, _LL, _P, _LL, _P, _I, _I, _I, _I,
+                               _P, _P, _P],
     "sibrar_exact_topk": [_P, _I, _I, _I, _P, _P, _P],
     "sibrar_gather_windows": [_P, _LL, _LL, _P, _I, _I, _P, _P, _P],
     "sibrar_peel_values": [_P, _LL, _I, _P, _P, _P],

@@ -14,12 +14,13 @@ planes (`gather_windows_rows`).
 2. select the top-``m`` windows per user by maximum (covering theorem);
 3. gather them with the excluded and padded lanes set to -inf (K3);
 4. peel the top-``t`` distinct values of every window (K4);
-5. merge the ``m * t`` peeled values with one top-k, and recover each
-   winner's catalog index from its window row (K3 again, or kernel K11
-   `recover_winners` when `RECOVER_KERNEL` is set);
-6. flag each row ``ok = complete & unique & all_live``. The entry points
-   redo the rows that are not ok with the dense path (``ops/topk.py``);
-   only those rows, not the whole batch as in JAX.
+5. merge the ``m * t`` peeled values with one top-k;
+6. in one launch of kernel K11 (`recover_winners`), recover each winner's
+   catalog index from its window row and flag each row
+   ``ok = complete & unique & all_live``. The entry points redo the rows
+   that are not ok with the dense path (``ops/topk.py``); only those rows,
+   not the whole batch as in JAX. JAX's two spellings of the recovery (its
+   ``_RECOVER_KERNEL`` switch) give the same bits.
 
 Both top-k selections are stable sorts, so ties go to the lower index as in
 ``lax.top_k`` and the ok flags match the JAX package on identical scores.
@@ -27,8 +28,6 @@ Window selection is always exact: JAX's ``approx_max_k`` branch is TPU-only,
 and at the serving catalog (784 windows) JAX takes the exact branch as well.
 """
 from __future__ import annotations
-
-import os
 
 import torch
 import torch.nn.functional as F
@@ -56,10 +55,6 @@ PEELED = float("-inf")  # below any live score, the -1e30 mask included
 _CORR_MAX_E = 512
 _CORR_MAX_ROW_BYTES = 1 << 20
 PEEL_T = 8  # peel depth before the adaptive deepening (JAX default t)
-# Winner recovery through kernel K11 instead of K3 + compares: the JAX
-# package's switch (``pallas_peel._RECOVER_KERNEL``), read once from the same
-# environment variable; both spellings give the same bits.
-RECOVER_KERNEL = os.environ.get("SIBRAR_PEEL_RECOVER_KERNEL", "0") == "1"
 
 
 def _use_corrected_wmax(c_real: int, e: int) -> bool:
@@ -170,9 +165,16 @@ def gather_score_windows(scores: torch.Tensor, widx: torch.Tensor,
 
 def gather_subwindows(g: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """``out[b, s] = g[b, slots[b, s]]`` from the gathered ``g [B, m, 128]``
-    (JAX ``gather_subwindows``): K3 on g viewed as [B, m * 128]."""
+    (JAX ``gather_subwindows``): K3 on g viewed as [B, m * 128]. The peel
+    does not call it: K11 reads the winners' rows itself."""
     b, m, w = g.shape
-    return gather_windows(g.reshape(b, m * w), slots)
+    out = gather_windows(g.reshape(b, m * w), slots)
+    if g.is_cuda:
+        gather_subwindows.launches += 1
+    return out
+
+
+gather_subwindows.launches = 0  # its K3 launches, also in gather_windows'
 
 
 # ------------------------------------------------------------------ kernel K4
@@ -240,7 +242,12 @@ gather_windows_rows.launches = 0
 def recover_winners_plain(g: torch.Tensor, widx: torch.Tensor,
                           slots: torch.Tensor, v: torch.Tensor
                           ) -> tuple[torch.Tensor, ...]:
-    """Plain version of K11: ``(lane, n_hit, widx_sel)``, int32 [B, kk]."""
+    """JAX ``recover_winners``' three outputs: for each winner ``(b, s)``
+    with value ``v [B, kk]`` in window slot ``slots [B, kk]`` of the
+    gathered ``g [B, m, 128]``, the first lane of ``g[b, slots[b, s]]``
+    equal to it (128 if none), the count of equal lanes, and its catalog
+    window ``widx[b, slots[b, s]]``; int32 [B, kk]. The first half of K11's
+    plain version (`recover_plain`)."""
     rows = g.gather(1, slots.long()[:, :, None].expand(-1, -1, g.shape[2]))
     hit = rows == v[:, :, None]
     lane_iota = torch.arange(g.shape[2], device=g.device)
@@ -249,35 +256,66 @@ def recover_winners_plain(g: torch.Tensor, widx: torch.Tensor,
             widx.gather(1, slots.long()).to(torch.int32))
 
 
-def recover_winners(g: torch.Tensor, widx: torch.Tensor, slots: torch.Tensor,
-                    v: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """K11 (JAX ``recover_winners``; see ``csrc/recover_winners.cu``): for
-    each winner ``(b, s)`` with value ``v [B, kk]`` in window slot
-    ``slots [B, kk]`` of the gathered ``g [B, m, 128]``, the first lane of
-    ``g[b, slots[b, s]]`` equal to it (128 if none), the count of equal
-    lanes, and its catalog window ``widx[b, slots[b, s]]``; all int32."""
+def recover_plain(g: torch.Tensor, widx: torch.Tensor, p: torch.Tensor,
+                  t: int, v: torch.Tensor, last: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K11: `recover_winners_plain` on the winners' window
+    slots ``p // t``, then the tail of JAX's ``_peel_select``: the catalog
+    ids and the row flag ``ok = complete & unique & all_live``."""
+    lane, n_hit, wsel = recover_winners_plain(g, widx, p // t, v)
+    idx = wsel.long() * WINDOW + lane.long().clamp(max=WINDOW - 1)
+    # exactness: no window's t-th value beats the k-th winner (complete),
+    # every winner matched one lane (unique), no -inf winner (all_live)
+    complete = (last <= v[:, -1:]).all(dim=1)
+    unique = (n_hit == 1).all(dim=1)
+    all_live = (v > PEELED).all(dim=1)
+    return idx, complete & unique & all_live
+
+
+_K11_DTYPES = (torch.float32, torch.float32, torch.float32, torch.int32,
+               torch.int64)  # g, v, last, widx, p
+
+
+def recover_winners(g: torch.Tensor, widx: torch.Tensor, p: torch.Tensor,
+                    t: int, v: torch.Tensor, last: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K11, the end of every peel selection (see
+    ``csrc/recover_winners.cu``). For the merge's winners ``v [B, kk]`` at
+    positions ``p [B, kk]`` (int64) of the ``m * t`` peeled values of the
+    gathered windows ``g [B, m, 128]``, whose catalog windows are
+    ``widx [B, m]`` and whose deepest peeled values are ``last [B, m]``:
+    ``(idx [B, kk] int64, ok [B] bool)``, each winner's catalog id and each
+    row's exactness flag (`recover_plain`). ``p`` and ``v`` may be row
+    slices (unit stride along a row), as the merge's top-k gives them."""
     b, m, w = g.shape
-    if (w != WINDOW or widx.shape != (b, m) or slots.ndim != 2
-            or slots.shape[0] != b or v.shape != slots.shape):
+    if (w != WINDOW or widx.shape != (b, m) or last.shape != (b, m)
+            or v.ndim != 2 or v.shape[0] != b or not v.shape[1]
+            or p.shape != v.shape):
         raise ValueError(f"recover_winners: g {tuple(g.shape)} must be "
-                         f"[B, m, 128], widx {tuple(widx.shape)} [B, m], "
-                         f"slots {tuple(slots.shape)} and v {tuple(v.shape)} "
-                         "[B, kk]")
-    if not _cuda.use_kernel(g, widx, slots, v):
-        return recover_winners_plain(g, widx, slots, v)
-    if (g.dtype != torch.float32 or v.dtype != torch.float32
-            or widx.dtype != torch.int32 or slots.dtype != torch.int32):
-        raise ValueError("recover_winners: f32 g and v, int32 widx and "
-                         "slots")
-    g, widx, slots, v = (t.contiguous() for t in (g, widx, slots, v))
-    kk = slots.shape[1]
-    lane, n_hit, wsel = (torch.empty((b, kk), dtype=torch.int32,
-                                     device=g.device) for _ in range(3))
+                         f"[B, m, 128], widx {tuple(widx.shape)} and last "
+                         f"{tuple(last.shape)} [B, m], p {tuple(p.shape)} "
+                         f"and v {tuple(v.shape)} [B, kk], kk >= 1")
+    if not _cuda.use_kernel(g, widx, p, v, last):
+        return recover_plain(g, widx, p, t, v, last)
+    if (g.dtype, v.dtype, last.dtype, widx.dtype, p.dtype) != _K11_DTYPES:
+        raise ValueError("recover_winners: f32 g, v and last, int32 widx, "
+                         "int64 p")
+    if (not g.is_contiguous() or not widx.is_contiguous()
+            or not last.is_contiguous() or p.stride(1) != 1
+            or v.stride(1) != 1):
+        raise ValueError("recover_winners: contiguous g, widx and last; p "
+                         "and v with unit stride along a row")
+    kk = v.shape[1]
+    n = b * kk
+    # one allocation: idx, then ok in the bytes after it
+    out = torch.empty(n + (b + 7) // 8, dtype=torch.int64, device=g.device)
+    ptr = out.data_ptr()
     _cuda.launch("sibrar_recover_winners", g.data_ptr(), widx.data_ptr(),
-                 slots.data_ptr(), v.data_ptr(), b, m, kk, lane.data_ptr(),
-                 n_hit.data_ptr(), wsel.data_ptr())
+                 p.data_ptr(), p.stride(0), v.data_ptr(), v.stride(0),
+                 last.data_ptr(), b, m, kk, t, ptr, ptr + 8 * n)
     recover_winners.launches += 1
-    return lane, n_hit, wsel
+    return (out.as_strided((b, kk), (kk, 1)),
+            out.view(torch.bool).as_strided((b,), (1,), 8 * n))
 
 
 recover_winners.launches = 0
@@ -379,25 +417,10 @@ def _peel_select(gather_fn, wmax: torch.Tensor, excl_cols: torch.Tensor,
     vals_flat, last = peel_values_grouped(g, t)
     v, p = _topk_stable(vals_flat, kk)  # merge over m*t << m*128 values
 
-    # winner-only index recovery from the dead-masked windows
-    wslot = (p // t).to(torch.int32)
-    if RECOVER_KERNEL:
-        lane, n_hit, widx_sel = recover_winners(g, widx, wslot, v)
-    else:
-        widx_sel = widx.gather(1, wslot.long())
-        rows = gather_subwindows(g, wslot)  # [B, kk, 128]
-        hit = rows == v[:, :, None]
-        lane_iota = torch.arange(WINDOW, device=dev)
-        lane = torch.where(hit, lane_iota, WINDOW).amin(dim=-1)
-        n_hit = hit.sum(dim=-1)  # in-window duplicates of a winner
-    idx = widx_sel.long() * WINDOW + lane.clamp(max=WINDOW - 1)
-
-    # exactness: no window's t-th value beats the k-th winner (complete),
-    # every winner matched one lane (unique), no -inf winner (all_live)
-    complete = (last <= v[:, kk - 1:kk]).all(dim=1)
-    unique = (n_hit == 1).all(dim=1)
-    all_live = (v > PEELED).all(dim=1)
-    return v, idx, complete & unique & all_live
+    # winner-only index recovery from the dead-masked windows and the row
+    # flags, in one launch
+    idx, ok = recover_winners(g, widx, p, t, v, last)
+    return v, idx, ok
 
 
 def peel_topk_from_scores(scores: torch.Tensor, wmax: torch.Tensor,

@@ -10,7 +10,7 @@
 - ``noscatter``: `windowed_topk_excluded`, exclusion by CSR bisection on
   the candidates of ``k + E`` windows;
 - ``peel``: the value-peel selection over the scores (``ops/peel.py``,
-  kernels K8, K3, K4);
+  kernels K8, K3, K4, K11);
 - ``pallas``: the windowed retile and finalist re-ranking
   (``ops/window.py``, kernels K9 and K3 on the tiling);
 - ``auto``: the JAX package's accelerator branch on every device.

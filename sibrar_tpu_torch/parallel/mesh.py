@@ -428,7 +428,7 @@ def sharded_masked_topk(scores: torch.Tensor, excl_cols: torch.Tensor,
     local_c]`` and its rows' global exclusions ``[rows, E]``, without a
     scatter over the whole catalog: each shard masks the exclusions that
     land in its slice and selects over it (the peel,
-    `ops.peel.peel_masked_topk_scores` with K8, K3, K4, where
+    `ops.peel.peel_masked_topk_scores` with K8, K3, K4, K11, where
     `peel_viable`; else the -1e30 scatter and `ops.topk.windowed_topk`),
     then `_merge_local_topk`.
 
@@ -486,7 +486,7 @@ def sharded_masked_topk_dot(u: torch.Tensor, items: torch.Tensor,
     it may come padded further to the GEMM's chunk, ``local_c`` then the
     slice width) through the single-device chain,
     `ops.peel.peel_masked_topk_dot` (K2 scores and window maxima, the peel
-    with K3 / K4), without its redo, then `_merge_local_topk`. The
+    with K3 / K4 / K11), without its redo, then `_merge_local_topk`. The
     catalog's pad positions (C up to a multiple of the item axis) are
     excluded through the exclusion channel; the slice that holds them is
     the only one that keeps them. Returns ``(values, ids, ok)`` for this

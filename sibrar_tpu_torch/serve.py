@@ -8,7 +8,7 @@ single-device ``Recommender``, its ``dtype`` / ``selection`` modes,
   for a test split) are excluded through the split's exclusion CSR;
 - a dot-product model takes the fused path where the peel is viable: K2
   scores + window maxima (K15 under ``dtype="bfloat16"``), the peel
-  selection (K3, K4) and a dense redo of rows whose exactness flag
+  selection (K3, K4, K11) and a dense redo of rows whose exactness flag
   tripped; otherwise scores, then ``masked_topk(method="auto")`` (the peel
   with K8's window maxima where it is viable), or, under
   ``selection="approx"``, the exclusion fill and K13 ``exact_topk``;

@@ -1,7 +1,8 @@
 """Time the score GEMM (K2, K14 ``full``), K5 ``dw_matmul``, K6
 ``spmm_fwd``, K7 ``spmm_bwd``, K4 ``peel_values``, K13 ``exact_topk``, K15
-``score_bf16`` and K16 (``roll_lanes``, ``lane_slice``, ``segment_roll``)
-as built from several kernel source trees, in turns on one card.
+``score_bf16``, K16 (``roll_lanes``, ``lane_slice``, ``segment_roll``) and
+K11 ``recover_winners`` as built from several kernel source trees, in turns
+on one card.
 
     python3 -m sibrar_tpu_torch.tools.compare_builds DIR [DIR ...]
         [--only NAME ...] [--sass]
@@ -9,8 +10,8 @@ as built from several kernel source trees, in turns on one card.
 Each DIR holds kernel sources laid out as ``sibrar_tpu_torch/csrc/`` (any
 of ``dw_matmul.cu``, ``score_wmax.cu``, ``score_variants.cu``,
 ``spmm_onehot.cu``, ``peel_values.cu``, ``exact_topk.cu``,
-``score_bf16.cu``, ``roll.cu`` with the headers they include, and
-``error_string.cu``), for example the port's own ``csrc`` and an unpacked
+``score_bf16.cu``, ``roll.cu``, ``recover_winners.cu`` with the headers
+they include, and ``error_string.cu``), for example the port's own ``csrc`` and an unpacked
 older commit's. Each tree is built with the port's nvcc flags into its own
 library under ``sibrar_tpu_torch/_build/``; its kernels are checked against
 the plain versions (K2 and K14 within ``1e-5 (1 + max |s|)``, K5 within
@@ -19,8 +20,8 @@ the row's n |kernel rows| and the same bits on a second call, K4 equal with
 NaN in the same places, K7 bit-equal to its plain version on the CPU and
 the same bits on a second call, or, for a tree whose K7 sums with atomics
 (no ``sibrar_spmm_bwd_workspace``), within ``2 n eps`` times the sum of the
-column's n |g rows|, K13 bit-equal, K15 within ``D eps (|u~| @ |i~|^T)``
-of the exact product of the bf16-rounded operands u~, i~ with maxima
+column's n |g rows|, K13 and K11 bit-equal, K15 within ``D eps (|u~| @
+|i~|^T)`` of the exact product of the bf16-rounded operands u~, i~ with maxima
 bit-equal to those of its own scores, K16 bit-equal), then timed with CUDA
 events at the main paths' shapes in the order DIR1, DIR2, ..., DIRn, DIRn,
 ..., DIR1, so a drift of the card's clock cancels in each tree's mean. One
@@ -43,7 +44,12 @@ precision probe's B = 1,024, C = 501,760, D = 256 (an older tree without
 ``sibrar_score_bf16_workspace`` is called without the workspace), beside
 ``torch.mm(u~, i~^T, out_dtype=torch.float32)`` where this torch has that
 overload (f32 scores of the rounded operands, no maxima); K16 at the roll
-probes' shapes, beside ``torch.roll`` for ``roll_lanes``. Every kernel
+probes' shapes, beside ``torch.roll`` for ``roll_lanes``. K11 takes the
+end of the validation dot path's selection on those scores (m = 168
+windows, 2 % dead lanes, K4's peel at t = 8, the stable merge of k = 100)
+and is compared only with ``--only recover_winners``, over trees of its
+current C signature (``(g, widx, p, ld_p, v, ld_v, last, B, m, kk, t,
+idx, ok)``; older trees took another). Every kernel
 launches through ``_cuda.current_stream()`` with its C function looked up
 once, as the port's wrappers do.
 """
@@ -68,7 +74,8 @@ from sibrar_tpu_torch.tools._common import bf16_within, cuda_ms
 F32_EPS = 2.0 ** -24
 SOURCES = ("dw_matmul.cu", "score_wmax.cu", "score_variants.cu",
            "spmm_onehot.cu", "peel_values.cu", "exact_topk.cu",
-           "score_bf16.cu", "roll.cu", "error_string.cu")
+           "score_bf16.cu", "roll.cu", "recover_winners.cu",
+           "error_string.cu")
 # an older tree's K7 (no workspace, adds into a zeroed gradient)
 OLD_SPMM_BWD = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p,
                                                              ctypes.c_void_p]
@@ -330,6 +337,39 @@ def peel_case(dev, u, items) -> dict:
     return {"peel_values": ("sibrar_peel_values", step, check, 50, None)}
 
 
+def recover_case(dev, u, items) -> dict:
+    """K11 at the end of the validation dot path's selection."""
+    from sibrar_tpu_torch.ops import peel
+
+    b, t, m, kk = u.shape[0], 8, 168, 100
+    scores = u @ items.T
+    wmax = scores.view(b, -1, 128).amax(-1)
+    widx = (peel._topk_stable(wmax, m)[1].sort(dim=1).values
+            .to(torch.int32).contiguous())
+    dead = torch.rand(b, m, 128, device=dev,
+                      generator=torch.Generator(dev).manual_seed(1)) < 0.02
+    g = peel.gather_windows_plain(scores, widx, dead)
+    del scores, dead
+    vals, last = peel.peel_values_plain(g.reshape(b * m, 128), t)
+    vals, last = vals.reshape(b, m * t), last.reshape(b, m).contiguous()
+    v, p = peel._topk_stable(vals, kk)
+    idx = torch.empty(b, kk, dtype=torch.int64, device=dev)
+    ok = torch.empty(b, dtype=torch.bool, device=dev)
+
+    def step(lib):
+        call(lib, "sibrar_recover_winners", g.data_ptr(), widx.data_ptr(),
+             p.data_ptr(), p.stride(0), v.data_ptr(), v.stride(0),
+             last.data_ptr(), b, m, kk, t, idx.data_ptr(), ok.data_ptr())
+
+    def check(lib):
+        step(lib)
+        want_i, want_ok = peel.recover_plain(g, widx, p, t, v, last)
+        if not (torch.equal(idx, want_i) and torch.equal(ok, want_ok)):
+            raise AssertionError("recover_winners differs from plain")
+    return {"recover_winners": ("sibrar_recover_winners", step, check, 50,
+                                None)}
+
+
 def bf16_case(dev, gen) -> dict:
     """K15 at the precision probe's shape, beside the library's bf16
     product with f32 output where this torch has it."""
@@ -431,11 +471,13 @@ def cases(dev, only=None) -> dict:
     u = torch.randn(b, d, device=dev, generator=gen)
     if want & {"score_wmax", "score_full"}:
         out.update(score_cases(dev, gen, u))
-    if want & {"peel_values", "exact_topk"}:
+    if want & {"peel_values", "exact_topk", "recover_winners"}:
         items = torch.randn(SCORE_SHAPE[1], d, device=dev,
                             generator=gen) / d ** 0.5
         out.update(peel_case(dev, u, items))
         out.update(topk_case(dev, u, items))
+        if "recover_winners" in want:
+            out.update(recover_case(dev, u, items))
         del items
     if "score_bf16" in want:
         out.update(bf16_case(dev, gen))

@@ -5,9 +5,10 @@ bench shapes (port of ``tools/probe_pred_input.py``).
 with 10 % of its lanes set, as ``bool`` or ``int8``, and checks it against
 ``torch.where``. ``try_recover`` runs kernel K11 (``peel.recover_winners``)
 at b = 1,024, m = 168, w = 128, kk = 100 on the probe's ``default_rng(2)``
-draws, checks lanes, counts and windows against the plain version, and
+draws, checks its catalog ids and row flags against the plain version, and
 reports K11's device time per call under ``torch.profiler`` (the kernels
-whose names hold "recover", over 8 calls).
+whose names hold "recover", over 8 calls). The JAX probe checks lanes,
+counts and windows, K11's first half (``peel.recover_winners_plain``).
 
     python -m sibrar_tpu_torch.tools.probe_pred_input [all|bool|int8|recover]
 
@@ -60,21 +61,26 @@ def recover_inputs(device="cpu"):
 
 
 def try_recover(device="cuda") -> dict:
-    """K11 at the bench shapes against its plain version; returns the three
-    exactness flags and the device ms per call (None on the CPU)."""
+    """K11 at the bench shapes against its plain version, on the probe's
+    draws as the windows, winners and window ids, each winner at position
+    ``p = slot * t + s % t`` of a peel of depth t = 8 and each window's t-th
+    largest value as ``last``; returns the two exactness flags (ids, row
+    flags) and the device ms per call (None on the CPU)."""
     g, widx, slots, v = recover_inputs(device)
-    got = peel.recover_winners(g, widx, slots, v)
-    want = peel.recover_winners_plain(g, widx, slots, v)
+    t = peel.PEEL_T
+    p = slots.long() * t + torch.arange(v.shape[1], device=g.device) % t
+    last = torch.topk(g, t, dim=-1).values[..., -1].contiguous()
+    got = peel.recover_winners(g, widx, p, t, v, last)
+    want = peel.recover_plain(g, widx, p, t, v, last)
     flags = [torch.equal(a, b) for a, b in zip(got, want)]
-    print("recover kernel: lane exact=", flags[0], "nhit exact=", flags[1],
-          "wsel exact=", flags[2])
-    ops = _common.device_ops_ms(lambda: peel.recover_winners(g, widx, slots,
-                                                            v),
-                                g.device, match="recover")
+    print("recover kernel: idx exact=", flags[0], "ok exact=", flags[1])
+    ops = _common.device_ops_ms(
+        lambda: peel.recover_winners(g, widx, p, t, v, last), g.device,
+        match="recover")
     ms = None if ops is None else sum(ops.values())
     print("recover_winners device time: "
           + ("not measured (cpu)" if ms is None else f"{ms:.4f} ms/it"))
-    return {"lane": flags[0], "nhit": flags[1], "wsel": flags[2], "ms": ms}
+    return {"idx": flags[0], "ok": flags[1], "ms": ms}
 
 
 def main(argv=None) -> None:

@@ -181,16 +181,18 @@ def test_chip_smoke_zoo_confs_match_yaml_and_quality_files():
         assert jax_get_config(path, algorithm=name).model == resolved
     assert os.path.basename(cs.zoo_conf_path("ecf")) == "ecf.yml"
     assert cs.ZOO_REPEAT == ("uprotomf", "ecf")
-    for path, scale, families in (
-            (trained_parity.JAX_RUNS, "mid", ("uprotomf", "ecf")),
-            (trained_parity.JAX_TOY_RUNS, "toy", ("ecf",))):
+    # the toy gate's paired seeds are 0-19, the mid file's 0-4
+    for path, scale, families, n_seeds in (
+            (trained_parity.JAX_RUNS, "mid", ("uprotomf", "ecf"), 5),
+            (trained_parity.JAX_TOY_RUNS, "toy", ("ecf",), 20)):
         with open(path) as fh:
             runs = json.load(fh)
         assert runs["scale"] == scale
         for family in families:
             assert (runs["families"][family]["hparams"]
                     == trained_parity.hparams_for(family, scale))
-            assert sorted(runs["families"][family]["runs"]) == list("01234")
+            assert (sorted(runs["families"][family]["runs"], key=int)
+                    == [str(seed) for seed in range(n_seeds)])
 
 
 def test_replay_of_the_trainers_own_draws_repeats_its_training(tmp_path):

@@ -329,3 +329,78 @@ def test_peel_gates_match_jax(c, k, e):
     assert tpeel.peel_viable(c, k, e) == jpeel.peel_viable(c, k, e)
     nw = -(-c // 128)
     assert tpeel._round_m(k + e + 1, nw) == jpeel._round_m(k + e + 1, nw)
+
+
+@pytest.mark.parametrize("entry", ["dot", "scores", "planes"])
+def test_selection_ends_in_one_recover_winners(entry, monkeypatch):
+    """One selection calls K11 (`recover_winners`) once and K3 as
+    `gather_subwindows` never, and returns K11's ids and row flags as they
+    came out of it."""
+    b, c, d, k, e, _, _ = PEEL_CASES["corrected"]
+    rng = np.random.default_rng(5)
+    u = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32))
+    items = torch.as_tensor(rng.normal(size=(c, d)).astype(np.float32))
+    cols = torch.as_tensor(np.sort(np.stack([
+        rng.choice(c, e, replace=False) for _ in range(b)]), 1).astype(
+            np.int32))
+    mask = torch.ones(b, e, dtype=torch.bool)
+    outs, sub = [], []
+    real = tpeel.recover_winners
+    monkeypatch.setattr(tpeel, "recover_winners",
+                        lambda *a: outs.append(real(*a)) or outs[-1])
+    monkeypatch.setattr(tpeel, "gather_subwindows",
+                        lambda *a: sub.append(1))
+    if entry == "dot":
+        got = tpeel.peel_masked_topk_dot(u, items, cols, mask, k)
+    elif entry == "scores":
+        got = tpeel.peel_masked_topk_scores(u @ items.T, cols, mask, k)
+    else:
+        got = tpeel.peel_masked_topk(u, items, cols, mask, k)
+    assert len(outs) == 1 and not sub
+    assert got[1] is outs[0][0] and got[2] is outs[0][1]
+    assert got[2].all() and got[1].shape == (b, k)
+
+
+@pytest.mark.parametrize("bad", [None, "dtype", "g_strided", "p_strided"])
+def test_recover_winners_wrapper_launch(bad, monkeypatch):
+    """K11's wrapper on the card's branch (``use_kernel`` and ``launch``
+    faked on CPU tensors): one launch with the merge's row slices as they
+    are (their row strides passed, no copy), idx and ok as views of one
+    buffer with ok in the bytes after idx; a wrong dtype, a strided ``g``
+    or a ``p`` strided along its row raises before any launch."""
+    from sibrar_tpu_torch.ops import _cuda
+
+    b, m, kk, t = 3, 5, 4, 8
+    rng = np.random.default_rng(6)
+    g = torch.as_tensor(rng.normal(size=(b, m, 128)).astype(np.float32))
+    widx = torch.arange(b * m, dtype=torch.int32).view(b, m)
+    vals = torch.as_tensor(rng.normal(size=(b, m * t)).astype(np.float32))
+    v, p = tpeel._topk_stable(vals, kk)  # row slices of the sort
+    last = torch.zeros(b, m)
+    if bad == "dtype":
+        p = p.to(torch.int32)
+    elif bad == "g_strided":
+        g = g.transpose(0, 1).contiguous().transpose(0, 1)
+    elif bad == "p_strided":
+        p = p.t().contiguous().t()  # column-major
+    calls = []
+    monkeypatch.setattr(_cuda, "use_kernel", lambda *ts: True)
+    monkeypatch.setattr(_cuda, "launch", lambda *a: calls.append(a))
+    before = tpeel.recover_winners.launches
+    if bad:
+        with pytest.raises(ValueError, match="recover_winners"):
+            tpeel.recover_winners(g, widx, p, t, v, last)
+        assert not calls and tpeel.recover_winners.launches == before
+        return
+    idx, ok = tpeel.recover_winners(g, widx, p, t, v, last)
+    assert tpeel.recover_winners.launches == before + 1
+    (name, *args), = calls
+    assert name == "sibrar_recover_winners"
+    assert args[:11] == [g.data_ptr(), widx.data_ptr(), p.data_ptr(),
+                         m * t, v.data_ptr(), m * t, last.data_ptr(), b, m,
+                         kk, t]
+    assert (idx.dtype, idx.shape, ok.dtype, ok.shape) == (
+        torch.int64, (b, kk), torch.bool, (b,))
+    assert idx.is_contiguous() and ok.is_contiguous()
+    assert args[11:] == [idx.data_ptr(), idx.data_ptr() + 8 * b * kk]
+    assert ok.data_ptr() == args[12]

@@ -425,8 +425,7 @@ def test_probe_cli_on_cpu(module, argv, keys, capsys):
         assert lines == [
             "mask input dtype=bool: compile+run OK, exact=True",
             "mask input dtype=int8: compile+run OK, exact=True",
-            "recover kernel: lane exact= True nhit exact= True wsel exact= "
-            "True",
+            "recover kernel: idx exact= True ok exact= True",
             "recover_winners device time: not measured (cpu)"]
         return
     record = json.loads(lines[-1])

@@ -3,8 +3,9 @@ CPU: the plain versions of kernels K10 (`score_windows`), #10
 (`gather_windows_rows`), K11 (`recover_winners`), K12 (`fused_score_wmax`)
 and K13 (`exact_topk`) against the Pallas kernels in interpret mode;
 `peel_masked_topk`, `pallas_masked_topk` and `fused_masked_topk` against
-the JAX functions (values, ids up to ties, ok flags); the `RECOVER_KERNEL`
-branch against the default on both sides; the [B, C] peel paths and the
+the JAX functions (values, ids up to ties, ok flags); the port's one winner
+recovery (K11, which also flags the rows) against both of JAX's branches,
+and K11's contract on planted rows; the [B, C] peel paths and the
 plane path through the shared `_peel_select`; and the JAX dispatch fact
 that lets `Recommender` leave out JAX's fused-only serving branch.
 
@@ -133,7 +134,7 @@ def test_plain_recover_winners_matches_pallas():
     v[1, 2] = 1e9
     widx = np.sort(rng.integers(0, 999, size=(b, m)).astype(np.int32), 1)
     want = jpeel.recover_winners(*_j(g, widx, slots, v), interpret=True)
-    got = tpeel.recover_winners(*_t(g, widx, slots, v))
+    got = tpeel.recover_winners_plain(*_t(g, widx, slots, v))
     for x, y in zip(got, want):
         assert x.dtype == torch.int32
         np.testing.assert_array_equal(x.numpy(), np.asarray(y))
@@ -347,33 +348,118 @@ def test_peel_masked_topk_redoes_flagged_rows_from_the_planes():
                   cols, mask, 0.0)
 
 
-@pytest.mark.parametrize("case", ["margin", "corrected"])
-def test_recover_kernel_branch_matches_default(case, monkeypatch):
-    """The ``SIBRAR_PEEL_RECOVER_KERNEL`` branch gives the default branch's
-    bits in the port, and JAX's own flagged branch (tests/test_pallas_peel.py
-    :667) gives the same lists."""
-    u, items, cols, mask, k = _peel_inputs(case)
-    args = (*_t(u, items, cols, mask), k)
-    base = tpeel.peel_masked_topk(*args, with_fallback=False)
-    calls = []
-    real = tpeel.recover_winners
-    monkeypatch.setattr(tpeel, "recover_winners",
-                        lambda *a: calls.append(1) or real(*a))
-    monkeypatch.setattr(tpeel, "RECOVER_KERNEL", True)
-    flagged = tpeel.peel_masked_topk(*args, with_fallback=False)
-    assert calls
-    for x, y in zip(flagged, base):
-        assert torch.equal(x, y)
-    monkeypatch.setattr(jpeel, "_RECOVER_KERNEL", True)
-    jax.clear_caches()  # the flag is read when the entry is traced
+def _peel_entries(jax_side: bool, u, items, cols, mask, k):
+    """``(v, idx, ok)`` without the redo from the three peel entry points
+    (planes, dot, scores) of one package on the same inputs."""
+    b = u.shape[0]
+    s = u @ items.T
+    if jax_side:
+        tb = -(-b // 8) * 8
+        kw = dict(tb=tb, interpret=True, with_fallback=False)
+        return [jpeel.peel_masked_topk(*_j(u, items, cols, mask), k, **kw),
+                jpeel.peel_masked_topk_dot(*_j(u, items, cols, mask), k,
+                                           **kw),
+                jpeel.peel_masked_topk_scores(*_j(s, cols, mask), k, **kw)]
+    return [tpeel.peel_masked_topk(*_t(u, items, cols, mask), k,
+                                   with_fallback=False),
+            tpeel.peel_masked_topk_dot(*_t(u, items, cols, mask), k,
+                                       with_fallback=False),
+            tpeel.peel_masked_topk_scores(*_t(s, cols, mask), k,
+                                          with_fallback=False)]
+
+
+@pytest.mark.parametrize("jax_branch", ["default", "recover_kernel"])
+def test_recover_kernel_branch_matches_default(jax_branch, monkeypatch):
+    """The port's one recovery (K11's plain version, which also flags the
+    rows) gives the bits of both of JAX's: its default XLA cluster and its
+    ``_RECOVER_KERNEL`` branch (tests/test_pallas_peel.py:667; the flag is
+    read when the entry is traced, so ``jax.clear_caches()`` goes around
+    the call): ``v``, ``idx`` and ``ok`` of the plane, dot and scores entry
+    points on the margin and the corrected path."""
+    cases = [_peel_inputs(case) for case in ("margin", "corrected")]
+    ports = [_peel_entries(False, *args) for args in cases]
+    if jax_branch == "recover_kernel":
+        monkeypatch.setattr(jpeel, "_RECOVER_KERNEL", True)
+        jax.clear_caches()
     try:
-        jv, ji = jpeel.peel_masked_topk(*_j(u, items, cols, mask), k, tb=16,
-                                        interpret=True)
+        jaxes = [_peel_entries(True, *args) for args in cases]
     finally:
         monkeypatch.undo()
         jax.clear_caches()
-    np.testing.assert_array_equal(flagged[0].numpy(), np.asarray(jv))
-    np.testing.assert_array_equal(flagged[1].numpy(), np.asarray(ji))
+    for port, want in zip(ports, jaxes):
+        for (tv, ti, tok), (jv, ji, jok) in zip(port, want):
+            assert tv.dtype == torch.float32 and ti.dtype == torch.int64
+            np.testing.assert_array_equal(tv.numpy().view(np.uint32),
+                                          np.asarray(jv).view(np.uint32))
+            np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+            np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+            assert tok.numpy().all()
+
+
+def _recover_inputs(case):
+    """K11's inputs as the peel hands them over: ``g`` of normal draws (a
+    -inf dead lane here and there), each window's top-t values peeled in
+    numpy, their merge (stable, descending) giving ``v`` and ``p``, and
+    each window's deepest value as ``last``; then ``case``'s planted row:
+    a tie in a winner's window, a NaN winner and a NaN k-th value, a -inf
+    winner, a window whose t-th value beats the k-th winner, or the edge
+    shapes m = 1 and kk = 1 (no plant). Returns ``(g, widx, p, t, v, last,
+    bad_rows)``."""
+    b, m, kk, t = 8, 24, 10, 8
+    if case == "m1":
+        m, kk = 1, 5
+    elif case == "kk1":
+        kk = 1
+    rng = np.random.default_rng(31)
+    g = rng.normal(size=(b, m, 128)).astype(np.float32)
+    g[rng.random(g.shape) < 0.02] = -np.inf
+    widx = np.sort(rng.choice(784, size=(b, m)), 1).astype(np.int32)
+    vals = -np.sort(-g, axis=-1)[..., :t]  # distinct draws: K4's peel
+    last = vals[..., t - 1].copy()
+    p = np.argsort(-vals.reshape(b, m * t), axis=1, kind="stable")[:, :kk]
+    v = np.take_along_axis(vals.reshape(b, m * t), p, 1)
+    bad = []
+    if case == "tie":  # row 1's second winner twice in its window
+        slot = p[1, 1] // t
+        lane = int(np.flatnonzero(g[1, slot] == v[1, 1])[0])
+        g[1, slot, (lane + 5) % 128] = v[1, 1]
+        bad = [1]
+    elif case == "nan_winner":  # a NaN mid-row, and a NaN k-th value
+        v[2, 3], v[5, kk - 1] = np.nan, np.nan
+        bad = [2, 5]
+    elif case == "neg_inf_winner":  # the k-th winner on a dead lane
+        slot = p[3, kk - 1] // t
+        g[3, slot, 40:43] = -np.inf
+        v[3, kk - 1] = -np.inf
+        bad = [3]
+    elif case == "incomplete":  # a window's deepest value above the k-th
+        last[4, 0] = v[4, kk - 1] + 1.0
+        bad = [4]
+    return g, widx, p.astype(np.int64), t, v, last, bad
+
+
+@pytest.mark.parametrize("case", ["tie", "nan_winner", "neg_inf_winner",
+                                  "incomplete", "m1", "kk1"])
+def test_plain_recover_select_matches_jax(case):
+    """K11's contract on the CPU (its plain version, `recover_plain`):
+    ``(idx, ok)`` equal to JAX's ``recover_winners`` (interpret) followed
+    by ``_peel_select``'s tail (sibrar_tpu/ops/pallas_peel.py:873-899), the
+    planted rows flagged and no other."""
+    g, widx, p, t, v, last, bad = _recover_inputs(case)
+    kk, w = v.shape[1], g.shape[2]
+    lane, n_hit, wsel = jpeel.recover_winners(
+        *_j(g, widx, (p // t).astype(np.int32), v), interpret=True)
+    want_idx = wsel * w + jnp.minimum(lane, w - 1)
+    vj, lastj = jnp.asarray(v), jnp.asarray(last)
+    want_ok = (jnp.all(lastj <= vj[:, kk - 1:kk], axis=1)
+               & jnp.all(n_hit == 1, axis=1) & jnp.all(vj > -jnp.inf, axis=1))
+    idx, ok = tpeel.recover_winners(*_t(g, widx, p), t, *_t(v, last))
+    assert idx.dtype == torch.int64 and ok.dtype == torch.bool
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(want_ok))
+    want_bad = np.zeros(g.shape[0], bool)
+    want_bad[bad] = True
+    np.testing.assert_array_equal(~ok.numpy(), want_bad)
 
 
 @pytest.mark.parametrize("case", ["margin", "corrected",
@@ -381,9 +467,10 @@ def test_recover_kernel_branch_matches_default(case, monkeypatch):
 def test_bc_paths_and_plane_path_share_the_selection(case, monkeypatch):
     """After the `_peel_select` refactor the [B, C] paths keep their results
     (JAX's ok flags and values for `peel_masked_topk_dot` and
-    `peel_masked_topk_scores`) and their K3 / K4 calls per batch (2 / 1 on
-    the margin path, 3 / 1 on the corrected one), and the plane path gives
-    the dot path's bits."""
+    `peel_masked_topk_scores`) and their K3 / K4 calls per batch (1 / 1 on
+    the margin path, 2 / 1 on the corrected one: K11 reads the winners'
+    rows, so K3 no longer gathers them), and the plane path gives the dot
+    path's bits."""
     u, items, cols, mask, k = _peel_inputs(case)
     tb = -(-u.shape[0] // 8) * 8
     calls = {"gather_windows": 0, "peel_values": 0,
@@ -395,7 +482,7 @@ def test_bc_paths_and_plane_path_share_the_selection(case, monkeypatch):
     dot = tpeel.peel_masked_topk_dot(*_t(u, items, cols, mask), k,
                                      with_fallback=False)
     corrected = case != "margin"
-    assert calls == {"gather_windows": 2 + corrected, "peel_values": 1,
+    assert calls == {"gather_windows": 1 + corrected, "peel_values": 1,
                      "gather_windows_rows": 0}
     jv, _, jok = jpeel.peel_masked_topk_dot(*_j(u, items, cols, mask), k,
                                             tb=tb, interpret=True,
@@ -507,7 +594,6 @@ u, items = torch.randn(6, 20, generator=g), torch.randn(3000, 20, generator=g)
 cols = torch.randint(0, 3000, (6, 4), generator=g, dtype=torch.int32)
 mask = torch.ones(6, 4, dtype=torch.bool)
 want = peel.peel_masked_topk_dot(u, items, cols, mask, 7)[0]
-peel.RECOVER_KERNEL = True
 for v in (peel.peel_masked_topk(u, items, cols, mask, 7)[0],
           window.pallas_masked_topk(u, items, cols, mask, 7)[0],
           score.fused_masked_topk(u, items, cols, 7)[0]):

@@ -123,7 +123,7 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    sibrar_tpu_torch.run_experiment -a sbnet -c
    conf/single/sbnet_onion18_huge_no-user.yml -t train_val_test`` in this
    process with the onion-scale overrides of ``tests/test_cli_e2e.py`` and
-   2 epochs of 200 steps (``run_settings.device: tpu`` from the YAML: the
+   2 epochs of 100 steps (``run_settings.device: tpu`` from the YAML: the
    card): the four run files, JAX's metric keys, finite values,
    ``metrics_val.yml`` equal to fit's best validation; its times (write,
    load per split, host ms per train step, validation and test wall,
@@ -223,7 +223,25 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    exact fits within 1e-3, als at seed 0 within 0.01, rand by the
    paired-seed delta). Fit,
    validation and serving times, peak device memory, host peak RSS and
-   K13 launches are logged beside the card's name and power limit.
+   K13 launches are logged beside the card's name and power limit;
+12. ``preprocess`` (run after the probes, before the CLI): a raw dataset in
+   the layout ``parse_onion`` writes, made from a seed (~12M listening
+   events of 50,000 users over 200,000 tracks with a Zipf popularity tail,
+   each pair 1-6 times across 2018; onion18.yml's user features; item
+   vectors ivec256 / bert / musicnn at 256 / 384 / 128 and genre tags),
+   through ``python -m sibrar_tpu_torch.preprocess_dataset`` (its ``main``)
+   with onion18.yml's split, interaction filters and user-feature steps,
+   for the random and the cold-start item split, on the card and with
+   ``--device cpu``: the two artifact trees byte-equal file by file, each
+   stage's seconds logged (read, filters, k-core, reindex, split,
+   normalize, store); then SBNet at onion18's width loaded from the
+   card-made random split, PREP_STEPS train steps, one validation on the
+   dot path and one on the full path, each gated by its launches.
+
+Before the first path, ``lax_topk`` runs on rows past K13's row limit at
+a k where 128-wide windows could not narrow them (LONG_ROWS: K13 over
+chunks, and the sort at k >= MAX_N), values and ids bit-equal to the
+plain version.
 
 Each path (default training, spmm training, the determinism run, fit, the
 four validation paths, serving, the five windowed rankers, the four serving
@@ -318,7 +336,7 @@ SEED = 0
 K = 100
 BATCHES = {256: 8, 1024: 4}  # batch size -> timed request batches
 TRAIN_WARMUP = 20  # steps before the timed window
-TRAIN_STEPS = 300  # timed steps on the default first layer
+TRAIN_STEPS = 200  # timed steps on the default first layer
 LOSS_WINDOW = 50  # steps in the first and last loss windows
 PROFILE_STEPS = 10  # train steps under torch.profiler
 PROFILE_BATCHES = 5  # request batches of each size under torch.profiler
@@ -2394,7 +2412,7 @@ CONF_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf",
 # the CLI run's item features (those of the synthetic data) and budget
 CLI_FEATURES = (("ivec256", "vector"), ("bert", "vector"),
                 ("musicnn", "vector"), ("genres", "tag"))
-CLI_EPOCHS, CLI_BATCHES = 2, 200
+CLI_EPOCHS, CLI_BATCHES = 2, 100
 DETERMINISM_STEPS = 30  # steps of each of the two same-seed trainings
 RESUME_STEPS = 10  # steps before the checkpoint, and after it
 BF16_STEPS = 20  # steps with bf16 first moments
@@ -4598,7 +4616,7 @@ def quality_phase(card: str) -> None:
 MESH_RANKS, MESH_ITEM = 4, 2  # data 2 x item 2 on the one card
 MESH_STEPS = 20  # mesh train steps held to the same steps in one process
 MESH_USERS = 1024  # users of the bit-equal dot check and the served lists
-MESH_CLI_BATCHES = 60  # steps of the torchrun train_val_test
+MESH_CLI_BATCHES = 20  # steps of the torchrun train_val_test
 # per-step loss, mesh against one process: the first step starts from the
 # same weights (the forward's sums in another order), then AdamW's
 # sign-like first steps carry the gradients' rounding into the weights and
@@ -5116,6 +5134,353 @@ def mesh_rank(args_path: str) -> int:
     return 0
 
 
+# ------------------------------------------------------- preprocessing
+# The preprocess phase's raw data, in the layout `parse_onion` writes:
+# listening events of PREP_USERS users over PREP_TRACKS tracks (a Zipf
+# popularity tail), each drawn (user, track) pair repeated 1-6 times at
+# timestamps across 2018, and onion18.yml's user features; item vectors at
+# make_onion_scale_splits' widths and genre tags (onion18's jukebox and
+# resnet are cut: two more vectors of the same kind)
+PREP_USERS, PREP_TRACKS, PREP_PAIRS = 50_000, 200_000, 3_430_000
+PREP_ITEM_VECTORS = (("ivec256", 256), ("bert", 384), ("musicnn", 128))
+PREP_USER_VECTOR = ("acg_with_unknown_mpnet", 768)
+PREP_SPLITS = (("random_split", ()),
+               ("cold_start_item", ("-s", "coldstart",
+                                    "--cold_start_type", "item")))
+PREP_STEPS = 40  # SBNet steps on the card-made random split
+PREP_CONF_PATH = os.path.join(os.path.dirname(os.path.dirname(CONF_PATH)),
+                              "preprocessing", "onion18.yml")
+# 2018-01-01 00:00:00 UTC and the seconds of the year
+YEAR_2018, YEAR_SECONDS = 1_514_764_800, 365 * 86_400
+# lax_topk past K13's row limit on the card: (rows, n, k) of the chunked
+# path (k x 128 above MAX_N, where narrowing to windows once raised) and of
+# the sort (k at or above MAX_N)
+LONG_ROWS = ((4, 2_000_000, 12_000), (1, 2_000_000, 1_500_000))
+
+
+def write_fixed_csv(path: str, header: str, columns) -> None:
+    """Columns of non-negative integers below 2^32 whose values all have
+    one digit count each, as CSV text: the bytes are cut from the digits in
+    numpy (``to_csv`` takes ~20 s for the events), and pandas reads them
+    back as these ints."""
+    import numpy as np
+
+    widths = [len(str(int(c[0]))) for c in columns]
+    buf = np.empty((len(columns[0]), sum(widths) + len(widths)), np.uint8)
+    pos = 0
+    for j, (col, width) in enumerate(zip(columns, widths)):
+        v = np.asarray(col, dtype=np.uint32)
+        if (v < 10 ** (width - 1)).any() or (v >= 10 ** width).any():
+            raise ValueError(f"column {j}: not all {width}-digit values")
+        scale = 10 ** np.arange(width - 1, -1, -1, dtype=np.uint32)
+        buf[:, pos:pos + width] = 48 + (v[:, None] // scale) % 10
+        pos += width
+        buf[:, pos] = ord("," if j < len(columns) - 1 else "\n")
+        pos += 1
+    with open(path, "wb") as fh:
+        fh.write(header.encode() + b"\n")
+        fh.write(buf.tobytes())
+
+
+def write_onion_raw(path: str, seed: int = SEED) -> dict:
+    """The raw dataset of the preprocess phase (see PREP_USERS): user ids
+    100000 + u, track ids 1000000 + t, the events in time order. User
+    activity is lognormal with sigma 0.5, so no user's history passes the
+    512 exclusions where the peel stops being viable. Returns its
+    counts."""
+    import numpy as np
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(path, exist_ok=True)
+    pop = (np.arange(PREP_TRACKS) + 50.0) ** -0.9
+    activity = rng.lognormal(0.0, 0.5, PREP_USERS)
+    users = rng.choice(PREP_USERS, PREP_PAIRS, p=activity / activity.sum())
+    tracks = rng.choice(PREP_TRACKS, PREP_PAIRS, p=pop / pop.sum())
+    reps = rng.integers(1, 7, PREP_PAIRS)
+    order = rng.permutation(int(reps.sum()))
+    users, tracks = np.repeat(users, reps)[order], np.repeat(tracks,
+                                                              reps)[order]
+    stamps = np.sort(YEAR_2018 + rng.integers(0, YEAR_SECONDS, len(users)))
+    write_fixed_csv(os.path.join(path, "listening_history.csv"),
+                    "user,item,timestamp",
+                    [users + 100_000, tracks + 1_000_000, stamps])
+    countries = np.array(["US", "DE", "BR", "GB", "PL", "RU", "FI", "NL",
+                          "SE", "FR", "JP", "IT"])
+    cw = 1.0 / np.arange(1, len(countries) + 1) ** 1.5
+    age = rng.integers(15, 70, PREP_USERS).astype(float)
+    age[rng.random(PREP_USERS) < 0.03] = 5.0
+    age[rng.random(PREP_USERS) < 0.02] = np.nan
+    gender = rng.choice(["m", "f", "n"], PREP_USERS, p=[0.55, 0.42, 0.03])
+    pd.DataFrame({"user": np.arange(PREP_USERS) + 100_000,
+                  "gender": gender, "age": age,
+                  "country": rng.choice(countries, PREP_USERS,
+                                        p=cw / cw.sum())}).to_csv(
+        os.path.join(path, "user_features.csv"), index=False)
+    tags = ["rock", "pop", "electronic", "hip-hop", "jazz", "metal", "folk",
+            "classical", "indie", "punk"]
+    combos = np.array(["|".join(rng.choice(tags, rng.integers(1, 4),
+                                           replace=False))
+                       for _ in range(400)], dtype=object)
+    genres = combos[rng.integers(0, len(combos), PREP_TRACKS)]
+    genres[rng.random(PREP_TRACKS) < 0.01] = None
+    pd.DataFrame({"item": np.arange(PREP_TRACKS) + 1_000_000,
+                  "genres": genres}).to_csv(
+        os.path.join(path, "item_features.csv"), index=False)
+    for name, width in PREP_ITEM_VECTORS:
+        np.savez(os.path.join(path, f"item_{name}.npz"),
+                 indices=np.arange(PREP_TRACKS) + 1_000_000,
+                 values=rng.random((PREP_TRACKS, width), dtype=np.float32))
+    name, width = PREP_USER_VECTOR
+    np.savez(os.path.join(path, f"user_{name}.npz"),
+             indices=np.arange(PREP_USERS) + 100_000,
+             values=rng.random((PREP_USERS, width), dtype=np.float32))
+    return {"events": len(users), "pairs drawn": PREP_PAIRS}
+
+
+def prep_conf(path: str) -> str:
+    """onion18.yml's split, interaction filters and user-feature steps,
+    with the item features the raw data has."""
+    import yaml
+
+    with open(PREP_CONF_PATH) as fh:
+        conf = yaml.safe_load(fh)
+    conf["item_features"] = [
+        *({"name": n, "type": "vector"} for n, _ in PREP_ITEM_VECTORS),
+        next(f for f in conf["item_features"] if f["name"] == "genres")]
+    with open(path, "w") as fh:
+        yaml.safe_dump(conf, fh)
+    return path
+
+
+def same_artifacts(a: str, b: str) -> tuple:
+    """Two artifact trees byte-equal file by file (the CLI's log aside):
+    CSV and YAML files whole, each ``.npz`` member by member (the ``.npy``
+    bytes; the zip headers carry the write time). Returns (files, bytes)."""
+    import zipfile
+
+    def names(root):
+        return sorted(f for f in os.listdir(root) if not f.endswith(".log"))
+
+    files = names(a)
+    if files != names(b):
+        raise AssertionError(f"artifact trees differ in their files: "
+                             f"{sorted(set(files) ^ set(names(b)))}")
+    n_bytes = 0
+    for f in files:
+        x, y = os.path.join(a, f), os.path.join(b, f)
+        if f.endswith(".npz"):
+            with zipfile.ZipFile(x) as zx, zipfile.ZipFile(y) as zy:
+                members = zx.namelist()
+                if members != zy.namelist():
+                    raise AssertionError(f"{f}: members differ")
+                for m in members:
+                    bx, by = zx.read(m), zy.read(m)
+                    if bx != by:
+                        raise AssertionError(f"{f}/{m}: bytes differ")
+                    n_bytes += len(bx)
+        else:
+            with open(x, "rb") as fx, open(y, "rb") as fy:
+                bx = fx.read()
+                if bx != fy.read():
+                    raise AssertionError(f"{f}: bytes differ")
+                n_bytes += len(bx)
+    return files, n_bytes
+
+
+def count_lines(path: str) -> int:
+    with open(path, "rb") as fh:
+        return sum(1 for _ in fh)
+
+
+def preprocess_cli(raw: str, out: str, conf: str, split_args,
+                   device: str) -> tuple:
+    """``python -m sibrar_tpu_torch.preprocess_dataset`` run in this
+    process (its ``main``); (wall seconds, the stage seconds it
+    returns)."""
+    import torch
+
+    from sibrar_tpu_torch.preprocess_dataset import main as preprocess
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stages = preprocess(["-d", raw, "-o", out, "-c", conf, *split_args,
+                         "--device", device])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, stages
+
+
+def preprocess_phase(kernels, count_path, card: str) -> None:
+    """The port's preprocessing CLI (``python -m
+    sibrar_tpu_torch.preprocess_dataset``, its ``main`` in this process)
+    on the card and on the CPU path over ~12M listening events
+    (`write_onion_raw`), for the random and the cold-start item split of
+    onion18.yml (`prep_conf`): the two artifact trees byte-equal file by
+    file, each stage's seconds logged; then SBNet
+    at onion18's width trained PREP_STEPS steps on the card-made random
+    split and validated on the dot path (K1-K4, K11) and the full path
+    (K13), each path gated by its launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sibrar_tpu_torch import config_from_dict
+    from sibrar_tpu_torch.config.loader import load_split_type
+    from sibrar_tpu_torch.config.schema import FeatureDefinition
+    from sibrar_tpu_torch.data.dataset import RecDataset
+    from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
+    from sibrar_tpu_torch.models.sbnet import SingleBranchNet
+    from sibrar_tpu_torch.train.scoring import make_score_fn
+    from sibrar_tpu_torch.train.trainer import (
+        DatasetConfig,
+        LearningConfig,
+        Trainer,
+    )
+
+    root = tempfile.mkdtemp(prefix="sibrar_prep_")
+    try:
+        t0 = time.perf_counter()
+        raw = os.path.join(root, "raw")
+        counts = write_onion_raw(raw)
+        size = sum(os.path.getsize(os.path.join(raw, f))
+                   for f in os.listdir(raw))
+        log(f"preprocess raw data: {counts['events']} events of "
+            f"{counts['pairs drawn']} drawn pairs, {PREP_USERS} users x "
+            f"{PREP_TRACKS} tracks, {size / 2**30:.3f} GiB written in "
+            f"{time.perf_counter() - t0:.2f} s; item vectors "
+            f"{dict(PREP_ITEM_VECTORS)} and genres (onion18.yml's jukebox "
+            f"and resnet cut), user {PREP_USER_VECTOR}")
+        conf = prep_conf(os.path.join(root, "onion18_prep.yml"))
+        art = None
+        for split_dir, split_args in PREP_SPLITS:
+            trees = {}
+            for side, device in (("card", DEVICE), ("cpu", "cpu")):
+                out = os.path.join(root, f"{side}_{split_dir}")
+                wall, stages = preprocess_cli(raw, out, conf, split_args,
+                                              device)
+                trees[side] = os.path.join(out, split_dir)
+                log(f"preprocess {split_dir} on the {side} (--device "
+                    f"{device}): {wall:.2f} s in all; stage seconds "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+                    + f"; {card}")
+            files, n_bytes = same_artifacts(trees["card"], trees["cpu"])
+            n_train, n_items, n_users = (
+                count_lines(os.path.join(trees["card"], f)) - 1
+                for f in ("listening_history_train.csv", "item_idxs.csv",
+                          "user_idxs.csv"))
+            log(f"preprocess {split_dir}: card and CPU trees byte-equal, "
+                f"{len(files)} files, {n_bytes / 2**30:.3f} GiB; {n_users} "
+                f"users x {n_items} items, {n_train} train pairs")
+            shutil.rmtree(os.path.dirname(trees["cpu"]))
+            if split_dir == "random_split":
+                art = trees["card"]
+            else:
+                shutil.rmtree(os.path.dirname(trees["card"]))
+
+        # SBNet on the card-made random split
+        dev = torch.device(DEVICE)
+        defs = [config_from_dict(FeatureDefinition, {"name": n, "type": t})
+                for n, t in CLI_FEATURES]
+        split_type = load_split_type(art)
+        t0 = time.perf_counter()
+        train, val = (RecDataset.load(art, s, item_feature_definitions=defs,
+                                      split_type=split_type)
+                      for s in ("train", "val"))
+        tdata, vdata = train.to_device(dev), val.to_device(dev)
+        log(f"preprocess: the card-made random split loaded in "
+            f"{time.perf_counter() - t0:.2f} s: train {len(train.interactions)}"
+            f" pairs, val {len(val.interactions)}, {train.n_users} users x "
+            f"{train.n_items} items, val E = "
+            f"{vdata.exclude_csr.max_row_len}")
+        model = SingleBranchNet.build_from_conf(MODEL_CONF, train, tdata,
+                                                seed=SEED)
+        trainer = Trainer(model, train,
+                          config_from_dict(LearningConfig, LEARN_CONF),
+                          config_from_dict(DatasetConfig, DATASET_CONF),
+                          batch_size=LOADER_CONF["batch_size"], seed=SEED,
+                          device_data=tdata)
+        reset_counts(kernels)
+        run = train_window(trainer, PREP_STEPS)
+        count_path("preprocessed train path", ["segment_gather",
+                                               "dw_matmul", "spmm_fwd",
+                                               "spmm_bwd"])
+        if not np.isfinite(run["losses"]).all():
+            raise AssertionError("SBNet losses on the preprocessed split "
+                                 "are not finite")
+        log(f"preprocess: SBNet {PREP_STEPS} steps on the card-made split, "
+            f"host {run['host_ms']:.3f} ms/step, loss first "
+            f"{run['losses'][0]:.5f} last {run['losses'][-1]:.5f}")
+        score_fn = make_score_fn(model, vdata.catalog)
+        for path, method, needed in (
+                ("dot", "auto", ["segment_gather", "score_wmax",
+                                 "gather_windows", "peel_values",
+                                 "recover_winners"]),
+                ("full", "full", ["segment_gather", "exact_topk"])):
+            econf = eval_conf(topk_method=method)
+            ev = FullEvaluator(econf, val, vdata, evaluator_name="val")
+            fn = score_fn if path == "dot" else (lambda u: score_fn(u))
+            reset_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = evaluate_model(fn, ev, LOADER_CONF["eval_batch_size"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            count_path(f"preprocessed {path} validation", needed)
+            check_metrics(f"preprocessed {path} validation", metrics, econf)
+            log(f"preprocess: {path} validation of "
+                f"{int(vdata.users_in_split.shape[0])} users in {wall:.3f} s,"
+                f" ndcg@10 {metrics['val/ndcg@10']:.6f}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def check_long_rows(dev) -> None:
+    """`ops.topk.lax_topk` on rows past K13's row limit, at a k where
+    narrowing to 128-wide windows could not fit, where it once raised
+    (LONG_ROWS: K13 over chunks, and the sort at k >= MAX_N): values and
+    ids bit-equal to the plain version (the stable sort of the
+    total-order keys over the whole row). Integer popularity
+    values tie across the chunks; +-0.0, NaN of both signs and -inf are
+    planted."""
+    import numpy as np
+    import torch
+
+    from sibrar_tpu_torch.ops import exact_topk as xtopk
+    from sibrar_tpu_torch.ops.topk import lax_topk
+
+    rng = np.random.default_rng(SEED + 5)
+    for r, n, k in LONG_ROWS:
+        x = np.minimum(rng.zipf(1.5, (r, n)), 50).astype(np.float32)
+        u = rng.random((r, n))
+        x[u < 0.01] = 0.0
+        x[(u >= 0.01) & (u < 0.02)] = -0.0
+        x[(u >= 0.02) & (u < 0.0201)] = np.nan
+        x[(u >= 0.0201) & (u < 0.0202)] = -np.inf
+        x.view(np.int32)[(u >= 0.0202) & (u < 0.0203)] = -1  # NaN, sign set
+        xd = torch.from_numpy(x).to(dev)
+        before = xtopk.exact_topk.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, i = lax_topk(xd, k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = xtopk.exact_topk.launches - before
+        pv, pi = xtopk.exact_topk_plain(xd, k)
+        if not (torch.equal(i, pi) and torch.equal(v.view(torch.int32),
+                                                   pv.view(torch.int32))):
+            raise AssertionError(f"lax_topk past the row limit (R = {r}, "
+                                 f"n = {n}, k = {k}) differs from plain")
+        if dev.type == "cuda" and (launched == 0) != (k >= xtopk.MAX_N):
+            # the chunks launch K13, the sort does not
+            raise AssertionError(f"lax_topk at k = {k}: {launched} K13 "
+                                 "launches")
+        log(f"lax_topk past K13's limit: R = {r}, n = {n}, k = {k}: values "
+            f"and ids bit-equal to plain; {launched} K13 launches, "
+            f"{wall * 1e3:.1f} ms")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5260,6 +5625,7 @@ def main() -> int:
 
     # -------------------------------------------- kernels vs plain versions
     measured = check_kernels(data, dev, vdata.exclude_csr.max_row_len)
+    check_long_rows(dev)
     users, rows = first_layer_rows(tdata, model, torch.Generator(
         device=dev).manual_seed(SEED + 2), train.n_items_in_split)
     measured.update(check_train_kernels(tower, rows, users, tdata, dev))
@@ -5419,6 +5785,11 @@ def main() -> int:
 
     # ------------------ the ported tools/ probes, at their full width
     measured.update(probes_phase(kernels, count_path))
+
+    # ---- preprocessing on the card and the CPU, SBNet on what it made
+    t0 = time.perf_counter()
+    preprocess_phase(kernels, count_path, card)
+    log(f"preprocess phase: {time.perf_counter() - t0:.1f} s")
 
     # --------- the CLI, train_val_test from artifacts, at full width,
     # then MF with row-sparse tables on the same artifacts

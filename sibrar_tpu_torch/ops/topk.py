@@ -17,11 +17,12 @@
 
 Every selection here is K13 (its plain version on the CPU), which keeps
 ``lax.top_k``'s order: the larger value first, equal values to the lower
-index (`lax_topk` narrows a row longer than K13's `MAX_N` to its top-k
-windows first). The windowed methods select windows by maximum the same
-way and keep their candidates in that window order, as JAX's do, so each
-method returns JAX's ids on tied scores too (``torch.topk`` leaves the
-order of ties unspecified).
+index (`lax_topk` narrows a row longer than K13's `MAX_N` to the top-k
+of its chunks first, or at k' >= `MAX_N` ranks it by a stable sort of
+the total-order keys). The windowed methods select windows by maximum the
+same way and keep their candidates in that window order, as JAX's do, so
+each method returns JAX's ids on tied scores too (``torch.topk`` leaves
+the order of ties unspecified).
 """
 from __future__ import annotations
 
@@ -31,8 +32,12 @@ import torch
 import torch.nn.functional as F
 
 from sibrar_tpu_torch.config.schema import TOPK_METHODS as METHODS
-from sibrar_tpu_torch.ops.exact_topk import MAX_N, exact_topk
-from sibrar_tpu_torch.ops.window import WINDOW, max_like_jax
+from sibrar_tpu_torch.ops.exact_topk import (
+    MAX_N,
+    exact_topk,
+    exact_topk_plain,
+)
+from sibrar_tpu_torch.ops.window import max_like_jax
 from sibrar_tpu_torch.ops.sparse import (
     DeviceCSR,
     csr_contains,
@@ -46,27 +51,51 @@ NEG = -1e30
 def lax_topk(x: torch.Tensor, k: int, max_n: int = MAX_N
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """``lax.top_k`` of each row of ``x [R, n]`` (``k' = min(k, n)``): K13
-    on rows of up to ``max_n`` values. A longer row (JAX has no limit)
-    selects its top-k' 128-wide windows by maximum (ties to the lower
-    window), keeps them in catalog order and selects among their values:
-    an item outside them has k' items above it in that order (the windows'
-    maxima), so the result is the same. Half-precision rows rank as f32,
-    which is exact, and keep their dtype. Raises where the maxima or the
-    candidates would not fit in ``max_n`` (k' > 11,571 or n > 190M at
-    K13's `MAX_N`)."""
+    on rows of up to ``max_n`` values. JAX has no row limit, and neither
+    has this: a longer row goes through `_chunked_topk` (K13 over chunks
+    of ``max_n`` values), or, where k' is too large for a chunk to shrink
+    the row (k' >= ``max_n``), through a stable sort of the total-order
+    keys (`exact_topk_plain`; ``lax.top_k`` is an XLA op, not a Pallas
+    kernel). Half-precision rows rank as f32, which is exact, and keep
+    their dtype."""
     n = x.shape[1]
     k = min(k, n)
     xf = x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
     if n <= max_n:
         v, i = exact_topk(xf.contiguous(), k)
         return v.to(x.dtype), i
-    if k * WINDOW > max_n or -(-n // WINDOW) > max_n:
-        raise ValueError(f"top-{k} of rows of {n} values: above {max_n} "
-                         f"values a row needs k * {WINDOW} and n / {WINDOW} "
-                         f"of at most {max_n}")
-    cand_v, cand_c = _window_candidates(xf, k, WINDOW, catalog_order=True)
-    v, p = exact_topk(cand_v, k)
-    return v.to(x.dtype), cand_c.gather(1, p)
+    if k < max_n:
+        i = _chunked_topk(xf, k, max_n)
+    else:
+        i = exact_topk_plain(xf, k)[1]
+    return x.gather(1, i), i
+
+
+def _chunked_topk(x: torch.Tensor, k: int, max_n: int) -> torch.Tensor:
+    """Ids of `lax_topk` for rows longer than ``max_n`` with ``k < max_n``:
+    K13's top-k of each chunk of ``max_n`` values, the candidates
+    concatenated in chunk order, again until one K13 call takes the rest.
+    Equal values keep their catalog order among the candidates (within a
+    chunk K13 puts them lower index first, and the chunks go in catalog
+    order), so each round keeps ``lax.top_k``'s tie order."""
+    r = x.shape[0]
+    cand_v, cand_c = x, None
+    while cand_v.shape[1] > max_n:
+        n = cand_v.shape[1]
+        full = n // max_n * max_n
+        v, p = exact_topk(cand_v[:, :full].reshape(-1, max_n).contiguous(),
+                          k)
+        p = p.view(r, -1, k) + torch.arange(0, full, max_n,
+                                            device=x.device)[:, None]
+        parts_v, parts_p = [v.view(r, -1)], [p.view(r, -1)]
+        if full < n:
+            v, p = exact_topk(cand_v[:, full:].contiguous(), k)
+            parts_v.append(v)
+            parts_p.append(p + full)
+        p = torch.cat(parts_p, 1)
+        cand_v = torch.cat(parts_v, 1)
+        cand_c = p if cand_c is None else cand_c.gather(1, p)
+    return cand_c.gather(1, exact_topk(cand_v, k)[1])
 
 
 def topk_excluding(scores: torch.Tensor, cols: torch.Tensor,
@@ -83,21 +112,17 @@ def topk_excluding(scores: torch.Tensor, cols: torch.Tensor,
     return lax_topk(scores, min(k, c_real))
 
 
-def _window_candidates(scores: torch.Tensor, m: int, window: int,
-                       catalog_order: bool = False
+def _window_candidates(scores: torch.Tensor, m: int, window: int
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Values and column ids ``[B, m * window]`` of the top-``m`` windows by
     maximum (the row padded to a ``window`` multiple with -1e30), in order
-    of their maxima as JAX keeps them, or with ``catalog_order`` in
-    catalog order."""
+    of their maxima as JAX keeps them."""
     b, c = scores.shape
     pad = (-c) % window
     if pad:
         scores = F.pad(scores, (0, pad), value=NEG)
     sw = scores.view(b, -1, window)
     widx = exact_topk(max_like_jax(sw, -1), min(m, sw.shape[1]))[1]
-    if catalog_order:
-        widx = widx.sort(1).values
     cand_v = sw.gather(1, widx[:, :, None].expand(-1, -1, window))
     cand_c = widx[:, :, None] * window + torch.arange(window,
                                                       device=scores.device)

@@ -13,8 +13,9 @@ not promise. A last case pins what the windowed methods keep of JAX: the
 candidate windows go in order of their maxima, so ties that span windows
 of different maxima leave ``lax.top_k``'s order there, in both packages.
 Rows longer than K13 takes (`lax_topk`, the ``full`` method's selection)
-narrow to their top-k windows in catalog order and keep ``lax.top_k``'s
-ids, pinned here at a small limit and once beyond K13's real one.
+narrow to the top-k of their chunks in catalog order and keep
+``lax.top_k``'s ids, pinned here at a small limit and once beyond K13's
+real one.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -166,8 +167,8 @@ def _long_rows(kind: str):
 @pytest.mark.parametrize("kind", ["popularity", "maxima_differ",
                                   "beyond_MAX_N", *HEAVY])
 def test_lax_topk_narrows_long_rows_in_lax_order(kind):
-    """Beyond ``max_n`` values a row narrows to the values of its top-k
-    128-wide windows, in catalog order: values and ids equal
+    """Beyond ``max_n`` values a row narrows to the top-k of its chunks of
+    ``max_n`` values, in catalog order: values and ids equal
     ``lax.top_k``'s bit for bit."""
     x, k, max_n = _long_rows(kind)
     assert x.shape[1] > max_n
@@ -180,7 +181,9 @@ def test_lax_topk_narrows_long_rows_in_lax_order(kind):
 
 def test_lax_topk_keeps_half_dtypes_and_refuses_what_it_cannot_narrow():
     """bf16 rows rank as f32 (exact) and come back as bf16; past the
-    limit, k * 128 or n / 128 above it raises instead of a wrong list."""
+    limit, rows with k * 128 or n / 128 above it, which 128-wide windows
+    could not narrow and which once raised, give ``lax.top_k``'s values
+    and ids (`tests/test_torch_topk_limits.py` holds them on more rows)."""
     x, k, _ = _long_rows("popularity")
     xb = torch.as_tensor(x).to(torch.bfloat16)
     v, i = lax_topk(xb, k, 2048)
@@ -188,7 +191,8 @@ def test_lax_topk_keeps_half_dtypes_and_refuses_what_it_cannot_narrow():
     wv, wi = lax.top_k(jnp.asarray(xb.float().numpy()), k)
     np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
     np.testing.assert_array_equal(v.float().numpy(), np.asarray(wv))
-    with pytest.raises(ValueError, match="above 2048"):
-        lax_topk(torch.as_tensor(x), 17, 2048)
-    with pytest.raises(ValueError, match="above 128"):
-        lax_topk(torch.as_tensor(x), 1, 128)
+    for k, max_n in ((17, 2048), (1, 128)):
+        v, i = lax_topk(torch.as_tensor(x), k, max_n)
+        wv, wi = lax.top_k(jnp.asarray(x), k)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(wv))

@@ -11,7 +11,7 @@ host in one transfer. Keys follow the JAX package: ``{name}/{metric}@{k}``,
 
 Two ways to rank a batch:
 
-- the dot path (`FullEvaluator.make_dot_eval_batch`): for scorers that
+- the dot path (`FullEvaluator.make_dot_ranker`): for scorers that
   expose ``dot_parts``, K2 writes scores and window maxima and the peel
   selects (``ops/peel.py``);
 - the scores path: ``score_fn(u_idxs)`` then `masked_topk` with the
@@ -19,7 +19,11 @@ Two ways to rank a batch:
 
 The peel flags rows it cannot prove exact; only those rows are redone
 densely (JAX redoes whole batches), and ``redo_rows`` records how many per
-batch. Everything runs eagerly, one batch after the other.
+batch (on the dot path, the count the peel's own redo returns).
+Everything runs eagerly, one batch after the other; `evaluate_model`
+records the spans ``evaluator.rank`` (a batch's scores and selection) and
+``evaluator.metrics`` (its hit tests, metrics and accumulation) per batch,
+and ``evaluator.get_results`` per pass.
 
 ``eval.score_dtype: bfloat16`` (JAX's ``evaluate_model``): a scorer with
 ``dot_parts`` is scored from its operands rounded to bf16 with f32 sums,
@@ -69,6 +73,7 @@ from sibrar_tpu_torch.parallel.mesh import (
     sharded_masked_topk,
     sharded_masked_topk_dot,
 )
+from sibrar_tpu_torch.utils import trace
 
 
 def natsort_key(s: str):
@@ -149,24 +154,29 @@ class FullEvaluator:
                                self.dataset.n_items_in_split))
 
     def _eval_batch(self, scores: torch.Tensor, u_idxs: torch.Tensor):
-        """``(metrics, cov)`` of one batch on the scores path; rows the peel
-        flags are redone with the scatter top-k. On a mesh ``scores`` is
-        this rank's tile (its rows, its catalog columns)."""
+        """``(metrics, cov)`` of one batch on the scores path."""
+        return self._metrics_from_topk(self._scores_topk(scores, u_idxs),
+                                       u_idxs)
+
+    def _scores_topk(self, scores: torch.Tensor, u_idxs: torch.Tensor
+                     ) -> torch.Tensor:
+        """Top-``k_max`` catalog positions of one batch on the scores path;
+        rows the peel flags are redone with the scatter top-k. On a mesh
+        ``scores`` is this rank's tile (its rows, its catalog columns)."""
         if self.mesh is not None:
-            return self._metrics_from_topk(
-                self._sharded_topk(scores, u_idxs), u_idxs)
+            return self._sharded_topk(scores, u_idxs)
         _, topk_idx, ok = masked_topk(scores, self.data.exclude_csr, u_idxs,
                                       self.k_max, method=self.method,
                                       return_ok=True)
         if self._peel_possible:
-            n_bad = int((~ok).sum())
-            self.redo_rows.append(n_bad)
-            if n_bad:
+            with trace.host_wait("evaluator.redo"):
                 bad = (~ok).nonzero().squeeze(1)
+            self.redo_rows.append(int(bad.numel()))
+            if bad.numel():
                 _, topk_idx[bad] = masked_topk(
                     scores[bad], self.data.exclude_csr, u_idxs[bad],
                     self.k_max, method="scatter")
-        return self._metrics_from_topk(topk_idx, u_idxs)
+        return topk_idx
 
     def _pad_columns(self, scores: torch.Tensor) -> torch.Tensor:
         """A tile's columns past the catalog (its padding to the item
@@ -200,7 +210,8 @@ class FullEvaluator:
         shares the flags, so its ranks redo together."""
         if not self._peel_possible:
             return topk_idx
-        bad = (~ok).nonzero().squeeze(1)
+        with trace.host_wait("evaluator.redo"):
+            bad = (~ok).nonzero().squeeze(1)
         self.redo_rows.append(int(bad.numel()))
         if bad.numel():
             topk_idx[bad] = sharded_masked_topk(
@@ -208,43 +219,42 @@ class FullEvaluator:
                 use_peel=False)[1]
         return topk_idx
 
-    def make_dot_eval_batch(self, user_repr_fn: Callable,
-                            items: torch.Tensor,
-                            score_dtype: Optional[str] = None
-                            ) -> Optional[Callable]:
-        """The dot path's batch function ``fn(u_idxs) -> (metrics, cov)``: K2
-        scores and window maxima (K15's under ``score_dtype="bfloat16"``),
-        the peel, a dense redo of the rows it flags. None where it does not
-        apply: an explicit ``topk_method`` other than ``auto`` / ``peel``
-        pins the scores path, and the peel must be viable for the catalog,
-        ``k_max`` and the longest exclusion row."""
+    def make_dot_ranker(self, user_repr_fn: Callable, items: torch.Tensor,
+                        score_dtype: Optional[str] = None
+                        ) -> Optional[Callable]:
+        """The dot path's ranking ``fn(u_idxs) -> topk_idx``, whose lists
+        `_metrics_from_topk` scores: K2 scores and window maxima (K15's
+        under ``score_dtype="bfloat16"``), the peel, a dense redo of the
+        rows it flags. None where it does not apply: an
+        explicit ``topk_method`` other than ``auto`` / ``peel`` pins the
+        scores path, and the peel must be viable for the catalog, ``k_max``
+        and the longest exclusion row."""
         if self.method not in ("auto", "peel"):
             return None
         n_catalog = self.dataset.n_items_in_split
         csr = self.data.exclude_csr
         if self.mesh is not None and self.mesh.shape[ITEM_AXIS] > 1:
-            return self._sharded_dot_eval_batch(user_repr_fn, items,
-                                                score_dtype)
+            return self._sharded_dot_ranker(user_repr_fn, items, score_dtype)
         if (items.shape[0] != n_catalog
                 or not peel_viable(n_catalog, self.k_max, csr.max_row_len)):
             return None
         # pad the catalog to the GEMM's chunk multiple once per evaluation
         items_p = pad_catalog(items)
 
-        def eval_batch(u_idxs: torch.Tensor):
+        def rank(u_idxs: torch.Tensor) -> torch.Tensor:
             cols, mask = csr_row_gather(csr, u_idxs)
-            _, topk_idx, ok = peel_masked_topk_dot(
+            _, topk_idx, _, redone = peel_masked_topk_dot(
                 user_repr_fn(u_idxs), items_p, cols, mask, self.k_max,
-                c_real=n_catalog, score_dtype=score_dtype)
-            self.redo_rows.append(int((~ok).sum()))
-            return self._metrics_from_topk(topk_idx, u_idxs)
+                c_real=n_catalog, score_dtype=score_dtype,
+                return_redone=True)
+            self.redo_rows.append(redone)
+            return topk_idx
 
-        return eval_batch
+        return rank
 
-    def _sharded_dot_eval_batch(self, user_repr_fn: Callable,
-                                items: torch.Tensor,
-                                score_dtype: Optional[str]
-                                ) -> Optional[Callable]:
+    def _sharded_dot_ranker(self, user_repr_fn: Callable,
+                            items: torch.Tensor, score_dtype: Optional[str]
+                            ) -> Optional[Callable]:
         """The dot path on an item-sharded mesh: every shard runs K2 (K15)
         and the peel on its slice (`sharded_masked_topk_dot`); flagged rows
         are redone by the per-shard scatter over the same kernel's scores.
@@ -263,21 +273,20 @@ class FullEvaluator:
         items_p = pad_catalog(items)
         score = score_bf16 if score_dtype == "bfloat16" else score_wmax
 
-        def eval_batch(u_idxs: torch.Tensor):
+        def rank(u_idxs: torch.Tensor) -> torch.Tensor:
             u = user_repr_fn(u_idxs)
             cols, mask = csr_row_gather(self.data.exclude_csr, u_idxs)
             _, topk_idx, ok = sharded_masked_topk_dot(
                 u, items_p, cols, mask, self.k_max, self.mesh,
                 n_catalog=n_catalog, local_c=local_c,
                 score_dtype=score_dtype)
-            topk_idx = self._redo_flagged(
+            return self._redo_flagged(
                 topk_idx, ok,
                 lambda rows: self._pad_columns(
                     score(u[rows], items_p)[0][:, :local_c]),
                 cols, mask)
-            return self._metrics_from_topk(topk_idx, u_idxs)
 
-        return eval_batch
+        return rank
 
     # ---------------------------------------------------------- accumulate
     @torch.no_grad()
@@ -333,9 +342,11 @@ class FullEvaluator:
 
         cov = pdist.all_reduce(cov.to(torch.int32), "max", group) > 0
         users = interleave(users) if users.numel() else users
-        valid = torch.as_tensor(valid, device=self.device)
-        return (interleave(per_user), cov, users,
-                interleave(valid).cpu().numpy())
+        per_user = interleave(per_user)
+        valid = interleave(torch.as_tensor(valid, device=self.device))
+        with trace.host_wait("evaluator.valid"):
+            valid = valid.cpu().numpy()
+        return per_user, cov, users, valid
 
     def get_results(self, return_raw_results: bool = False):
         """Means (and population stds with ``compute_std``) of the per-user
@@ -363,8 +374,9 @@ class FullEvaluator:
                 per_user, cov, users, valid)
             n = len(valid)
         # user ids < 2**24 are exact in f32
-        host = torch.cat([per_user.flatten(), cov.float().flatten(),
-                          users.float()]).cpu().numpy()
+        with trace.host_wait("evaluator.results"):
+            host = torch.cat([per_user.flatten(), cov.float().flatten(),
+                              users.float()]).cpu().numpy()
         per_user = host[:per_user.numel()].reshape(len(names), n)
         cov = host[per_user.size:per_user.size + cov.numel()].reshape(
             len(cov_names), n_cat) > 0
@@ -406,7 +418,7 @@ def evaluate_model(score_fn: Callable[[torch.Tensor], torch.Tensor],
     n_catalog]``. Users are padded to whole batches by repeating the last
     one, and the padded rows are masked out of every statistic. A
     ``score_fn.dot_parts = (user_repr_fn, items)`` takes the dot path where
-    `FullEvaluator.make_dot_eval_batch` allows it, otherwise the scores
+    `FullEvaluator.make_dot_ranker` allows it, otherwise the scores
     path. Under ``evaluator.config.score_dtype == "bfloat16"`` both paths
     rank K15's scores of the dot parts (a scorer without them warns and
     stays in f32). Returns `FullEvaluator.get_results`."""
@@ -434,23 +446,27 @@ def evaluate_model(score_fn: Callable[[torch.Tensor], torch.Tensor],
         users = torch.cat([users, users[-1:].expand(pad)])
     valid = np.arange(n + pad) < n
     mesh = evaluator.mesh
-    dot_batch = (evaluator.make_dot_eval_batch(*dot_parts, score_dtype=sd)
-                 if dot_parts is not None else None)
+    rank = (evaluator.make_dot_ranker(*dot_parts, score_dtype=sd)
+            if dot_parts is not None else None)
     local_cols = getattr(score_fn, "mesh", None) is not None
     for start in range(0, n + pad, bs):
         u = shard_rows(users[start:start + bs], mesh)
         v = valid[start:start + bs]
         if mesh is not None:
             v = shard_rows(torch.from_numpy(v), mesh, fill=False).numpy()
-        if dot_batch is not None:
-            metrics, cov = dot_batch(u)
-        else:
-            scores = score_fn(u)
-            if mesh is not None and not local_cols:
-                scores = shard_catalog(scores, mesh, dim=1, fill=NEG)
-            metrics, cov = evaluator._eval_batch(scores, u)
-        evaluator._accumulate(u, v, metrics, cov)
-    return evaluator.get_results()
+        with trace.span("evaluator.rank"):
+            if rank is not None:
+                topk_idx = rank(u)
+            else:
+                scores = score_fn(u)
+                if mesh is not None and not local_cols:
+                    scores = shard_catalog(scores, mesh, dim=1, fill=NEG)
+                topk_idx = evaluator._scores_topk(scores, u)
+        with trace.span("evaluator.metrics"):
+            metrics, cov = evaluator._metrics_from_topk(topk_idx, u)
+            evaluator._accumulate(u, v, metrics, cov)
+    with trace.span("evaluator.get_results"):
+        return evaluator.get_results()
 
 
 def _bf16_scorer(user_repr_fn: Callable, items: torch.Tensor, mesh=None

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sibrar_tpu_torch.utils import trace
+
 USER_METRICS = ("ndcg", "wndcg", "recall", "precision", "f_score", "hitrate",
                 "ap")
 DISTRIBUTION_METRICS = ("coverage",)
@@ -74,7 +76,8 @@ def coverage_flags(topk_idx: torch.Tensor, ks: tuple[int, ...],
         kk = min(k, topk_idx.shape[1])
         flags = torch.zeros(n_catalog, dtype=torch.bool,
                             device=topk_idx.device)
-        flags[topk_idx[:, :kk].reshape(-1).long()] = True
+        with trace.host_wait("metrics.coverage"):  # True is copied first
+            flags[topk_idx[:, :kk].reshape(-1).long()] = True
         out[f"coverage@{k}"] = flags
     return out
 

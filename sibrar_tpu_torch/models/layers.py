@@ -28,6 +28,7 @@ from sibrar_tpu_torch.ops.sparse import (
     csr_rows_to_dense,
 )
 from sibrar_tpu_torch.ops.spmm import spmm_onehot
+from sibrar_tpu_torch.utils import trace
 
 ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh,
                "sigmoid": torch.sigmoid, "selu": torch.selu}
@@ -159,7 +160,9 @@ class BatchNorm(nn.Module):
             if batch_sharded():  # the global batch's statistics
                 sums = reduce_batch(torch.stack([flat.sum(0),
                                                  (flat * flat).sum(0)]))
-                count = reduce_batch(flat.new_tensor(float(flat.shape[0])))
+                with trace.host_wait("layers.batch_norm_count"):  # copied
+                    count = flat.new_tensor(float(flat.shape[0]))
+                count = reduce_batch(count)
                 mean, mean_sq = sums / count
             else:
                 mean = flat.mean(0)

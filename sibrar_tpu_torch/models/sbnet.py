@@ -31,6 +31,7 @@ from sibrar_tpu_torch.models.layers import (
 )
 from sibrar_tpu_torch.parallel.mesh import row_offset
 from sibrar_tpu_torch.train.losses import info_nce
+from sibrar_tpu_torch.utils import trace
 
 
 @dataclass
@@ -187,7 +188,9 @@ class SingleBranchNetEntity(RecModel):
         out: list[list] = [[None] * self.k for _ in range(p)]
         for m in sorted(assign):
             pairs = assign[m]
-            proj = self.modalities[m](blocks[:, [rho for rho, _ in pairs]])
+            with trace.host_wait("sbnet.routing"):  # the list is copied
+                cols = blocks[:, [rho for rho, _ in pairs]]
+            proj = self.modalities[m](cols)
             for col, (rho, j) in enumerate(pairs):
                 out[rho][j] = proj[:, col]
         picked = torch.stack([torch.stack(col, dim=1) for col in out], dim=1)

@@ -47,6 +47,7 @@ from sibrar_tpu_torch.ops.window import (
     score_wmax,
     score_windows,
 )
+from sibrar_tpu_torch.utils import trace
 
 PEELED = float("-inf")  # below any live score, the -1e30 mask included
 
@@ -329,7 +330,8 @@ def _flat_mask(b: int, width: int, pos: torch.Tensor, hit: torch.Tensor,
     base = torch.arange(b, device=device)[:, None] * width
     flat = torch.where(hit, base + pos, b * width).reshape(-1)
     out = torch.zeros(b * width + 1, dtype=torch.bool, device=device)
-    out[flat] = True
+    with trace.host_wait("peel.flat_mask"):  # True is copied first
+        out[flat] = True
     return out[:-1].view(b, width)
 
 
@@ -478,8 +480,9 @@ def peel_masked_topk_dot(u: torch.Tensor, items: torch.Tensor,
                          excl_mask: torch.Tensor | None, k: int, *,
                          c_real: int | None = None,
                          with_fallback: bool = True,
-                         score_dtype: str | None = None
-                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                         score_dtype: str | None = None,
+                         return_redone: bool = False
+                         ) -> tuple[torch.Tensor, ...]:
     """Dot-product scores + exclusion + exact top-k: K2 writes the scores and
     their window maxima, then the peel selects (JAX
     ``peel_masked_topk_dot``). With ``score_dtype="bfloat16"`` K15 writes
@@ -491,7 +494,8 @@ def peel_masked_topk_dot(u: torch.Tensor, items: torch.Tensor,
     the live count. Returns ``(v, idx, ok)``. With ``with_fallback`` the
     rows whose ``ok`` is False are redone densely (``ops/topk.py``) before
     returning, so ``v``/``idx`` are exact for every row and ``ok`` tells
-    which rows took the redo."""
+    which rows took the redo; ``return_redone`` adds their number, taken
+    from the redo's own read of ``ok``: ``(v, idx, ok, n_redone)``."""
     if score_dtype not in (None, "float32", "bfloat16"):
         raise ValueError(f"unsupported score_dtype {score_dtype!r} (use "
                          f"'float32' or 'bfloat16')")
@@ -507,10 +511,9 @@ def peel_masked_topk_dot(u: torch.Tensor, items: torch.Tensor,
     scores, wmax = score(u, pad_catalog(items))
     v, idx, ok = peel_topk_from_scores(scores, wmax, excl_cols, excl_mask, k,
                                        c_real)
-    if with_fallback:
-        _redo(lambda rows: scores[rows], excl_cols, excl_mask, c_real, v,
-              idx, ok)
-    return v, idx, ok
+    redone = (_redo(lambda rows: scores[rows], excl_cols, excl_mask, c_real,
+                    v, idx, ok) if with_fallback else 0)
+    return (v, idx, ok, redone) if return_redone else (v, idx, ok)
 
 
 def peel_masked_topk_scores(scores: torch.Tensor,
@@ -539,14 +542,21 @@ def peel_masked_topk_scores(scores: torch.Tensor,
 
 def _redo(scores_of, excl_cols: torch.Tensor, excl_mask: torch.Tensor,
           c_real: int, v: torch.Tensor, idx: torch.Tensor,
-          ok: torch.Tensor) -> None:
+          ok: torch.Tensor) -> int:
     """Overwrite the rows of ``(v, idx)`` whose ``ok`` is False with the
     dense top-k of their scores, ``scores_of(rows) -> [len(rows), C]`` (one
-    host sync on ``ok``)."""
-    if bool(ok.all()):
-        return
-    redo = (~ok).nonzero().squeeze(1)
+    host sync on ``ok``, the span ``host_wait.peel.flag``). Returns the
+    number of rows redone, also counted as ``peel.redo_rows``."""
+    with trace.host_wait("peel.flag"):
+        exact = bool(ok.all())
+    if exact:
+        return 0
+    with trace.host_wait("peel.redo"):
+        redo = (~ok).nonzero().squeeze(1)
+    n = int(redo.numel())
+    trace.count("peel.redo_rows", n)
     fv, fi = topk_excluding(scores_of(redo), excl_cols[redo], excl_mask[redo],
                             v.shape[1], c_real=c_real)
     v[redo] = fv
     idx[redo] = fi
+    return n

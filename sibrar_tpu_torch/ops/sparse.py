@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from sibrar_tpu_torch.ops import _cuda
+from sibrar_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -193,8 +194,8 @@ def scatter_fill_rows(scores: torch.Tensor, cols: torch.Tensor,
     Like the JAX function this ADDS the fill: with ``fill = -1e30`` any
     realistic score becomes exactly -1e30. Padded slots add 0 to column 0."""
     safe = torch.where(mask, cols, 0).long()
-    vals = torch.where(mask, torch.tensor(fill, dtype=scores.dtype,
-                                          device=scores.device),
-                       torch.zeros((), dtype=scores.dtype,
-                                   device=scores.device))
+    with trace.host_wait("sparse.scatter_fill"):  # the fill is copied
+        fill_t = torch.tensor(fill, dtype=scores.dtype, device=scores.device)
+    vals = torch.where(mask, fill_t, torch.zeros((), dtype=scores.dtype,
+                                                 device=scores.device))
     return scores.scatter_add(1, safe, vals)

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from contextlib import contextmanager
 
 import numpy as np
@@ -43,19 +42,21 @@ from sibrar_tpu_torch.preprocessing.records import (
 )
 from sibrar_tpu_torch.preprocessing.splitting import split_ratio_based
 from sibrar_tpu_torch.preprocessing.store import split_dir_name, store_splits
+from sibrar_tpu_torch.utils import trace
 
 log = logging.getLogger(__name__)
 
 @contextmanager
 def timed(timings: dict | None, stage: str, dev: torch.device):
     """Add the stage's wall seconds to ``timings[stage]`` (the card's work
-    included: synchronized at the end)."""
-    t0 = time.perf_counter()
-    yield
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    included: synchronized at the end), from its span ``preprocess.<stage>``
+    (`utils.trace`)."""
+    with trace.span("preprocess." + stage) as stage_span:
+        yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     if timings is not None:
-        timings[stage] = timings.get(stage, 0.0) + time.perf_counter() - t0
+        timings[stage] = timings.get(stage, 0.0) + stage_span.ns / 1e9
 
 
 def load_raw(data_dir: str, config: PreprocessingConfig) -> RawData:

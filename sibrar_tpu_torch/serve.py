@@ -285,10 +285,10 @@ class Recommender:
     def _local_step(self, u_idxs: torch.Tensor):
         if self.use_dot:
             cols, mask = csr_row_gather(self.csr, u_idxs)
-            v, i, ok = peel_masked_topk_dot(
+            v, i, _, redone = peel_masked_topk_dot(
                 self.user_repr_fn(u_idxs), self.items, cols, mask, self.k,
-                c_real=self.c, score_dtype=self.dtype)
-            self.redo_rows.append(int((~ok).sum()))
+                c_real=self.c, score_dtype=self.dtype, return_redone=True)
+            self.redo_rows.append(redone)
             return v, i
         scores = self._scores(u_idxs)
         if self.selection == "approx":

@@ -47,7 +47,6 @@ from __future__ import annotations
 
 import math
 import os
-import time
 from typing import Any, Callable, Iterable, Optional
 
 import torch
@@ -77,6 +76,7 @@ from sibrar_tpu_torch.train.row_adam import (
     row_adam_init,
     row_adam_update,
 )
+from sibrar_tpu_torch.utils import trace
 
 CHECKPOINT = "train_state.pt"
 
@@ -258,21 +258,34 @@ class Trainer:
 
     def train_step(self, idxs: torch.Tensor) -> torch.Tensor:
         """One optimizer step on the pairs ``idxs``; returns the device
-        tensor ``[total, rec_loss, reg_loss]``."""
-        self.optimizer.zero_grad()
-        out = self.forward_backward(idxs)
-        if self.mesh is not None:
-            self._average_grads()
-        if self.debug_nans:
-            self._check_nans({
-                ("loss", "total, rec, reg"): out,
-                **{("gradient", n): p.grad
-                   for n, p in self.model.named_parameters()
-                   if p.grad is not None},
-                **{("gradient", n): r.grad
-                   for n, (_, r) in self._rows.items()
-                   if r.grad is not None}})
-        self.optimizer.step()
+        tensor ``[total, rec_loss, reg_loss]``. Spans: ``trainer.train_step``
+        around ``trainer.draw_batch``, ``trainer.forward``,
+        ``trainer.backward`` and ``trainer.optimizer_step``."""
+        with trace.span("trainer.train_step"):
+            self.optimizer.zero_grad()
+            out = self.forward_backward(idxs)
+            if self.mesh is not None:
+                self._average_grads()
+            if self.debug_nans:
+                self._check_nans({
+                    ("loss", "total, rec, reg"): out,
+                    **{("gradient", n): p.grad
+                       for n, p in self.model.named_parameters()
+                       if p.grad is not None},
+                    **{("gradient", n): r.grad
+                       for n, (_, r) in self._rows.items()
+                       if r.grad is not None}})
+            with trace.span("trainer.optimizer_step"):
+                self.optimizer.step()
+                self._step_rows()
+            if self.debug_nans:
+                self._check_nans({("updated parameter", n): p
+                                  for n, p in self.model.named_parameters()})
+            self.step += 1
+            return out
+
+    def _step_rows(self) -> None:
+        """Row-sparse updates of the rows this step injected."""
         for name, (ids, rows) in self._rows.items():
             g = rows.grad if rows.grad is not None else torch.zeros_like(rows)
             if self.mesh is not None:  # every rank steps every touched row
@@ -283,11 +296,6 @@ class Trainer:
                             self.row_state[name], ids, g, self.step + 1,
                             lr=self.learn.lr, wd=self.learn.wd)
         self._rows = {}
-        if self.debug_nans:
-            self._check_nans({("updated parameter", n): p
-                              for n, p in self.model.named_parameters()})
-        self.step += 1
-        return out
 
     def _average_grads(self) -> None:
         """Average every dense gradient over the batch's ranks, in one
@@ -328,30 +336,33 @@ class Trainer:
         reg_loss]``. On a mesh ``idxs`` is the global batch: the draws are
         its, the forward runs this rank's rows and the rec loss the
         gathered logits."""
-        u, i_global = self.draw_batch(idxs)
-        if self.mesh is not None:
-            u = shard_rows(u, self.mesh, flat=self._flat)
-            i_global = shard_rows(i_global, self.mesh, flat=self._flat)
-        self.model.train()
-        source = {"user": u, "item": i_global}
-        self._rows = {}
-        for name, src in self.sparse.items():
-            ids = source[src]
-            rows = self.tables[name].weight.detach()[ids.long()]
-            self._rows[name] = (ids, rows.requires_grad_())
-            self.tables[name].rows = rows
-        try:
-            with batch_shard(self.mesh, self._flat):
-                logits, reg = self.model(u, i_global, gen=self.gen)
-                logits = gather_batch(logits)
-        finally:
-            for table in self.tables.values():
-                table.rows = None
-        labels = torch.zeros(logits.shape, device=self.device)
-        labels[:, 0] = 1.0
-        loss = self.rec_loss(logits, labels)
-        total = loss + reg
-        total.backward()
+        with trace.span("trainer.draw_batch"):
+            u, i_global = self.draw_batch(idxs)
+        with trace.span("trainer.forward"):
+            if self.mesh is not None:
+                u = shard_rows(u, self.mesh, flat=self._flat)
+                i_global = shard_rows(i_global, self.mesh, flat=self._flat)
+            self.model.train()
+            source = {"user": u, "item": i_global}
+            self._rows = {}
+            for name, src in self.sparse.items():
+                ids = source[src]
+                rows = self.tables[name].weight.detach()[ids.long()]
+                self._rows[name] = (ids, rows.requires_grad_())
+                self.tables[name].rows = rows
+            try:
+                with batch_shard(self.mesh, self._flat):
+                    logits, reg = self.model(u, i_global, gen=self.gen)
+                    logits = gather_batch(logits)
+            finally:
+                for table in self.tables.values():
+                    table.rows = None
+            labels = torch.zeros(logits.shape, device=self.device)
+            labels[:, 0] = 1.0
+            loss = self.rec_loss(logits, labels)
+            total = loss + reg
+        with trace.span("trainer.backward"):
+            total.backward()
         return torch.stack([total, loss, reg]).detach()
 
     def _check_nans(self, tensors: dict) -> None:
@@ -362,7 +373,8 @@ class Trainer:
                              for t in tensors.values()]).int()
         if self.mesh is not None:  # every rank raises, or none
             pdist.all_reduce(flags, "max", self.mesh.world_group)
-        flags = flags.cpu()
+        with trace.host_wait("trainer.nan_flags"):
+            flags = flags.cpu()
         if bool(flags.any()):
             what, name = list(tensors)[int(flags.nonzero()[0])]
             raise FloatingPointError(
@@ -413,8 +425,11 @@ class Trainer:
             group, _, n = batch_group(self.mesh, self._flat)
             self.epoch_losses = pdist.all_reduce(self.epoch_losses,
                                                  group=group) / n
-        w = torch.tensor(weights, device=self.device).unsqueeze(1)
-        total, rec, reg = ((self.epoch_losses * w).sum(0) / w.sum()).tolist()
+        with trace.host_wait("trainer.epoch_weights"):  # copied
+            w = torch.tensor(weights, device=self.device).unsqueeze(1)
+        mean = (self.epoch_losses * w).sum(0) / w.sum()
+        with trace.host_wait("trainer.epoch_losses"):
+            total, rec, reg = mean.tolist()
         return {"train/loss": total, "train/rec_loss": rec,
                 "train/reg_loss": reg}
 
@@ -450,7 +465,9 @@ class Trainer:
         metric = self.learn.optimizing_metric
         key = f"{name}/{metric}" if name else metric
 
-        metrics = self.validate()  # before training (reference :103-119)
+        # validate before training (reference :103-119)
+        with trace.span("trainer.validate"):
+            metrics = self.validate()
         if key not in metrics:
             raise ValueError(
                 f"optimizing metric {key!r} is not produced by the validation "
@@ -462,20 +479,21 @@ class Trainer:
 
         patience = 0
         for epoch in range(self.learn.n_epochs):
-            t0 = time.perf_counter()
-            train_metrics = (self._profiled_epoch()
-                             if epoch == 0 and self.profile_dir
-                             else self.train_epoch())
-            train_wall = time.perf_counter() - t0
-            metrics = self.validate()
-            if self.train_evaluator is not None:
-                train_metrics.update(self.evaluate_on_train())
-            if self.post_val_fn is not None:
-                metrics.update(self.post_val_fn(self.model, epoch) or {})
+            with trace.span("trainer.train_epoch") as train_span:
+                train_metrics = (self._profiled_epoch()
+                                 if epoch == 0 and self.profile_dir
+                                 else self.train_epoch())
+            # the epoch's validation: the val split, the train split's
+            # evaluation and the post-validation hook
+            with trace.span("trainer.validate") as val_span:
+                metrics = self.validate()
+                if self.train_evaluator is not None:
+                    train_metrics.update(self.evaluate_on_train())
+                if self.post_val_fn is not None:
+                    metrics.update(self.post_val_fn(self.model, epoch) or {})
             self.log_fn({"epoch": epoch, **train_metrics, **metrics,
-                         "train/epoch_wall_s": round(train_wall, 2),
-                         "val/wall_s": round(
-                             time.perf_counter() - t0 - train_wall, 2)})
+                         "train/epoch_wall_s": round(train_span.ns / 1e9, 2),
+                         "val/wall_s": round(val_span.ns / 1e9, 2)})
             value = metrics.get(key, -math.inf)
             if value > self.best_value:
                 self._maybe_update_best(value, epoch)
@@ -494,14 +512,17 @@ class Trainer:
         trace written to ``profile_dir/train_epoch0.json``: the same epoch,
         steps and draws as an unprofiled run (the JAX package traces its
         first epoch the same way). One session, opened after 2 s of idling
-        (`tools._common.profiled`), so the epoch runs once."""
+        (`tools._common.profiled`), so the epoch runs once. The program's
+        spans are mirrored into it (`utils.trace.mirrored`), over the
+        kernels they issued."""
         from sibrar_tpu_torch.tools._common import profiled
 
         os.makedirs(self.profile_dir, exist_ok=True)
         out = {}
-        profiled(lambda: out.update(self.train_epoch()),
-                 os.path.join(self.profile_dir, "train_epoch0.json"),
-                 idles=(2.0,))
+        with trace.mirrored():
+            profiled(lambda: out.update(self.train_epoch()),
+                     os.path.join(self.profile_dir, "train_epoch0.json"),
+                     idles=(2.0,))
         return out
 
     def _maybe_update_best(self, value: float, epoch: int) -> None:

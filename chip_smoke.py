@@ -54,7 +54,11 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    the card bit-equal to the CPU's; records the inputs K6 and K7 get in
    one default train step (the user bag rows, the genres tag rows, with
    the output gradients autograd hands K7) and holds each to its plain
-   version; trains with ``Trainer.train_epoch`` (the config's learn /
+   version; holds K18 ``adam_step`` to its plain version on copies of that
+   step's parameters, gradients and moments (AdamW and Adam with the
+   YAML's decay, and no decay; three steps, rtol 1e-6) and times it beside
+   the plain version and ``torch._fused_adamw_`` against its 28-byte
+   bound; trains with ``Trainer.train_epoch`` (the config's learn /
    dataset / loader settings): a warm-up, then a few hundred timed steps
    on the default first layer (the item tower's densify + matmul with K5
    backward, the user tower's bag path and the embeddings on K6 / K7),
@@ -66,7 +70,8 @@ users x 100,352 items x 2M interactions) with SBNet at the widths of
    first-layer path; K6 / K7 launches logged), ``resume`` (train,
    ``save_checkpoint``, train on; a fresh trainer that loads the
    checkpoint and trains the same steps must end bit-equal) and
-   ``bf16_moments`` (bf16 first moments, finite);
+   ``bf16_moments`` (bf16 first moments, finite, every parameter through
+   the optimizer's loop and no K18 launch);
 3. times the item tower's first layer and the catalog encode both ways;
 4. from the default training's weights, runs ``Trainer.fit`` (the YAML's
    learn / eval settings, 2 epochs of 60 steps, each validation over the
@@ -251,6 +256,10 @@ runs, the gathers, the combine, the SBNet sweep, each zoo family, each
 matrix run) runs with
 every launch count set to 0 just before it and read just after; each of
 its kernels must have launched, and kernels of other paths must not. On
+every training path K18 launches (once an optimizer step where the steps
+are counted: the default and spmm training, determinism, fit, the
+preprocessed split, each mesh rank; every parameter of the default path
+through K18 each step, by the optimizer's counters). On
 every path that peels, each selection ends in one K11 launch (as many as
 K4's) and none gathers the winners' rows through K3
 (``peel.gather_subwindows``).
@@ -1732,8 +1741,9 @@ def fit_phase(model, train, tdata, val, vdata, kernels, count_path):
     count_path("fit (train steps, dot-path validations)",
                ["segment_gather", "score_wmax", "gather_windows",
                 "peel_values", "recover_winners", "dw_matmul", "spmm_fwd",
-                "spmm_bwd"],
-               ("window_max", "window_scores_from", "gather_windows_tiled"))
+                "spmm_bwd", "adam_step"],
+               ("window_max", "window_scores_from", "gather_windows_tiled"),
+               steps=FIT_EPOCHS * FIT_BATCHES)
     n_users = int(vdata.users_in_split.shape[0])
     for rec, wall in zip(records, walls):
         check_metrics(f"fit epoch {rec['epoch']}",
@@ -2030,6 +2040,91 @@ def check_train_kernels(tower, rows, users, data, dev) -> dict:
     profile_window(lambda: [spmm.spmm_bwd(cols, mask, g, n_cols)
                             for _ in range(10)], 10, "K7 calls, train batch")
     return out
+
+
+# K18's three instances (AdamW with decay, as the YAML; Adam with decay
+# added to the gradient; no decay), each held to its plain version over
+# ADAM_STEPS steps. Round-off only: K18 rounds as PyTorch's operations do on
+# the card and ``mu`` comes out bit-equal, but ``addcmul_`` rounds ``nu``
+# otherwise (up to ~4e-7 relative), which the update carries into ``p``
+ADAM_MODES = ((True, LEARN_CONF["wd"]), (False, LEARN_CONF["wd"]),
+              (True, 0.0))
+ADAM_STEPS, ADAM_RTOL = 3, 1e-6
+
+
+def check_adam_step(trainer) -> dict:
+    """K18 (`ops.adam.adam_step`) against its plain version on copies of
+    the trainer's own parameters, gradients and moments after a real SBNet
+    step, in each of ADAM_MODES (within ADAM_RTOL, with an absolute floor
+    of ADAM_RTOL times each tensor's largest value); then K18, the plain
+    version and ``torch._fused_adamw_`` (a yardstick the port never calls)
+    timed in turns on copies at the YAML's AdamW. Returns {"adam_step":
+    {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}}."""
+    import torch
+
+    from sibrar_tpu_torch.ops import adam
+
+    opt = trainer.optimizer
+    params = [p.detach() for p in opt.params]
+    grads = [p.grad for p in opt.params]
+    hyper = dict(lr=opt.lr, b1=opt.B1, b2=opt.B2, eps=opt.EPS)
+
+    def copies():
+        return ([p.clone() for p in params],
+                [opt.state[p]["mu"].clone() for p in opt.params],
+                [opt.state[p]["nu"].clone() for p in opt.params])
+
+    err = 0.0
+    for decoupled, wd in ADAM_MODES:
+        k18, ref = copies(), copies()
+        for count in range(opt.count + 1, opt.count + 1 + ADAM_STEPS):
+            for fn, (ps, mus, nus) in ((adam.adam_step, k18),
+                                       (adam.adam_step_plain, ref)):
+                fn(ps, grads, mus, nus, wd=wd, count=count,
+                   decoupled=decoupled, **hyper)
+        for key, gots, wants in zip(("p", "mu", "nu"), k18, ref):
+            for got, want in zip(gots, wants):
+                tol = ADAM_RTOL * (want.abs() + float(want.abs().max()))
+                if not bool(((got - want).abs() <= tol).all()):
+                    raise AssertionError(
+                        f"K18 adam_step (decoupled {decoupled}, wd {wd}) "
+                        f"differs from plain in {key} {tuple(got.shape)} "
+                        f"beyond rtol {ADAM_RTOL}: max abs err "
+                        f"{max_abs_err(got, want)}")
+                err = max(err, max_abs_err(got, want))
+        log(f"K18 adam_step, decoupled {decoupled}, wd {wd}: {ADAM_STEPS} "
+            f"steps from the trainer's state within rtol {ADAM_RTOL} of "
+            f"plain")
+        del k18, ref
+
+    dense = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    sets = {name: copies() for name in ("k18", "plain", "torch")}
+    steps = [torch.full((), float(opt.count + 1), device=params[0].device)
+             for _ in params]
+    wd = LEARN_CONF["wd"]
+
+    def run(fn, name):
+        return lambda: fn(*sets[name][:1], dense, *sets[name][1:], wd=wd,
+                          count=opt.count + 1, decoupled=True, **hyper)
+
+    ms = cuda_ms_turns({
+        "k18": run(adam.adam_step, "k18"),
+        "plain": run(adam.adam_step_plain, "plain"),
+        "torch": lambda: torch._fused_adamw_(
+            sets["torch"][0], dense, sets["torch"][1], sets["torch"][2], [],
+            steps, lr=opt.lr, beta1=opt.B1, beta2=opt.B2, weight_decay=wd,
+            eps=opt.EPS, amsgrad=False, maximize=False)}, iters=20)
+    n = sum(p.numel() for p in params)
+    # read p, g, mu, nu and write p, mu, nu: 28 bytes an element
+    out = dict(max_abs_err=err, ms=ms["k18"], plain_ms=ms["plain"],
+               library_ms=ms["torch"], **bound(28 * n))
+    log(f"K18 adam_step over the trainer's {len(params)} parameters ({n} "
+        f"elements): {out}; {100 * out['bound_ms'] / out['ms']:.1f} % of "
+        f"its byte bound")
+    del sets, dense
+    torch.cuda.empty_cache()
+    return {"adam_step": out}
 
 
 def check_spmm_bwd(cols, mask, g, n_cols: int, dev) -> float:
@@ -2548,7 +2643,8 @@ def cli_phase(splits, kernels, count_path, card: str) -> None:
         count_path("CLI train_val_test", ["segment_gather", "score_wmax",
                                           "gather_windows", "peel_values",
                                           "recover_winners", "dw_matmul",
-                                          "spmm_fwd", "spmm_bwd"])
+                                          "spmm_fwd", "spmm_bwd",
+                                          "adam_step"])
 
         files = sorted(os.listdir(run_dir))
         if files != ["conf.yml", "metrics_test.yml", "metrics_val.yml",
@@ -3171,7 +3267,7 @@ def determinism_phase(train, tdata, kernels, count_path) -> None:
                     counts = count_path(
                         "determinism, default first layer",
                         ["segment_gather", "dw_matmul", "spmm_fwd",
-                         "spmm_bwd"])
+                         "spmm_bwd", "adam_step"], steps=DETERMINISM_STEPS)
                     log(f"determinism: K6 spmm_fwd {counts['spmm_fwd']}, "
                         f"K7 spmm_bwd {counts['spmm_bwd']} launches in "
                         f"{DETERMINISM_STEPS} default-path steps")
@@ -3235,8 +3331,21 @@ def bf16_moments_phase(train, tdata) -> None:
     import numpy as np
     import torch
 
+    from sibrar_tpu_torch.ops import adam
+    from sibrar_tpu_torch.utils import trace
+
     trainer = sbnet_trainer(train, tdata, moment_dtype="bfloat16")
+    launches = adam.adam_step.launches
+    loop0 = trace.counter("optimizer.loop_params")
     run = train_window(trainer, BF16_STEPS)
+    looped = trace.counter("optimizer.loop_params") - loop0
+    n_params = len(trainer.optimizer.params)
+    if (adam.adam_step.launches != launches
+            or looped != BF16_STEPS * n_params):
+        raise AssertionError(f"bf16 moments: K18 launched "
+                             f"{adam.adam_step.launches - launches} times, "
+                             f"the loop stepped {looped} parameters in "
+                             f"{BF16_STEPS} steps of {n_params}")
     states = list(trainer.optimizer.state.values())
     if not np.isfinite(run["losses"]).all():
         raise AssertionError("bf16 moments: losses not finite")
@@ -3247,7 +3356,8 @@ def bf16_moments_phase(train, tdata) -> None:
                              "not finite")
     log(f"bf16 moments: {BF16_STEPS} steps, losses finite (last "
         f"{float(run['losses'][-1]):.5f}), {len(states)} first moments "
-        f"stored in bf16; host {run['host_ms']:.3f} ms/step")
+        f"stored in bf16, every step through the optimizer's loop (no K18 "
+        f"launch); host {run['host_ms']:.3f} ms/step")
 
 
 ZOO_CONF_DIR = os.path.dirname(CONF_PATH)
@@ -3315,6 +3425,8 @@ ZOO_KERNELS = {
     "ecf": ["segment_gather", "spmm_fwd", "spmm_bwd", "score_wmax",
             "exact_topk"],
 }
+for needed in ZOO_KERNELS.values():  # every family trains with Adam(W)
+    needed.append("adam_step")
 ZOO_ABSENT = {name: ("window_max",) for name in ZOO_KERNELS}
 ZOO_ABSENT["uiprotomfs"] = ("score_wmax",)
 # the families whose train step runs twice from one state, bit for bit
@@ -4022,7 +4134,7 @@ def sbnet_sweep(data_dir: str, root: str, kernels, count_path,
     count_path("SBNet sweep", ["segment_gather", "score_wmax",
                                "gather_windows", "peel_values",
                                "recover_winners", "dw_matmul", "spmm_fwd",
-                               "spmm_bwd"])
+                               "spmm_bwd", "adam_step"])
     line = printed.getvalue().strip().splitlines()[-1]
     log(f"SBNet sweep, sweep_agent's last line: {line}")
     best = json.loads(line)
@@ -4643,7 +4755,8 @@ MESH_WINDOWS = {
                  "peel_values", "recover_winners", "spmm_fwd", "exact_topk"),
     "dot": ("score_wmax", "gather_windows", "peel_values", "recover_winners",
             "exact_topk"),
-    "train": ("segment_gather", "dw_matmul", "spmm_fwd", "spmm_bwd"),
+    "train": ("segment_gather", "dw_matmul", "spmm_fwd", "spmm_bwd",
+              "adam_step"),
     "serve": ("segment_gather", "score_wmax", "gather_windows",
               "peel_values", "recover_winners", "exact_topk"),
 }
@@ -4757,6 +4870,11 @@ def mesh_phase(data_dir: str, run_dir: str, root: str, splits,
             if missing:
                 raise AssertionError(f"rank {res['rank']}'s mesh {window} "
                                      f"did not launch {missing}")
+            if window == "train" and (counts["adam_step"]
+                                      != res["train"]["steps"]):
+                raise AssertionError(
+                    f"rank {res['rank']}'s {res['train']['steps']} mesh "
+                    f"steps launched K18 {counts['adam_step']} times")
             for n, c in counts.items():
                 total[n] += c
         count_path(f"mesh {window} ({MESH_RANKS} ranks)", list(needed),
@@ -4817,8 +4935,8 @@ def mesh_rank(args_path: str) -> int:
     from sibrar_tpu_torch.experiment import _load_split, _run_conf
     from sibrar_tpu_torch.config.loader import load_split_type
     from sibrar_tpu_torch.models.sbnet import SingleBranchNet
-    from sibrar_tpu_torch.ops import _cuda, dw, exact_topk, peel, sparse, spmm
-    from sibrar_tpu_torch.ops import window
+    from sibrar_tpu_torch.ops import _cuda, adam, dw, exact_topk, peel, sparse
+    from sibrar_tpu_torch.ops import spmm, window
     from sibrar_tpu_torch.ops.window import pad_catalog
     from sibrar_tpu_torch.parallel import distributed as pdist
     from sibrar_tpu_torch.parallel.mesh import (
@@ -4853,7 +4971,7 @@ def mesh_rank(args_path: str) -> int:
                "dw_matmul": dw.dw_matmul,
                "spmm_fwd": spmm.spmm_fwd, "spmm_bwd": spmm.spmm_bwd,
                "exact_topk": exact_topk.exact_topk,
-               "window_max": peel.window_max}
+               "window_max": peel.window_max, "adam_step": adam.adam_step}
 
     # the port's collectives call gloo on CUDA tensors as they are: check
     # that it takes each of them here (every rank tries the same ones, so
@@ -5404,7 +5522,8 @@ def preprocess_phase(kernels, count_path, card: str) -> None:
         run = train_window(trainer, PREP_STEPS)
         count_path("preprocessed train path", ["segment_gather",
                                                "dw_matmul", "spmm_fwd",
-                                               "spmm_bwd"])
+                                               "spmm_bwd", "adam_step"],
+                   steps=PREP_STEPS)
         if not np.isfinite(run["losses"]).all():
             raise AssertionError("SBNet losses on the preprocessed split "
                                  "are not finite")
@@ -5504,8 +5623,9 @@ def main() -> int:
     from sibrar_tpu_torch.data.synthetic import make_onion_scale_splits
     from sibrar_tpu_torch.models import layers
     from sibrar_tpu_torch.models.sbnet import SingleBranchNet
-    from sibrar_tpu_torch.ops import _cuda, dw, gemm_probe, peel, roll, score
+    from sibrar_tpu_torch.ops import _cuda, adam, dw, gemm_probe, peel, roll
     from sibrar_tpu_torch.ops import exact_topk as xtopk
+    from sibrar_tpu_torch.ops import score
     from sibrar_tpu_torch.ops import mask as mask_ops
     from sibrar_tpu_torch.ops import sparse, spmm, window
     from sibrar_tpu_torch.serve import Recommender
@@ -5515,6 +5635,7 @@ def main() -> int:
         LearningConfig,
         Trainer,
     )
+    from sibrar_tpu_torch.utils import trace
 
     dev = torch.device(DEVICE)
     full_f32()
@@ -5562,7 +5683,10 @@ def main() -> int:
                 "sibrar_tpu/ops/pallas_score.py:47"),
                ("exact_topk", xtopk.exact_topk,
                 "sibrar_tpu_torch/csrc/exact_topk.cu",
-                "sibrar_tpu/ops/pallas_topk.py:102")]
+                "sibrar_tpu/ops/pallas_topk.py:102"),
+               ("adam_step", adam.adam_step,
+                "sibrar_tpu_torch/csrc/adam_step.cu",
+                "none: XLA fusion of optax")]
     # K14's six epilogues (the bisect probe's kernel bodies), K15-K17
     kernels += [(f"score_{variant}", gemm_probe.VARIANTS[variant],
                  "sibrar_tpu_torch/csrc/score_variants.cu",
@@ -5634,9 +5758,11 @@ def main() -> int:
     launches = {name: 0 for name, _, _, _ in kernels}
 
     def count_path(path: str, needed: list, absent: tuple = (),
-                   counts: dict | None = None) -> dict:
+                   counts: dict | None = None,
+                   steps: int | None = None) -> dict:
         """Gate and add the launches of a path: this process's counters,
-        or ``counts`` other processes reported."""
+        or ``counts`` other processes reported; a path of ``steps``
+        optimizer steps must launch K18 once a step."""
         if counts is None:
             counts = read_counts(kernels)
             if peel.gather_subwindows.launches:
@@ -5654,6 +5780,9 @@ def main() -> int:
         stray = [n for n in absent if counts[n]]
         if stray:
             raise AssertionError(f"{path} launched {stray}")
+        if steps is not None and counts["adam_step"] != steps:
+            raise AssertionError(f"the {path}'s {steps} optimizer steps "
+                                 f"launched K18 {counts['adam_step']} times")
         for name, n in counts.items():
             launches[name] += n
         return counts
@@ -5667,12 +5796,25 @@ def main() -> int:
     check_recorded("default train step", calls,
                    ("InteractionTower", "TagEmbeddingBag"))
     del calls
+    measured.update(check_adam_step(trainer))
     warm = train_window(trainer, TRAIN_WARMUP)
     reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
+    fused0, loop0 = (trace.counter(f"optimizer.{c}_params")
+                     for c in ("fused", "loop"))
     run = train_window(trainer, TRAIN_STEPS)
     count_path("default train path", ["segment_gather", "dw_matmul",
-                                      "spmm_fwd", "spmm_bwd"])
+                                      "spmm_fwd", "spmm_bwd", "adam_step"],
+               steps=TRAIN_STEPS)
+    n_params = len(trainer.optimizer.params)
+    fused, loop = (trace.counter(f"optimizer.{c}_params") - c0
+                   for c, c0 in (("fused", fused0), ("loop", loop0)))
+    if (fused, loop) != (TRAIN_STEPS * n_params, 0):
+        raise AssertionError(f"default train path: {fused} parameters "
+                             f"stepped by K18 and {loop} by the loop in "
+                             f"{TRAIN_STEPS} steps of {n_params}")
+    log(f"optimizer: {n_params} parameters a step through K18, none "
+        f"through the loop ({fused} and {loop} in {TRAIN_STEPS} steps)")
     losses = np.concatenate([warm["losses"], run["losses"]])
     first = float(run["losses"][:LOSS_WINDOW].mean())
     last = float(run["losses"][-LOSS_WINDOW:].mean())
@@ -5698,8 +5840,8 @@ def main() -> int:
         reset_counts(kernels)
         run = train_window(trainer, SPMM_STEPS)
         count_path("spmm train path",
-                   ["segment_gather", "spmm_fwd", "spmm_bwd"],
-                   ("dw_matmul",))
+                   ["segment_gather", "spmm_fwd", "spmm_bwd", "adam_step"],
+                   ("dw_matmul",), steps=SPMM_STEPS)
         trainer.learn.max_batches_per_epoch = PROFILE_STEPS
         profile_window(trainer.train_epoch, PROFILE_STEPS,
                        "train steps, INTERACTION_SPMM on")

@@ -56,11 +56,14 @@ _SIGNATURES = {
     "sibrar_lane_slice": [_P, _P, _LL, _I, _I, _P, _P],
     "sibrar_segment_roll": [_P, _LL, _P, _I, _I, _P, _P],
     "sibrar_mask_where": [_P, _P, _F, _LL, _P, _P],
+    "sibrar_adam_step": [_P, _I, *[_F] * 9, _I, _I, _P],
 }
-# Size queries: name -> argument types (each returns a byte count)
+# Size queries: name -> argument types (each returns a byte count, or
+# K18's tensors a launch)
 _QUERIES = {"sibrar_spmm_fwd_workspace": [_I, _I, _I],
             "sibrar_spmm_bwd_workspace": [_I, _I, _I],
-            "sibrar_score_bf16_workspace": [_I, _I]}
+            "sibrar_score_bf16_workspace": [_I, _I],
+            "sibrar_adam_step_max_tensors": []}
 
 _lib = None
 _fns: dict = {}  # C entry -> its ctypes function, resolved on first launch

@@ -59,6 +59,7 @@ from sibrar_tpu_torch.config.schema import (  # noqa: F401 (re-exported)
 from sibrar_tpu_torch.data.dataset import DeviceData, RecDataset
 from sibrar_tpu_torch.data.sampling import sample_negatives
 from sibrar_tpu_torch.eval.evaluator import FullEvaluator, evaluate_model
+from sibrar_tpu_torch.ops.adam import adam_step, adam_update_plain
 from sibrar_tpu_torch.parallel import distributed as pdist
 from sibrar_tpu_torch.parallel.mesh import (
     batch_group,
@@ -101,7 +102,15 @@ class Optimizer:
     rounded (to nearest even).
 
     ``state[p]`` holds ``mu`` / ``nu`` (Adam) or ``sum_of_squares``
-    (adagrad); ``count`` is the number of steps taken."""
+    (adagrad); ``count`` is the number of steps taken.
+
+    Each step, the Adam / AdamW parameters whose first moment has the
+    parameter's dtype (f32: K18 takes no other) go to `ops.adam.adam_step`
+    together (one launch of K18 on the card, its plain version on the
+    CPU); adagrad and bf16 first moments keep a loop over their
+    parameters. The counters
+    ``optimizer.fused_params`` and ``optimizer.loop_params`` count the
+    parameters each path stepped."""
 
     B1, B2, EPS, RSS_EPS = 0.9, 0.999, 1e-8, 1e-7
 
@@ -128,7 +137,19 @@ class Optimizer:
     @torch.no_grad()
     def step(self) -> None:
         self.count += 1
+        fused, loop = [], []
         for p in self.params:
+            (loop if self.kind == "adagrad"
+             or self.state[p]["mu"].dtype != p.dtype else fused).append(p)
+        trace.count("optimizer.fused_params", len(fused))
+        trace.count("optimizer.loop_params", len(loop))
+        if fused:
+            adam_step(fused, [p.grad for p in fused],
+                      [self.state[p]["mu"] for p in fused],
+                      [self.state[p]["nu"] for p in fused], lr=self.lr,
+                      wd=self.wd, b1=self.B1, b2=self.B2, eps=self.EPS,
+                      count=self.count, decoupled=self.kind == "adamw")
+        for p in loop:
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             st = self.state[p]
             if self.kind != "adamw" and self.wd:
@@ -137,20 +158,15 @@ class Optimizer:
                 ss = st["sum_of_squares"].addcmul_(g, g)
                 upd = torch.where(ss > 0, torch.rsqrt(ss + self.RSS_EPS),
                                   0.0) * g
-            else:
-                if st["mu"].dtype == p.dtype:
-                    mu = st["mu"].mul_(self.B1).add_(g, alpha=1 - self.B1)
-                else:  # bf16 storage, as optax: b1 * mu in bf16
-                    b1 = torch.tensor(self.B1, dtype=st["mu"].dtype)
-                    mu = (1 - self.B1) * g + (b1 * st["mu"]).to(p.dtype)
-                    st["mu"] = mu.to(st["mu"].dtype)
-                nu = st["nu"].mul_(self.B2).addcmul_(g, g, value=1 - self.B2)
-                mu_hat = mu / (1 - self.B1 ** self.count)
-                nu_hat = nu / (1 - self.B2 ** self.count)
-                upd = mu_hat / (nu_hat.sqrt() + self.EPS)
-                if self.kind == "adamw" and self.wd:
-                    upd = upd + self.wd * p
-            p.sub_(self.lr * upd)
+                p.sub_(self.lr * upd)
+            else:  # bf16 storage, as optax: b1 * mu in bf16
+                b1 = torch.tensor(self.B1, dtype=st["mu"].dtype)
+                mu = (1 - self.B1) * g + (b1 * st["mu"]).to(p.dtype)
+                st["mu"] = mu.to(st["mu"].dtype)
+                adam_update_plain(p, g, mu, st["nu"], lr=self.lr, wd=self.wd,
+                                  b1=self.B1, b2=self.B2, eps=self.EPS,
+                                  count=self.count,
+                                  decoupled=self.kind == "adamw")
 
 
 def build_optimizer(learn: LearningConfig,

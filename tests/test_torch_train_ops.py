@@ -424,8 +424,11 @@ def test_dropout_keep_rate_and_scaling():
 
 # --------------------------------------------------------------- optimizers
 @pytest.mark.parametrize("kind,wd", [("adam", 1e-2), ("adagrad", 1e-2),
-                                     ("adamw", 1e-2)])
+                                     ("adamw", 1e-2), ("adam", 0.0),
+                                     ("adamw", 0.0)])
 def test_optimizers_match_optax_over_three_steps(kind, wd):
+    """adam / adamw step through `ops.adam.adam_step` (its plain version
+    on the CPU), adagrad through the optimizer's loop."""
     rng = np.random.default_rng(10)
     shapes = [(7, 3), (5,)]
     params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
